@@ -12,8 +12,8 @@ Phases, in order; any failure exits non-zero:
 2. Build: every kernel source under ``dask_ml_tpu_torch/csrc`` with
    ``nvcc`` for sm_90a, all at once, timed.
 3. Kernels against their plain versions on the card, at ragged row counts
-   and (d, k) in {(50, 8), (64, 64), (3, 1000), (130, 300)}, with
-   fractional masks and candidate holes; plus a bitwise repeat (the
+   and (d, k) in {(50, 8), (64, 64), (3, 1000), (130, 300), (50, 1729)},
+   with fractional masks and candidate holes; plus a bitwise repeat (the
    kernels are deterministic).
 4. The main path at BASELINE ``configs[1]``: make_blobs 100M x 50 float32
    with 8 centres, generated on the card from a seed;
@@ -21,8 +21,13 @@ Phases, in order; any failure exits non-zero:
    ``predict(X)``.  Every kernel must have launched in that run; the fit
    must recover the centres.  A small explicit-init fit on the card must
    agree with the same fit on the CPU (the plain versions).
-5. Each kernel timed at the main path's shapes beside its plain version
-   and its bound; then the ``kernels`` line, the card line and the result.
+5. Each kernel held against its plain version again at the main path's
+   shape (100M x 50, k=8: row*d passes 2^31 there and the reduce's float32
+   chains are longest), then timed there beside its plain version and its
+   bound; ``lloyd_assign`` also at the last k-means|| round's shape (all
+   candidate slots, with holes), held and timed against its plain version
+   taken over row chunks.  Then the ``kernels`` line, the card line and the
+   result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -46,9 +51,11 @@ MAIN_D = 50
 MAIN_K = 8
 CHECK_ROWS = 1_000_003  # not a multiple of the 256-row tile
 # (3, 1000) tiles the centers; (130, 300) also chunks the features and
-# keeps the reduce's partial in global scratch
-CHECK_SHAPES = ((50, 8), (64, 64), (3, 1000), (130, 300))
+# keeps the reduce's partial in global scratch; (50, 1729) is the last
+# k-means|| round's candidate slots
+CHECK_SHAPES = ((50, 8), (64, 64), (3, 1000), (130, 300), (50, 1729))
 TOL = 1e-5
+CHUNK = 1 << 20  # rows per step where a float64 or plain pass would not fit
 
 
 def log(msg: str) -> None:
@@ -73,75 +80,106 @@ def check_inputs(torch, n, d, k, seed, device):
     return x, mask, centers, cvalid
 
 
-def near_tie(torch, x, centers, labels, cvalid=None):
-    """Rows whose two smallest d² are within TOL·(‖x‖²+‖c‖²): there the
+def near_ties_only(torch, x, centers, got, want, cvalid, what):
+    """Number of rows whose labels differ; raises unless each is a near-tie:
+    a row whose two smallest d² are within TOL·(‖x‖²+‖c‖²), where the
     float32 expansion may pick either center."""
-    rows = []
-    for s in range(0, x.shape[0], 1 << 18):
-        xs = x[s:s + (1 << 18)].double()
-        d2 = torch.cdist(xs, centers.double()) ** 2
+    rows = torch.nonzero(got != want)[:, 0]
+    c64 = centers.double()
+    cn = (c64 ** 2).sum(1)
+    for s in range(0, rows.shape[0], 1 << 16):
+        r = rows[s:s + (1 << 16)]
+        xs = x[r].double()
+        d2 = torch.cdist(xs, c64) ** 2
         if cvalid is not None:
             d2[:, cvalid <= 0] = float("inf")
         two = torch.topk(d2, min(2, d2.shape[1]), dim=1, largest=False).values
-        scale = (xs ** 2).sum(1) + (centers.double() ** 2).sum(1)[labels[s:s + (1 << 18)]]
-        rows.append((two[:, -1] - two[:, 0]) < TOL * scale)
-    return torch.cat(rows)
+        scale = (xs ** 2).sum(1) + cn[want[r]]
+        if not bool(((two[:, -1] - two[:, 0]) < TOL * scale).all()):
+            raise AssertionError(f"labels differ off near-ties at {what}")
+    return int(rows.shape[0])
+
+
+def sq_norms(torch, x):
+    """‖x‖² per row without an (n, d) temporary."""
+    return torch.linalg.vector_norm(x, dim=1) ** 2
+
+
+def hold_assign(torch, kernel, plain, x, centers, cvalid, what):
+    """``lloyd_assign`` (``kernel``: labels, min d², inertia) against its
+    plain version (``plain``): inertia rtol TOL, min d² within
+    TOL·(‖x‖²+max‖c‖²), labels equal off near-ties, no hole chosen.
+    Returns the largest absolute difference."""
+    kl, kd2, ki = kernel
+    rl, rd2, ri = plain
+    torch.testing.assert_close(ki, ri, rtol=TOL, atol=0)
+    scale = sq_norms(torch, x) + (centers * centers).sum(1).max()
+    if not bool(((kd2 - rd2).abs() <= TOL * scale).all()):
+        raise AssertionError(f"min_d2 differs at {what}")
+    n_diff = near_ties_only(torch, x, centers, kl, rl, cvalid, what)
+    if cvalid is not None and not bool((cvalid[kl] > 0).all()):
+        raise AssertionError(f"a candidate hole won the argmin at {what}")
+    log(f"  lloyd_assign        {what}: labels differing on near-ties {n_diff}")
+    return max(float((kd2 - rd2).abs().max()), float((ki - ri).abs()))
+
+
+def hold_reduce(torch, lloyd, x, mask, centers, labels, min_d2, what):
+    """``lloyd_assign_reduce`` twice (the same bits both times) against the
+    plain reduce taken in float64, over row chunks, on ``labels`` (the
+    assign kernel's, which computes the same distances): sums within TOL
+    of each cluster's Σ|mask·x|, counts and inertia rtol TOL.
+
+    The float32 plain reduce is not the yardstick: its ``index_add_``
+    accumulates in atomic order, with an error (~1e-5 of Σ|mask·x| at 10^6
+    rows) as large as the tolerance.  Returns the largest absolute
+    difference."""
+    sums, counts, inertia = lloyd.lloyd_assign_reduce(x, mask, centers)
+    again = lloyd.lloyd_assign_reduce(x, mask, centers)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((sums, counts, inertia), again)):
+        raise AssertionError(f"lloyd_assign_reduce is not deterministic at {what}")
+    k, d = centers.shape
+    s64 = torch.zeros(k, d, dtype=torch.float64, device=x.device)
+    mag = torch.zeros_like(s64)
+    c64 = torch.zeros(k, dtype=torch.float64, device=x.device)
+    i64 = torch.zeros((), dtype=torch.float64, device=x.device)
+    for s in range(0, x.shape[0], CHUNK):
+        m = mask[s:s + CHUNK].double()
+        lab = labels[s:s + CHUNK]
+        xm = x[s:s + CHUNK].double() * m[:, None]
+        s64.index_add_(0, lab, xm)
+        mag.index_add_(0, lab, xm.abs())
+        c64.index_add_(0, lab, m)
+        i64 += torch.sum(min_d2[s:s + CHUNK].double() * m)
+    worst = float(((sums.double() - s64).abs() / (mag + 1e-300)).max())
+    if worst > TOL:
+        raise AssertionError(f"sums differ by {worst:.3g} of Σ|mask·x| at {what}")
+    torch.testing.assert_close(counts.double(), c64, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(inertia.double(), i64, rtol=TOL, atol=0)
+    log(f"  lloyd_assign_reduce {what}: sums within {worst:.2e} of Σ|mask·x|, "
+        f"deterministic")
+    return max(float((sums.double() - s64).abs().max()),
+               float((counts.double() - c64).abs().max()),
+               float((inertia.double() - i64).abs()))
 
 
 def compare_kernels(torch, lloyd, device):
-    """Phase 3.  Returns the largest absolute difference per kernel.
-
-    The plain reduce's float32 ``index_add_`` accumulates in atomic order,
-    with an error (~1e-5 of Σ|mask·x| at 10^6 rows) as large as the
-    tolerance, so sums, counts and inertia are held to the plain versions
-    taken in float64 over the kernel's labels; those labels, min d² and
-    the assign's inertia are held to the float32 plain version directly.
-    """
-    from dask_ml_tpu_torch.ops.scatter import bucket_sum
-
+    """Phase 3.  Returns the largest absolute difference per kernel."""
     err = {"lloyd_assign_reduce": 0.0, "lloyd_assign": 0.0}
     for d, k in CHECK_SHAPES:
         x, mask, centers, cvalid = check_inputs(torch, CHECK_ROWS, d, k, d * k, device)
-        sums, counts, inertia = lloyd.lloyd_assign_reduce(x, mask, centers)
-        again = lloyd.lloyd_assign_reduce(x, mask, centers)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip((sums, counts, inertia), again)):
-            raise AssertionError(f"lloyd_assign_reduce is not deterministic at d={d} k={k}")
         for cv in (None, cvalid):
-            kl, kd2, ki = lloyd.lloyd_assign(x, mask, centers, cv)
+            what = f"d={d} k={k} cvalid={'holes' if cv is not None else 'none'}"
+            kernel = lloyd.lloyd_assign(x, mask, centers, cv)
             torch.cuda.synchronize()
-            rl, rd2, ri = lloyd.lloyd_assign_ref(x, mask, centers, cv)
-            torch.testing.assert_close(ki, ri, rtol=TOL, atol=0)
-            scale = (x * x).sum(1) + (centers * centers).sum(1).max()
-            if not bool(((kd2 - rd2).abs() <= TOL * scale).all()):
-                raise AssertionError(f"min_d2 differs at d={d} k={k}")
-            differ = kl != rl
-            n_diff = int(differ.sum())
-            if n_diff and not bool(near_tie(torch, x, centers, rl, cv)[differ].all()):
-                raise AssertionError(f"labels differ off near-ties at d={d} k={k}")
-            if cv is not None and not bool((cv[kl] > 0).all()):
-                raise AssertionError("a candidate hole won the argmin")
-            err["lloyd_assign"] = max(err["lloyd_assign"], float((kd2 - rd2).abs().max()),
-                                      float((ki - ri).abs()))
-            log(f"  lloyd_assign        d={d:3d} k={k:4d} cvalid={'holes' if cv is not None else 'none '}: "
-                f"labels differing on near-ties {n_diff}")
+            err["lloyd_assign"] = max(err["lloyd_assign"], hold_assign(
+                torch, kernel, lloyd.lloyd_assign_ref(x, mask, centers, cv),
+                x, centers, cv, what))
             if cv is None:
-                m64 = mask.double()
-                s64 = bucket_sum(x.double() * m64[:, None], kl, k)
-                c64 = bucket_sum(m64, kl, k)
-                i64 = torch.sum(kd2.double() * m64)
-                mag = bucket_sum(x.double().abs() * m64[:, None], kl, k)
-        worst = float(((sums.double() - s64).abs() / (mag + 1e-300)).max())
-        if worst > TOL:
-            raise AssertionError(f"sums differ by {worst:.3g} of Σ|mask·x| at d={d} k={k}")
-        torch.testing.assert_close(counts.double(), c64, rtol=TOL, atol=TOL)
-        torch.testing.assert_close(inertia.double(), i64, rtol=TOL, atol=0)
-        err["lloyd_assign_reduce"] = max(
-            err["lloyd_assign_reduce"], float((sums.double() - s64).abs().max()),
-            float((counts.double() - c64).abs().max()), float((inertia.double() - i64).abs()))
-        log(f"  lloyd_assign_reduce d={d:3d} k={k:4d}: sums within {worst:.2e} of Σ|mask·x|, "
-            f"deterministic")
-        del x, mask, centers, s64, mag
+                labels, min_d2 = kernel[0], kernel[1]
+        err["lloyd_assign_reduce"] = max(err["lloyd_assign_reduce"], hold_reduce(
+            torch, lloyd, x, mask, centers, labels, min_d2, f"d={d} k={k}"))
+        del x, mask, centers, kernel, labels, min_d2
         torch.cuda.synchronize()
     return err
 
@@ -161,15 +199,19 @@ def make_blobs(torch, n, d, k, seed, device):
 
 
 class PhaseTimes(logging.Handler):
-    """Reads the fit's own phase timers (``utils._timer``)."""
+    """Reads the fit's own phase timers (``utils._timer``) and the size of
+    the k-means|| candidate set (slots, valid ones)."""
 
     def __init__(self):
         super().__init__(logging.DEBUG)
         self.seconds = {}
+        self.candidates = None
 
     def emit(self, record):
         if record.msg.startswith("Finished %s in"):
             self.seconds[record.args[0]] = record.args[1]
+        elif record.msg.startswith("k-means|| %d candidate slots"):
+            self.candidates = record.args
 
 
 def time_ms(torch, fn, reps):
@@ -261,15 +303,27 @@ def main_path(torch, lloyd, device, n, d, k):
     if labels.shape != (n,) or not bool(((labels >= 0) & (labels < k)).all()):
         raise AssertionError("predict returned malformed labels")
     log(f"inertia_/n {per_row:.4f} (<= {1.05 * d}), worst centre error {float(gap.max()):.5f}")
-    return X, est, launches
+    if timer.candidates is None:
+        raise AssertionError("the fit logged no k-means|| candidate set")
+    return X, est, launches, timer.candidates
 
 
-def kernel_table(torch, lloyd, X, centers, launches, max_err, card):
-    """Phase 5: each kernel at the main path's shapes (CUDA events), its
-    plain version, and its bound."""
+def kernel_table(torch, lloyd, X, centers, launches, card):
+    """Phase 5: each kernel held against its plain version at the main
+    path's shapes, then timed there (CUDA events) beside its plain version
+    and its bound.  ``max_abs_err`` is that check's."""
     (n, d), k = X.shape, centers.shape[0]
     mask = torch.ones(n, device=X.device)
     centers = centers.contiguous()
+    what = f"{n}x{d} k={k}"
+    log(f"phase 5: kernels vs plain versions at the main path's shape {what}, rtol {TOL}")
+    kernel = lloyd.lloyd_assign(X, mask, centers)
+    torch.cuda.synchronize()
+    max_err = {"lloyd_assign": hold_assign(
+        torch, kernel, lloyd.lloyd_assign_ref(X, mask, centers), X, centers, None, what)}
+    max_err["lloyd_assign_reduce"] = hold_reduce(
+        torch, lloyd, X, mask, centers, kernel[0], kernel[1], what)
+    del kernel
     specs = [
         ("lloyd_assign_reduce", lambda: lloyd.lloyd_assign_reduce(X, mask, centers),
          lambda: lloyd.lloyd_assign_reduce_ref(X, mask, centers),
@@ -287,7 +341,7 @@ def kernel_table(torch, lloyd, X, centers, launches, max_err, card):
         ms = time_ms(torch, kern, 10)
         plain_ms = time_ms(torch, plain, 3)
         b_ms, b_by = bound_ms(nbytes, flops)
-        log(f"{name} at {n}x{d} k={k}: {ms:.4f} ms, {n / ms * 1e3:.4g} rows/s "
+        log(f"{name} at {what}: {ms:.4f} ms, {n / ms * 1e3:.4g} rows/s "
             f"(plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
             f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP) [{card}]")
         out.append({"name": name, "route": "cuda",
@@ -296,6 +350,43 @@ def kernel_table(torch, lloyd, X, centers, launches, max_err, card):
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": None})
     return out
+
+
+def candidate_pass(torch, lloyd, X, slots, valid, card):
+    """``lloyd_assign`` at the last k-means|| round's shape: every row
+    against ``slots`` candidate rows, ``valid`` of them valid (the fit's
+    own counts), the rest holes.  Held against its plain version, which
+    runs over row chunks (its (n, slots) distances would not fit), then
+    both timed.  The bound counts the valid slots' work, what the data
+    needs; the kernel also computes the holes, so the all-slot float32
+    time is printed beside it."""
+    n, d = X.shape
+    gen = torch.Generator(device=X.device).manual_seed(7)
+    cand = X[torch.randint(0, n, (slots,), generator=gen, device=X.device)].contiguous()
+    cvalid = torch.zeros(slots, device=X.device)
+    cvalid[torch.randperm(slots, generator=gen, device=X.device)[:valid]] = 1.0
+    mask = torch.ones(n, device=X.device)
+    what = f"{n}x{d} against {slots} slots, {valid} valid"
+    log(f"phase 5: lloyd_assign vs its plain version at the k-means|| shape {what}")
+    kl, kd2, ki = lloyd.lloyd_assign(X, mask, cand, cvalid)
+    torch.cuda.synchronize()
+
+    def plain():
+        parts = [lloyd.lloyd_assign_ref(X[s:s + CHUNK], mask[s:s + CHUNK], cand, cvalid)
+                 for s in range(0, n, CHUNK)]
+        return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
+                torch.stack([p[2] for p in parts]).sum())
+
+    err = hold_assign(torch, (kl, kd2, ki), plain(), X, cand, cvalid, what)
+    del kl, kd2
+    ms = time_ms(torch, lambda: lloyd.lloyd_assign(X, mask, cand, cvalid), 3)
+    plain_ms = time_ms(torch, plain, 1)
+    nbytes = n * d * 4 + n * 4 + slots * (d + 1) * 4 + n * 12 + 4
+    b_ms, b_by = bound_ms(nbytes, n * (2 * d + 2 * d * valid + 4 * valid + 2))
+    all_ms = 1e3 * n * 2 * d * slots / FP32_FLOPS
+    log(f"lloyd_assign at {what}: {ms:.4f} ms (plain over {CHUNK}-row chunks "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} for the valid slots, "
+        f"{all_ms:.4f} ms of float32 FMA for all slots; max abs err {err:.6g}) [{card}]")
 
 
 def main() -> int:
@@ -320,8 +411,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in _build.SRC_DIR.glob("*.cu"))
     _build.build(sources)
-    log(f"build: {sources} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_build.build_seconds})")
+    log(f"build: {sources} in {time.perf_counter() - t0:.1f} s")
     for src in sources:
         for line in (_build.BUILD_DIR / f"{src}.ptxas.txt").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -329,15 +419,17 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     log(f"phase 3: kernels vs plain versions, n={CHECK_ROWS}, rtol {TOL}")
-    max_err = compare_kernels(torch, lloyd, device)
+    log(f"phase 3 largest absolute differences: {compare_kernels(torch, lloyd, device)}")
 
     small_fit(torch, device)
 
     # 4. the main path
-    X, est, launches = main_path(torch, lloyd, device, MAIN_ROWS, MAIN_D, MAIN_K)
+    X, est, launches, (slots, valid) = main_path(torch, lloyd, device, MAIN_ROWS,
+                                                 MAIN_D, MAIN_K)
 
-    # 5. kernels at the main path's shapes: time, plain time, bound
-    out = kernel_table(torch, lloyd, X, est.cluster_centers_, launches, max_err, card)
+    # 5. kernels at the main path's shapes: check, time, plain time, bound
+    out = kernel_table(torch, lloyd, X, est.cluster_centers_, launches, card)
+    candidate_pass(torch, lloyd, X, slots, valid, card)
     del X
     torch.cuda.synchronize()
 

@@ -142,6 +142,16 @@ def _draw_without_replacement(weights, m, gen):
     return torch.topk(keys, m).indices
 
 
+def _candidate_weights(mask, closest, n_slots):
+    """The mass of the rows closest to each candidate slot, in float64.
+
+    A float32 count stops growing at 2^24 rows (16777216 + 1 rounds back),
+    which a dense blob at 100M rows passes; in float64 unit masks sum
+    exactly in any order, so the atomic ``index_add_`` on the card gives
+    the same weights from run to run."""
+    return bucket_sum(mask.to(torch.float64), closest, n_slots)
+
+
 def _host_seed(gen) -> int:
     return int(torch.randint(0, 2**31 - 1, (1,), generator=gen,
                              device=gen.device))
@@ -241,10 +251,11 @@ def init_scalable(X: ShardedRows, n_clusters: int, gen, oversampling_factor=2,
 
     # weight each candidate by the mass of the rows closest to it
     closest, _, _ = lloyd_assign(x, mask, centers, cvalid)
-    weights_dev = bucket_sum(mask, closest, centers.shape[0])
+    weights_dev = _candidate_weights(mask, closest, centers.shape[0])
     keep = (cvalid > 0).cpu().numpy()
     cand = centers.cpu().numpy().astype(np.float64)[keep]
-    weights = weights_dev.cpu().numpy().astype(np.float64)[keep]
+    weights = weights_dev.cpu().numpy()[keep]
+    logger.debug("k-means|| %d candidate slots, %d valid", keep.shape[0], cand.shape[0])
 
     if cand.shape[0] <= n_clusters:
         # degenerate: fewer candidates than clusters; pad with random rows

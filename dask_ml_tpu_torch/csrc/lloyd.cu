@@ -43,17 +43,20 @@ constexpr int GMAX = 8;      // row groups in the reduce
 constexpr size_t SMEM_BUDGET = 200 * 1024;
 constexpr int MAX_BLOCKS_PER_SM = 4;
 
+// A launch's plan: made once per call by lloyd_plan, which hands it to the
+// caller as 8 int64s to size the scratch, and passed back to the launch.
 struct Plan {
-  int w;            // staged chunk width, min(d, DCH)
-  int dp;           // row stride of the staged tile, odd: no bank conflicts
-  int groups;       // row groups in the reduce (0: no reduce)
-  int p_in_smem;    // the (groups, k*d + k) partial lives in shared memory;
-                    // else groups == 1 and it is the block's own record
-  size_t smem;      // dynamic shared bytes per block
-  int blocks;
-  long long rec;    // floats per block record: k*d + k + 1, or 1
-  long long scratch;  // floats of scratch the call needs
+  long long w;          // staged chunk width, min(d, DCH)
+  long long dp;         // row stride of the staged tile, odd: no bank conflicts
+  long long groups;     // row groups in the reduce (0: no reduce)
+  long long p_in_smem;  // the (groups, k*d + k) partial lives in shared memory;
+                        // else groups == 1 and it is the block's own record
+  long long smem;       // dynamic shared bytes per block
+  long long blocks;
+  long long rec;        // floats per block record: k*d + k + 1, or 1
+  long long scratch;    // floats of scratch the call needs
 };
+static_assert(sizeof(Plan) == 8 * sizeof(long long), "Plan is 8 int64s");
 
 __device__ __forceinline__ void stage_x(float* x_s, const float* __restrict__ x,
                                         long long r0, int rows, int d, int j0,
@@ -107,7 +110,7 @@ lloyd_kernel(const float* __restrict__ x, const float* __restrict__ mask,
              float* __restrict__ bpart) {
   extern __shared__ __align__(16) float smem[];
   const int t = threadIdx.x;
-  const int w = p.w, dp = p.dp, G = p.groups;
+  const int w = (int)p.w, dp = (int)p.dp, G = (int)p.groups;
   float* x_s = smem;
   float* c_s = x_s + T * dp;
   int* lab_s = reinterpret_cast<int*>(c_s + CT * w);
@@ -255,13 +258,13 @@ cudaError_t make_plan(long long n, int d, int k, bool reduce, Plan* p) {
   const size_t part = (size_t)p->groups * ((size_t)k * d + k) * sizeof(float);
   p->p_in_smem = reduce && base + part <= SMEM_BUDGET;
   if (reduce && !p->p_in_smem) p->groups = 1;
-  p->smem = base + (p->p_in_smem ? part : 0);
+  p->smem = (long long)(base + (p->p_in_smem ? part : 0));
   const void* fn = reduce ? (const void*)lloyd_kernel<true>
                           : (const void*)lloyd_kernel<false>;
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)p->smem);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, T, p->smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, T, (size_t)p->smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) per_sm = 1;
   if (per_sm > MAX_BLOCKS_PER_SM) per_sm = MAX_BLOCKS_PER_SM;
@@ -269,7 +272,7 @@ cudaError_t make_plan(long long n, int d, int k, bool reduce, Plan* p) {
   if (reduce && !p->p_in_smem) per_sm = 1;
   const long long ntiles = (n + T - 1) / T;
   const long long most = (long long)sms * per_sm;
-  p->blocks = (int)(ntiles < most ? ntiles : most);
+  p->blocks = ntiles < most ? ntiles : most;
   p->rec = reduce ? (long long)k * d + k + 1 : 1;
   p->scratch = k + (long long)p->blocks * p->rec;
   return cudaSuccess;
@@ -283,50 +286,46 @@ const char* lloyd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Floats of scratch a call with these sizes needs, or -1 on a CUDA error.
-long long lloyd_scratch_floats(long long n, int d, int k, int reduce) {
-  Plan p;
-  if (make_plan(n, d, k, reduce != 0, &p) != cudaSuccess) return -1;
-  return p.scratch;
+// Plans a call with these sizes into plan (8 int64s; plan[7] is the floats
+// of scratch it needs), to be passed back to the launch.
+int lloyd_plan(long long n, int d, int k, int reduce, void* plan) {
+  return (int)make_plan(n, d, k, reduce != 0, (Plan*)plan);
 }
 
 // x (n,d), mask (n,), centers (k,d): float32, contiguous, on one device.
 // out: k*d sums, then k counts, then the inertia (k*d + k + 1 floats).
 int lloyd_assign_reduce(const void* x, const void* mask, const void* centers,
-                        long long n, int d, int k, void* scratch, void* out,
-                        void* stream) {
-  Plan p;
-  cudaError_t err = make_plan(n, d, k, true, &p);
-  if (err != cudaSuccess) return (int)err;
+                        long long n, int d, int k, const void* plan,
+                        void* scratch, void* out, void* stream) {
+  const Plan p = *(const Plan*)plan;
   cudaStream_t s = (cudaStream_t)stream;
   float* cn = (float*)scratch;
   float* bpart = cn + k;
   cnorm_kernel<<<(k + 127) / 128, 128, 0, s>>>((const float*)centers, k, d, cn);
-  lloyd_kernel<true><<<p.blocks, T, p.smem, s>>>(
+  lloyd_kernel<true><<<(int)p.blocks, T, (size_t)p.smem, s>>>(
       (const float*)x, (const float*)mask, (const float*)centers, cn, nullptr,
       n, d, k, p, nullptr, nullptr, bpart);
   const long long fb = (p.rec + 255) / 256;
   finalize_kernel<<<(int)(fb < 1024 ? fb : 1024), 256, 0, s>>>(
-      bpart, p.blocks, p.rec, (float*)out);
+      bpart, (int)p.blocks, p.rec, (float*)out);
   return (int)cudaGetLastError();
 }
 
 // x (n,d), mask (n,), centers (k,d), cvalid (k,) or null: float32.
 // labels (n,) int64, mind2 (n,) float32, inertia (1,) float32.
 int lloyd_assign(const void* x, const void* mask, const void* centers,
-                 const void* cvalid, long long n, int d, int k, void* labels,
-                 void* mind2, void* scratch, void* inertia, void* stream) {
-  Plan p;
-  cudaError_t err = make_plan(n, d, k, false, &p);
-  if (err != cudaSuccess) return (int)err;
+                 const void* cvalid, long long n, int d, int k, const void* plan,
+                 void* labels, void* mind2, void* scratch, void* inertia,
+                 void* stream) {
+  const Plan p = *(const Plan*)plan;
   cudaStream_t s = (cudaStream_t)stream;
   float* cn = (float*)scratch;
   float* bpart = cn + k;
   cnorm_kernel<<<(k + 127) / 128, 128, 0, s>>>((const float*)centers, k, d, cn);
-  lloyd_kernel<false><<<p.blocks, T, p.smem, s>>>(
+  lloyd_kernel<false><<<(int)p.blocks, T, (size_t)p.smem, s>>>(
       (const float*)x, (const float*)mask, (const float*)centers, cn,
       (const float*)cvalid, n, d, k, p, (int64_t*)labels, (float*)mind2, bpart);
-  finalize_kernel<<<1, 32, 0, s>>>(bpart, p.blocks, 1, (float*)inertia);
+  finalize_kernel<<<1, 32, 0, s>>>(bpart, (int)p.blocks, 1, (float*)inertia);
   return (int)cudaGetLastError();
 }
 

@@ -15,7 +15,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -25,9 +24,6 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()
 _libs: dict = {}
-#: seconds each library took to build in this process (0.0 when loaded
-#: from an earlier build)
-build_seconds: dict = {}
 
 
 def _nvcc() -> str:
@@ -43,39 +39,41 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _compile(src: Path) -> Path:
+def _library(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
-    if out.exists():
-        build_seconds[src.stem] = 0.0
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed on {src.name} ({proc.returncode}):\n{proc.stderr}")
-    build_seconds[src.stem] = time.perf_counter() - t0
-    (BUILD_DIR / f"{src.stem}.ptxas.txt").write_text(proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
-    return out
+    return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
 def build(names) -> dict:
-    """Compile the named sources in parallel (one ``nvcc`` each) and load
-    them; returns {name: ctypes.CDLL}."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    """Compile the named sources, one ``nvcc`` each, all started together,
+    and load them; returns {name: ctypes.CDLL}.  ``nvcc``'s register and
+    spill report goes to ``_build/<name>.ptxas.txt``."""
     with _lock:
-        todo = [n for n in names if n not in _libs]
-        if todo:
-            with ThreadPoolExecutor(len(todo)) as pool:
-                paths = list(pool.map(lambda n: _compile(SRC_DIR / f"{n}.cu"), todo))
-            for name, path in zip(todo, paths):
-                _libs[name] = ctypes.CDLL(str(path))
+        jobs = {}
+        for name in names:
+            out = _library(name)
+            if name in _libs or out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                   "-Xptxas", "-v", "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+            jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                           text=True), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in jobs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name}.cu ({proc.returncode}):\n{err}")
+                continue
+            (BUILD_DIR / f"{name}.ptxas.txt").write_text(err)
+            os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(str(_library(name)))
         return {n: _libs[n] for n in names}
 
 
@@ -83,4 +81,3 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     lib = _libs.get(name)
     return lib if lib is not None else build([name])[name]
-

@@ -29,13 +29,13 @@ def _load():
     global _lib
     if _lib is None:
         lib = _build.load("lloyd")
-        lib.lloyd_scratch_floats.argtypes = [_LL, _INT, _INT, _INT]
-        lib.lloyd_scratch_floats.restype = _LL
+        lib.lloyd_plan.argtypes = [_LL, _INT, _INT, _INT, _VP]
+        lib.lloyd_plan.restype = _INT
         lib.lloyd_assign_reduce.argtypes = [_VP, _VP, _VP, _LL, _INT, _INT,
-                                            _VP, _VP, _VP]
+                                            _VP, _VP, _VP, _VP]
         lib.lloyd_assign_reduce.restype = _INT
         lib.lloyd_assign.argtypes = [_VP, _VP, _VP, _VP, _LL, _INT, _INT,
-                                     _VP, _VP, _VP, _VP, _VP]
+                                     _VP, _VP, _VP, _VP, _VP, _VP]
         lib.lloyd_assign.restype = _INT
         lib.lloyd_error_string.argtypes = [_INT]
         lib.lloyd_error_string.restype = ctypes.c_char_p
@@ -81,11 +81,11 @@ def _validate(x, mask, centers, cvalid=None):
     return n, d, k
 
 
-def _scratch(lib, n, d, k, reduce, device):
-    floats = lib.lloyd_scratch_floats(n, d, k, int(reduce))
-    if floats < 0:
-        raise RuntimeError("lloyd_scratch_floats: CUDA error while planning")
-    return torch.empty(floats, dtype=torch.float32, device=device)
+def _plan(lib, n, d, k, reduce, device):
+    """The launch's plan (8 int64s, made once) and the scratch it needs."""
+    plan = (ctypes.c_longlong * 8)()
+    _check(lib, lib.lloyd_plan(n, d, k, int(reduce), plan), "lloyd_plan")
+    return plan, torch.empty(plan[7], dtype=torch.float32, device=device)
 
 
 def _valid_d2(x, centers, cvalid):
@@ -129,10 +129,10 @@ def lloyd_assign_reduce(x, mask, centers):
     lib = _load()
     with torch.cuda.device(x.device):
         out = torch.empty(k * d + k + 1, dtype=torch.float32, device=x.device)
-        scratch = _scratch(lib, n, d, k, True, x.device)
+        plan, scratch = _plan(lib, n, d, k, True, x.device)
         err = lib.lloyd_assign_reduce(
             x.data_ptr(), mask.data_ptr(), centers.data_ptr(), n, d, k,
-            scratch.data_ptr(), out.data_ptr(),
+            plan, scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "lloyd_assign_reduce")
     lloyd_assign_reduce.launches += 1
@@ -154,11 +154,11 @@ def lloyd_assign(x, mask, centers, cvalid=None):
         labels = torch.empty(n, dtype=torch.int64, device=x.device)
         min_d2 = torch.empty(n, dtype=torch.float32, device=x.device)
         inertia = torch.empty(1, dtype=torch.float32, device=x.device)
-        scratch = _scratch(lib, n, d, k, False, x.device)
+        plan, scratch = _plan(lib, n, d, k, False, x.device)
         err = lib.lloyd_assign(
             x.data_ptr(), mask.data_ptr(), centers.data_ptr(),
             None if cvalid is None else cvalid.data_ptr(), n, d, k,
-            labels.data_ptr(), min_d2.data_ptr(), scratch.data_ptr(),
+            plan, labels.data_ptr(), min_d2.data_ptr(), scratch.data_ptr(),
             inertia.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "lloyd_assign")
     lloyd_assign.launches += 1

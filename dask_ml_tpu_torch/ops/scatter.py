@@ -30,7 +30,7 @@ def scatter_strategy(num_segments: int | None = None,
     return "segsum" if strategy == "auto" else strategy
 
 
-def bucket_sum(values, ids, num_segments: int, *, strategy: str | None = None):
+def bucket_sum(values, ids, num_segments: int, *, strategy: str = "auto"):
     """Sum ``values`` ((n,) or (n, d)) into buckets given by ``ids``.
 
     Pre-weight ``values`` for weighted accumulation.
@@ -44,11 +44,7 @@ def bucket_sum(values, ids, num_segments: int, *, strategy: str | None = None):
             f"values and ids disagree on the row count: values has "
             f"{values.shape[0]} rows, ids has {ids.shape[0]}"
         )
-    if strategy is not None and strategy not in _STRATEGIES:
-        raise ValueError(
-            f"strategy must be 'segsum' or 'onehot', got {strategy!r}"
-        )
-    strategy = scatter_strategy(num_segments, strategy or "auto")
+    strategy = scatter_strategy(num_segments, strategy)
     if strategy == "segsum":
         out = values.new_zeros((num_segments,) + tuple(values.shape[1:]))
         return out.index_add_(0, ids.to(torch.int64), values)

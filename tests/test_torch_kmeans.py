@@ -144,6 +144,17 @@ def test_draws_follow_the_weights():
     assert sorted(picks.tolist()) == [0, 2, 3]
 
 
+def test_candidate_weights_count_past_float32_integers():
+    # one candidate closest to more than 2^24 unit-weight rows: a float32
+    # count would stop at 16777216
+    n = 2**24 + 3
+    closest = torch.zeros(n, dtype=torch.int64)
+    closest[:2] = 1
+    weights = km._candidate_weights(torch.ones(n), closest, 3)
+    assert weights.dtype == torch.float64
+    assert weights.tolist() == [2**24 + 1, 2, 0]
+
+
 def test_fit_checkpoint_is_not_ported_yet():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KMeans(n_clusters=2, fit_checkpoint=object()).fit(np.ones((8, 2), np.float32))
