@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero:
 3. Kernels against their plain versions on the card, at ragged row counts
    and (d, k) in {(50, 8), (64, 64), (3, 1000), (130, 300), (50, 1729)},
    with fractional masks and candidate holes; plus a bitwise repeat (the
-   kernels are deterministic).
+   kernels are deterministic).  ``lloyd_assign`` also against 1729 slots
+   with duplicated candidates (exact ties go to the earlier slot) and with
+   a single valid slot; it computes only the valid slots.
 4. The main path at BASELINE ``configs[1]``: make_blobs 100M x 50 float32
    with 8 centres, generated on the card from a seed;
    ``KMeans(n_clusters=8, random_state=0).fit(X)`` (k-means|| init), then
@@ -25,9 +27,9 @@ Phases, in order; any failure exits non-zero:
    shape (100M x 50, k=8: row*d passes 2^31 there and the reduce's float32
    chains are longest), then timed there beside its plain version and its
    bound; ``lloyd_assign`` also at the last k-means|| round's shape (all
-   candidate slots, with holes), held and timed against its plain version
-   taken over row chunks.  Then the ``kernels`` line, the card line and the
-   result.
+   candidate slots, with holes; the kernel computes the valid ones), held
+   and timed against its plain version taken over row chunks.  Then the
+   ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import json
 import logging
+import re
 import subprocess
 import sys
 import time
@@ -67,6 +70,22 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(report):
+    """Each kernel's registers and spills from ``nvcc -Xptxas -v``, named
+    by its kernel and tile (``assign_kernel<8,8,16,...>``)."""
+    name, out = "?", []
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            mangled = m.group(1)
+            kern = re.search(r"\d([a-z_]+_kernel)", mangled)
+            tile = re.findall(r"Li(\d+)E", mangled)
+            name = (kern.group(1) if kern else mangled) + (f"<{','.join(tile)}>" if tile else "")
+        elif "registers" in line or "spill" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def check_inputs(torch, n, d, k, seed, device):
@@ -181,6 +200,43 @@ def compare_kernels(torch, lloyd, device):
             torch, lloyd, x, mask, centers, labels, min_d2, f"d={d} k={k}"))
         del x, mask, centers, kernel, labels, min_d2
         torch.cuda.synchronize()
+    for what, n_valid, dup in (("duplicated candidates", 502, True),
+                               ("one valid slot", 1, False)):
+        err["lloyd_assign"] = max(err["lloyd_assign"], hold_candidates(
+            torch, lloyd, device, 50, 1729, n_valid, dup, what))
+    return err
+
+
+def hold_candidates(torch, lloyd, device, d, slots, n_valid, dup, what):
+    """``lloyd_assign`` against ``slots`` candidate rows of x with
+    ``n_valid`` valid (one: the last slot).  ``dup``: six valid slots
+    repeat an earlier valid one, and no row may go to the later copy.
+    The kernel must compute ``n_valid`` centers, no more."""
+    x, mask, _, _ = check_inputs(torch, CHECK_ROWS, d, slots, slots + n_valid, device)
+    gen = torch.Generator(device=device).manual_seed(n_valid)
+    cand = x[torch.randperm(CHECK_ROWS, generator=gen, device=device)[:slots]].clone()
+    cvalid = torch.zeros(slots, device=device)
+    if n_valid == 1:
+        cvalid[-1] = 1.0
+    else:
+        cvalid[0] = 1.0
+        cvalid[1 + torch.randperm(slots - 1, generator=gen, device=device)[:n_valid - 1]] = 1.0
+    valid = torch.nonzero(cvalid)[:, 0].tolist()
+    pairs = list(zip(valid[0:12:2], valid[1:12:2])) if dup else []
+    for lo, hi in pairs:
+        cand[hi] = cand[lo]
+    kernel = lloyd.lloyd_assign(x, mask, cand, cvalid)
+    torch.cuda.synchronize()
+    if lloyd.lloyd_assign.last_k != n_valid:
+        raise AssertionError(f"the kernel computed {lloyd.lloyd_assign.last_k} centers, "
+                             f"not the {n_valid} valid of {slots} slots, at {what}")
+    for lo, hi in pairs:
+        if bool((kernel[0] == hi).any()):
+            raise AssertionError(f"an exact tie went to slot {hi}, not {lo}, at {what}")
+    err = hold_assign(torch, kernel, lloyd.lloyd_assign_ref(x, mask, cand, cvalid),
+                      x, cand, cvalid, f"d={d} {slots} slots, {what}")
+    log(f"  lloyd_assign        {what}: {slots} slots, {n_valid} valid, "
+        f"{lloyd.lloyd_assign.last_k} computed")
     return err
 
 
@@ -199,19 +255,23 @@ def make_blobs(torch, n, d, k, seed, device):
 
 
 class PhaseTimes(logging.Handler):
-    """Reads the fit's own phase timers (``utils._timer``) and the size of
-    the k-means|| candidate set (slots, valid ones)."""
+    """Reads the fit's own phase timers (``utils._timer``), the size of the
+    k-means|| candidate set (slots, valid ones) and the centers that the
+    kernel computed in the last k-means|| pass, which that log line follows."""
 
-    def __init__(self):
+    def __init__(self, lloyd):
         super().__init__(logging.DEBUG)
+        self.lloyd = lloyd
         self.seconds = {}
         self.candidates = None
+        self.computed = None
 
     def emit(self, record):
         if record.msg.startswith("Finished %s in"):
             self.seconds[record.args[0]] = record.args[1]
         elif record.msg.startswith("k-means|| %d candidate slots"):
             self.candidates = record.args
+            self.computed = self.lloyd.lloyd_assign.last_k
 
 
 def time_ms(torch, fn, reps):
@@ -266,7 +326,7 @@ def main_path(torch, lloyd, device, n, d, k):
     X, truth = make_blobs(torch, n, d, k, 0, device)
     torch.cuda.synchronize()
     log(f"phase 4: make_blobs {n}x{d} k={k} on the card in {time.perf_counter() - t0:.2f} s")
-    timer = PhaseTimes()
+    timer = PhaseTimes(lloyd)
     km_logger = logging.getLogger("dask_ml_tpu_torch.cluster.k_means")
     km_logger.addHandler(timer)
     km_logger.setLevel(logging.DEBUG)
@@ -305,6 +365,11 @@ def main_path(torch, lloyd, device, n, d, k):
     log(f"inertia_/n {per_row:.4f} (<= {1.05 * d}), worst centre error {float(gap.max()):.5f}")
     if timer.candidates is None:
         raise AssertionError("the fit logged no k-means|| candidate set")
+    slots, valid = timer.candidates
+    log(f"last k-means|| pass: {slots} candidate slots, {valid} valid, "
+        f"{timer.computed} computed by the kernel")
+    if timer.computed != valid:
+        raise AssertionError("the last k-means|| pass computed other centers than the valid ones")
     return X, est, launches, timer.candidates
 
 
@@ -357,9 +422,8 @@ def candidate_pass(torch, lloyd, X, slots, valid, card):
     against ``slots`` candidate rows, ``valid`` of them valid (the fit's
     own counts), the rest holes.  Held against its plain version, which
     runs over row chunks (its (n, slots) distances would not fit), then
-    both timed.  The bound counts the valid slots' work, what the data
-    needs; the kernel also computes the holes, so the all-slot float32
-    time is printed beside it."""
+    both timed.  The wrapper drops the holes, so the kernel computes the
+    ``valid`` slots only; the bound counts their work."""
     n, d = X.shape
     gen = torch.Generator(device=X.device).manual_seed(7)
     cand = X[torch.randint(0, n, (slots,), generator=gen, device=X.device)].contiguous()
@@ -370,6 +434,9 @@ def candidate_pass(torch, lloyd, X, slots, valid, card):
     log(f"phase 5: lloyd_assign vs its plain version at the k-means|| shape {what}")
     kl, kd2, ki = lloyd.lloyd_assign(X, mask, cand, cvalid)
     torch.cuda.synchronize()
+    computed = lloyd.lloyd_assign.last_k
+    if computed != valid:
+        raise AssertionError(f"the kernel computed {computed} centers, not the {valid} valid")
 
     def plain():
         parts = [lloyd.lloyd_assign_ref(X[s:s + CHUNK], mask[s:s + CHUNK], cand, cvalid)
@@ -382,11 +449,12 @@ def candidate_pass(torch, lloyd, X, slots, valid, card):
     ms = time_ms(torch, lambda: lloyd.lloyd_assign(X, mask, cand, cvalid), 3)
     plain_ms = time_ms(torch, plain, 1)
     nbytes = n * d * 4 + n * 4 + slots * (d + 1) * 4 + n * 12 + 4
-    b_ms, b_by = bound_ms(nbytes, n * (2 * d + 2 * d * valid + 4 * valid + 2))
-    all_ms = 1e3 * n * 2 * d * slots / FP32_FLOPS
-    log(f"lloyd_assign at {what}: {ms:.4f} ms (plain over {CHUNK}-row chunks "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} for the valid slots, "
-        f"{all_ms:.4f} ms of float32 FMA for all slots; max abs err {err:.6g}) [{card}]")
+    flops = n * (2 * d + 2 * d * valid + 4 * valid + 2)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    log(f"lloyd_assign at {what}: {computed} centers computed, {ms:.4f} ms "
+        f"({flops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.1%} of the bound; plain over "
+        f"{CHUNK}-row chunks {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+        f"max abs err {err:.6g}) [{card}]")
 
 
 def main() -> int:
@@ -413,9 +481,8 @@ def main() -> int:
     _build.build(sources)
     log(f"build: {sources} in {time.perf_counter() - t0:.1f} s")
     for src in sources:
-        for line in (_build.BUILD_DIR / f"{src}.ptxas.txt").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+        for line in ptxas_lines((_build.BUILD_DIR / f"{src}.ptxas.txt").read_text()):
+            log(f"  ptxas {src}: {line}")
 
     # 3. kernels against their plain versions
     log(f"phase 3: kernels vs plain versions, n={CHECK_ROWS}, rtol {TOL}")

@@ -33,13 +33,16 @@ _PRECISION_ENV = "DASK_ML_TPU_TORCH_KMEANS_PRECISION"
 
 
 def _ingest_float(est, X) -> ShardedRows:
-    """KMeans runs on contiguous float32: the Lloyd kernels take nothing
-    else, and half-precision accumulators would overflow early (the
+    """KMeans runs on contiguous float32 starting on a 16-byte boundary:
+    the Lloyd kernels take nothing else (a view of a tensor may start
+    anywhere), and half-precision accumulators would overflow early (the
     reference promotes f16/bf16 the same way)."""
     X = _ingest_float_any(est, X)
-    if X.data.dtype != torch.float32 or not X.data.is_contiguous():
-        X = ShardedRows(data=X.data.to(torch.float32).contiguous(), mask=X.mask,
-                        n_samples=X.n_samples)
+    data = X.data.to(torch.float32).contiguous()
+    if data.data_ptr() % 16:
+        data = data.clone()
+    if data is not X.data:
+        X = ShardedRows(data=data, mask=X.mask, n_samples=X.n_samples)
     return X
 
 

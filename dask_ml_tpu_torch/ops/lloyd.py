@@ -2,13 +2,15 @@
 
 They replace the body of ``dask_ml_tpu/cluster/k_means.py ::
 _lloyd_step_fn`` (distances, argmin, masked inertia, per-cluster sums and
-counts) and the distance/argmin of ``_assign_fn`` and ``_phi_and_mind2``.
-The CUDA source is ``csrc/lloyd.cu``; it says what bounds the kernels on
-an H100 and what their design does about it.
+counts) and the distance/argmin of ``_assign_fn``, ``_phi_and_mind2`` /
+``_valid_d2`` and the k-means‖ ``closest`` argmin.  The CUDA source is
+``csrc/lloyd.cu``; it says what bounds the kernels on an H100 and what
+their design does about it.
 
 Each wrapper runs its plain PyTorch version (``*_ref``) on a CPU tensor,
 and launches its kernel on a CUDA tensor, or raises.  Each counts its
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches``; ``lloyd_assign.last_k`` is the number
+of centers its last launch computed.
 """
 
 from __future__ import annotations
@@ -29,12 +31,13 @@ def _load():
     global _lib
     if _lib is None:
         lib = _build.load("lloyd")
-        lib.lloyd_plan.argtypes = [_LL, _INT, _INT, _INT, _VP]
-        lib.lloyd_plan.restype = _INT
+        for plan in (lib.lloyd_plan, lib.assign_plan):
+            plan.argtypes = [_LL, _INT, _INT, _VP]
+            plan.restype = _INT
         lib.lloyd_assign_reduce.argtypes = [_VP, _VP, _VP, _LL, _INT, _INT,
                                             _VP, _VP, _VP, _VP]
         lib.lloyd_assign_reduce.restype = _INT
-        lib.lloyd_assign.argtypes = [_VP, _VP, _VP, _VP, _LL, _INT, _INT,
+        lib.lloyd_assign.argtypes = [_VP, _VP, _VP, _INT, _VP, _LL, _INT, _INT,
                                      _VP, _VP, _VP, _VP, _VP, _VP]
         lib.lloyd_assign.restype = _INT
         lib.lloyd_error_string.argtypes = [_INT]
@@ -81,11 +84,26 @@ def _validate(x, mask, centers, cvalid=None):
     return n, d, k
 
 
-def _plan(lib, n, d, k, reduce, device):
-    """The launch's plan (8 int64s, made once) and the scratch it needs."""
-    plan = (ctypes.c_longlong * 8)()
-    _check(lib, lib.lloyd_plan(n, d, k, int(reduce), plan), "lloyd_plan")
-    return plan, torch.empty(plan[7], dtype=torch.float32, device=device)
+def _plan(lib, name, words, n, d, k, device):
+    """The launch's plan (``words`` int64s from ``lib.<name>``, made once)
+    and the scratch it needs (its last word, in floats)."""
+    plan = (ctypes.c_longlong * words)()
+    _check(lib, getattr(lib, name)(n, d, k, plan), name)
+    return plan, torch.empty(plan[words - 1], dtype=torch.float32, device=device)
+
+
+def _compact(centers, cvalid):
+    """``(slot, centers[slot])``: the valid candidate slots in slot order,
+    so that a tie still goes to the first of them, or ``(None, centers)``
+    without ``cvalid``.  Finding the slots syncs with the device once."""
+    if cvalid is None:
+        return None, centers
+    if tuple(cvalid.shape) != (centers.shape[0],):
+        raise ValueError(f"cvalid must be ({centers.shape[0]},), got {tuple(cvalid.shape)}")
+    slot = torch.nonzero(cvalid > 0)[:, 0]
+    if slot.numel() == 0:
+        raise ValueError("cvalid marks no candidate slot valid: there is no nearest center")
+    return slot, centers[slot]
 
 
 def _valid_d2(x, centers, cvalid):
@@ -129,7 +147,7 @@ def lloyd_assign_reduce(x, mask, centers):
     lib = _load()
     with torch.cuda.device(x.device):
         out = torch.empty(k * d + k + 1, dtype=torch.float32, device=x.device)
-        plan, scratch = _plan(lib, n, d, k, True, x.device)
+        plan, scratch = _plan(lib, "lloyd_plan", 8, n, d, k, x.device)
         err = lib.lloyd_assign_reduce(
             x.data_ptr(), mask.data_ptr(), centers.data_ptr(), n, d, k,
             plan, scratch.data_ptr(), out.data_ptr(),
@@ -142,28 +160,41 @@ def lloyd_assign_reduce(x, mask, centers):
 def lloyd_assign(x, mask, centers, cvalid=None):
     """Nearest center of every row: (labels int64 (n,), min_d2 (n,),
     inertia ()), with min_d2 unweighted and inertia = Σ mask·min_d2.
-    ``cvalid`` (k,) selects invalid candidate slots out of the argmin.
+    ``cvalid`` (k,) marks the valid candidate slots: only those are
+    computed, and labels index the full slot list.
     """
     if x.device.type == "cpu":
-        return lloyd_assign_ref(x, mask, centers, cvalid)
-    n, d, k = _validate(x, mask, centers, cvalid)
+        slot, valid = _compact(centers, cvalid)
+        labels, min_d2, inertia = lloyd_assign_ref(x, mask, valid)
+        return (labels if slot is None else slot[labels]), min_d2, inertia
+    n, d, _ = _validate(x, mask, centers, cvalid)
     if x.device.type != "cuda":
         raise ValueError(f"lloyd_assign runs on cuda or cpu, not {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (the kernel copies 16 bytes at a time)")
+    slot, valid = _compact(centers, cvalid)
+    k = valid.shape[0]
+    ldc = -(-k // 4) * 4
     lib = _load()
     with torch.cuda.device(x.device):
+        # feature-major, rows padded with zeros to a multiple of 4 floats
+        centers_t = torch.zeros(d, ldc, dtype=torch.float32, device=x.device)
+        centers_t[:, :k] = valid.t()
         labels = torch.empty(n, dtype=torch.int64, device=x.device)
         min_d2 = torch.empty(n, dtype=torch.float32, device=x.device)
         inertia = torch.empty(1, dtype=torch.float32, device=x.device)
-        plan, scratch = _plan(lib, n, d, k, False, x.device)
+        plan, scratch = _plan(lib, "assign_plan", 4, n, d, k, x.device)
         err = lib.lloyd_assign(
-            x.data_ptr(), mask.data_ptr(), centers.data_ptr(),
-            None if cvalid is None else cvalid.data_ptr(), n, d, k,
+            x.data_ptr(), mask.data_ptr(), centers_t.data_ptr(), ldc,
+            None if slot is None else slot.data_ptr(), n, d, k,
             plan, labels.data_ptr(), min_d2.data_ptr(), scratch.data_ptr(),
             inertia.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "lloyd_assign")
     lloyd_assign.launches += 1
+    lloyd_assign.last_k = k
     return labels, min_d2, inertia[0]
 
 
 lloyd_assign_reduce.launches = 0
 lloyd_assign.launches = 0
+lloyd_assign.last_k = None

@@ -78,6 +78,54 @@ def test_kernels_match_plain_versions(cuda, d, k):
     torch.cuda.synchronize()
 
 
+def _assign_case(n, d, k, n_valid, seed, device, dup=False):
+    """Inputs with ``n_valid`` valid slots (slot 0 among them unless only
+    one is valid, then the last).  ``dup``: candidates are rows of x, and
+    some valid slots repeat an earlier valid one, so those rows tie exactly
+    and must go to the earlier slot; returns the (earlier, later) pairs."""
+    x, mask, centers, _ = _inputs(n, d, k, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    cvalid = torch.zeros(k, device=device)
+    if n_valid == 1:
+        cvalid[-1] = 1.0
+    else:
+        cvalid[0] = 1.0
+        cvalid[1 + torch.randperm(k - 1, generator=gen, device=device)[: n_valid - 1]] = 1.0
+    pairs = []
+    if dup:
+        centers = x[torch.randperm(n, generator=gen, device=device)[:k]].clone()
+        valid = torch.nonzero(cvalid)[:, 0].tolist()
+        for lo, hi in zip(valid[0:12:2], valid[1:12:2]):
+            centers[hi] = centers[lo]
+            pairs.append((lo, hi))
+    return x, mask, centers, cvalid, pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,n_valid,dup", [
+    (50, 8, 8, False), (50, 1729, 502, False), (3, 1000, 700, False),
+    (130, 300, 210, False), (50, 1729, 1, False), (50, 1729, 502, True),
+    (3, 40, 30, True)])
+def test_assign_matches_plain_version(cuda, d, k, n_valid, dup):
+    n = 10_007  # not a multiple of any row tile
+    x, mask, centers, cvalid, pairs = _assign_case(n, d, k, n_valid, d + k, cuda, dup)
+    kl, kd2, ki = lloyd.lloyd_assign(x, mask, centers, cvalid)
+    assert lloyd.lloyd_assign.last_k == n_valid  # only the valid slots are computed
+    rl, rd2, ri = lloyd.lloyd_assign_ref(x, mask, centers, cvalid)
+    torch.testing.assert_close(ki, ri, rtol=TOL, atol=0)
+    scale = (x * x).sum(1) + (centers * centers).sum(1).max()
+    assert bool(((kd2 - rd2).abs() <= TOL * scale).all())
+    assert bool((cvalid[kl] > 0).all())
+    assert _label_ok(kl, rl, x, centers, cvalid)
+    for lo, hi in pairs:  # exact ties go to the earlier valid slot
+        assert not bool((kl == hi).any())
+    if dup:
+        assert bool(torch.isin(kl, torch.tensor([p[0] for p in pairs], device=cuda)).any())
+    again = lloyd.lloyd_assign(x, mask, centers, cvalid)
+    for u, v in zip((kl, kd2, ki), again):
+        assert torch.equal(u, v)
+
+
 @pytest.mark.cuda
 def test_kernels_are_deterministic(cuda):
     x, mask, centers, _ = _inputs(50_003, 50, 8, 1, cuda)
