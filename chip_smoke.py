@@ -21,15 +21,20 @@ Phases, in order; any failure exits non-zero:
    with 8 centres, generated on the card from a seed;
    ``KMeans(n_clusters=8, random_state=0).fit(X)`` (k-means|| init), then
    ``predict(X)``.  Every kernel must have launched in that run; the fit
-   must recover the centres.  A small explicit-init fit on the card must
-   agree with the same fit on the CPU (the plain versions).
+   must recover the centres.  Then one more fit under ``torch.profiler``:
+   device time by kernel name and the device's idle share over the fit.
+   A small explicit-init fit on the card must agree with the same fit on
+   the CPU (the plain versions).
 5. Each kernel held against its plain version again at the main path's
    shape (100M x 50, k=8: row*d passes 2^31 there and the reduce's float32
    chains are longest), then timed there beside its plain version and its
-   bound; ``lloyd_assign`` also at the last k-means|| round's shape (all
-   candidate slots, with holes; the kernel computes the valid ones), held
-   and timed against its plain version taken over row chunks.  Then the
-   ``kernels`` line, the card line and the result.
+   bound; ``lloyd_assign_reduce`` also held and timed off the main path
+   (``OFF_PATH_SHAPES``: its register path at k=16, its partial path at
+   k=64, and both at d=130, on X's data viewed 130 wide); ``lloyd_assign``
+   also at the last k-means|| round's shape (all candidate slots, with
+   holes; the kernel computes the valid ones), held and timed against its
+   plain version taken over row chunks.  Then the ``kernels`` line, the
+   card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -52,6 +57,9 @@ FP32_FLOPS = 67e12
 MAIN_ROWS = 100_000_000
 MAIN_D = 50
 MAIN_K = 8
+# lloyd_assign_reduce off the main path, (d, k): the register path's last
+# k, the partial path, and feature chunks (d > 64) with few and many k
+OFF_PATH_SHAPES = ((50, 16), (50, 64), (130, 8), (130, 300))
 CHECK_ROWS = 1_000_003  # not a multiple of the 256-row tile
 # (3, 1000) tiles the centers; (130, 300) also chunks the features and
 # keeps the reduce's partial in global scratch; (50, 1729) is the last
@@ -373,6 +381,43 @@ def main_path(torch, lloyd, device, n, d, k):
     return X, est, launches, timer.candidates
 
 
+def profiled_fit(torch, lloyd, X, k, card):
+    """Phase 4: one more fit under ``torch.profiler`` (CPU and CUDA
+    activities): device time by kernel name, and the device's idle share
+    over the fit, (wall − Σ kernel time) / wall on one stream."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dask_ml_tpu_torch import KMeans
+
+    timer = PhaseTimes(lloyd)
+    km_logger = logging.getLogger("dask_ml_tpu_torch.cluster.k_means")
+    km_logger.addHandler(timer)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        KMeans(n_clusters=k, random_state=0).fit(X)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    km_logger.removeHandler(timer)
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, count = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    t_init = 1e3 * timer.seconds.get("k-means|| initialization", float("nan"))
+    log(f"phase 4: profiled fit {wall_ms:.3f} ms on the host clock "
+        f"(k-means|| {t_init:.3f} ms) [{card}]")
+    if not per_name:
+        log("  device time by kernel: not measured (the profiler recorded no device event)")
+        return
+    busy = sum(ms for ms, _ in per_name.values())
+    for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  device {ms:12.3f} ms {count:6d}x  {name[:110]}")
+    log(f"  device busy {busy:.3f} ms of {wall_ms:.3f} ms: idle share "
+        f"{(wall_ms - busy) / wall_ms:.4f}")
+
+
 def kernel_table(torch, lloyd, X, centers, launches, card):
     """Phase 5: each kernel held against its plain version at the main
     path's shapes, then timed there (CUDA events) beside its plain version
@@ -415,6 +460,32 @@ def kernel_table(torch, lloyd, X, centers, launches, card):
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": None})
     return out
+
+
+def reduce_off_path(torch, lloyd, X, shapes, card):
+    """Phase 5: ``lloyd_assign_reduce`` at each (d, k) of ``shapes`` on X's
+    data viewed d wide (as many whole rows as fit), against k of those rows
+    drawn from a seed: held against the plain reduce in float64 on the
+    assign kernel's labels, then timed beside its bound."""
+    for d, k in shapes:
+        n = X.numel() // d
+        x = X.view(-1)[:n * d].view(n, d)
+        gen = torch.Generator(device=X.device).manual_seed(11)
+        centers = x[torch.randint(0, n, (k,), generator=gen, device=X.device)].contiguous()
+        mask = torch.ones(n, device=X.device)
+        what = f"{n}x{d} k={k}"
+        log(f"phase 5: lloyd_assign_reduce vs its plain version at {what} (off the main path)")
+        labels, min_d2, _ = lloyd.lloyd_assign(x, mask, centers)
+        torch.cuda.synchronize()
+        err = hold_reduce(torch, lloyd, x, mask, centers, labels, min_d2, what)
+        del labels, min_d2
+        ms = time_ms(torch, lambda: lloyd.lloyd_assign_reduce(x, mask, centers), 5)
+        b_ms, b_by = bound_ms(n * d * 4 + n * 4 + k * d * 4 + (k * d + k + 1) * 4,
+                              n * (2 * d + 2 * d * k + 4 * k + 2 * d + 3))
+        log(f"lloyd_assign_reduce at {what}: {ms:.4f} ms, {n / ms * 1e3:.4g} rows/s "
+            f"(bound {b_ms:.4f} ms by {b_by}; max abs err {err:.6g}) [{card}]")
+        del x, mask, centers
+        torch.cuda.synchronize()
 
 
 def candidate_pass(torch, lloyd, X, slots, valid, card):
@@ -493,9 +564,11 @@ def main() -> int:
     # 4. the main path
     X, est, launches, (slots, valid) = main_path(torch, lloyd, device, MAIN_ROWS,
                                                  MAIN_D, MAIN_K)
+    profiled_fit(torch, lloyd, X, MAIN_K, card)
 
     # 5. kernels at the main path's shapes: check, time, plain time, bound
     out = kernel_table(torch, lloyd, X, est.cluster_centers_, launches, card)
+    reduce_off_path(torch, lloyd, X, OFF_PATH_SHAPES, card)
     candidate_pass(torch, lloyd, X, slots, valid, card)
     del X
     torch.cuda.synchronize()

@@ -14,26 +14,44 @@
 // the same card from run to run.  Every row index is 64-bit (row*d passes
 // 2^31 at row 42.9M for d=50).
 //
-// reduce_kernel (lloyd_assign_reduce).  Bound on an H100: at k=8 one round
-// reads n*d*4 + n*4 bytes and does n*k*d FMAs; at 100M x 50 that is
-// 20.4 GB (6.1 ms at 3.35 TB/s) against 40 G FMAs (1.2 ms at 67 TFLOP/s),
-// so the round is memory-bound.  A block stages a 256-row tile through
-// shared memory once and keeps it there for both the distances and the
-// reduce; one thread owns one row, centers pass through shared memory CT
-// at a time and features DCH at a time.  The reduce gives each thread one
-// feature column of one row group and walks the tile's rows in order into
-// a (groups, k, d) partial in shared memory; where that does not fit, one
-// group accumulates straight into the block's record in global scratch.
-// A second kernel adds the per-block records in block order.
+// reduce_kernel (lloyd_assign_reduce) replaces _lloyd_step_fn
+// (k_means.py:88).  Bound on an H100: at k=8 one round reads n*d*4 + n*4
+// bytes and does n*k*d FMAs; at 100M x 50 that is 20.4 GB (6.09 ms at
+// 3.35 TB/s) against 40 G FMAs (1.2 ms at 67 TFLOP/s), so the round is
+// memory-bound, and the reduce's own instructions must hide under the
+// copies.  The design:
+//   - Staging as the one-row-a-thread assign: x row-major in shared memory,
+//     16-byte cp.async copies into two buffers, so that the next row tile
+//     (or feature chunk) is in flight while this one is assigned and
+//     reduced.  The centers and their norms, packed by the assign's
+//     pack_centers_kernel (tiles of 8), are staged once per call where they
+//     fit, else read from global memory through L1 (every thread of a warp
+//     reads one address).
+//   - The reduce has no read-modify-write chain through shared memory for
+//     k <= 16 and d <= DCH (the register path): each thread owns Q feature
+//     columns, strided so a warp reads neighbouring floats, of a fixed row
+//     slice, and keeps one register accumulator per (cluster, column); a
+//     row adds w*x into its label's accumulators by an unrolled compare
+//     (predicated adds: a dynamic register index would spill).  The counts
+//     are one more column, of ones.  Slices merge in slice order at the
+//     block's end.
+//   - Past that (the partial path), row groups own feature columns and
+//     walk their rows into a (groups, k*d + k) partial in shared memory, or
+//     straight into the block's record in global scratch where that does
+//     not fit; each thread takes two rows at a time, both loads issued
+//     before the stores, so two chains overlap (the same bits as one).
+//   - Per-block records, added in block order by finalize_kernel.
 //
 // assign_kernel (lloyd_assign).  Its largest caller is k-means||: every
 // round is a pass over all n rows against the valid candidate slots so
 // far (502 at the last round of a 100M x 50 fit), 2*n*k*d flops that put
 // it far past the memory bound (100M x 50 x 502: 5.0 TFLOP, 75 ms at
 // 67 TFLOP/s, against 21 GB, 6.4 ms).  The wrapper drops the invalid
-// slots before the launch and passes the centers feature-major (d, k);
-// the kernel maps each label back through `slot`.  The design is an
-// SGEMM-style register tile with the argmin fused into its epilogue:
+// slots before the launch; pack_centers_kernel lays the valid centers out
+// feature-major in center tiles, with their norms (the reduce uses the
+// same packing); the kernel maps each label back through `slot`.  The
+// design is an SGEMM-style register tile with the argmin fused into its
+// epilogue:
 //   - A block owns BM rows at a time (grid-stride) and walks every BN-wide
 //     center tile for them, so x is read from memory once per call (for
 //     d <= DCH; past that, feature chunks are staged again per center tile)
@@ -55,193 +73,43 @@
 
 namespace {
 
-constexpr int T = 256;       // threads per block (both kernels)
-constexpr int CT = 8;        // reduce: centers per register tile
-constexpr int DCH = 64;      // features per staged chunk (both kernels)
-constexpr int GMAX = 8;      // reduce: row groups
-constexpr size_t SMEM_BUDGET = 200 * 1024;
-constexpr int MAX_BLOCKS_PER_SM = 4;
+constexpr int T = 256;    // threads per block (both kernels)
+constexpr int DCH = 64;   // features per staged chunk (both kernels)
 
-// A reduce launch's plan: made once per call by lloyd_plan, which hands it
-// to the caller as 8 int64s to size the scratch, and passed back to the
-// launch.
-struct Plan {
-  long long w;          // staged chunk width, min(d, DCH)
-  long long dp;         // row stride of the staged tile, odd: no bank conflicts
-  long long groups;     // row groups in the reduce
-  long long p_in_smem;  // the (groups, k*d + k) partial lives in shared memory;
-                        // else groups == 1 and it is the block's own record
-  long long smem;       // dynamic shared bytes per block
-  long long blocks;
-  long long rec;        // floats per block record: k*d + k + 1
-  long long scratch;    // floats of scratch the call needs
-};
-static_assert(sizeof(Plan) == 8 * sizeof(long long), "Plan is 8 int64s");
-
-__device__ __forceinline__ void stage_x(float* x_s, const float* __restrict__ x,
-                                        long long r0, int rows, int d, int j0,
-                                        int wc, int dp) {
-  const int total = rows * wc;
-  int r = threadIdx.x / wc, j = threadIdx.x % wc;
-  const int dr = T / wc, dj = T % wc;
-  if (wc == d) {  // the tile is one contiguous run of rows*d floats
-    const float* src = x + r0 * d;
-    for (int i = threadIdx.x; i < total; i += T) {
-      x_s[r * dp + j] = __ldcs(src + i);
-      r += dr; j += dj;
-      if (j >= wc) { j -= wc; ++r; }
-    }
-  } else {
-    for (int i = threadIdx.x; i < total; i += T) {
-      x_s[r * dp + j] = __ldcs(x + (r0 + r) * d + j0 + j);
-      r += dr; j += dj;
-      if (j >= wc) { j -= wc; ++r; }
-    }
+// The centers as both kernels read them, packed once per call for a center
+// tile of BN: cn[c] = sum_j centers[c][j]^2 in feature order, and
+// cp[(ct*d + j)*BN + i] = centers[ct*BN + i][j], feature-major within a
+// tile, so a tile's feature chunk is one contiguous run.  Slots past k are
+// zero.
+template <int BN>
+__global__ void pack_centers_kernel(const float* __restrict__ centers, int k, int d,
+                                    int slots, float* __restrict__ cn,
+                                    float* __restrict__ cp) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= slots) return;
+  const int ct = c / BN, i = c - ct * BN;
+  float s = 0.f;
+  for (int j = 0; j < d; ++j) {
+    const float v = c < k ? centers[(size_t)c * d + j] : 0.f;
+    s = fmaf(v, v, s);
+    cp[((size_t)ct * d + j) * BN + i] = v;
   }
+  cn[c] = s;
 }
 
-// c_s[j*CT + c] = centers[ct*CT + c][j0 + j]; slots past k are zero.
-__device__ __forceinline__ void stage_c(float* c_s, const float* __restrict__ centers,
-                                        int k, int d, int ct, int j0, int wc) {
-  for (int i = threadIdx.x; i < CT * wc; i += T) {
-    const int j = i / CT, c = i - j * CT;
-    const int cc = ct * CT + c;
-    c_s[i] = cc < k ? centers[(size_t)cc * d + j0 + j] : 0.f;
-  }
+// Center slots of a call: k rounded up to the tile width.
+__host__ __device__ __forceinline__ int center_slots(int k, int bn) {
+  return (k + bn - 1) / bn * bn;
 }
 
-// cn[i] = sum_j c(i, j)^2 with c(i, j) = c[i*si + j*sj], in feature order.
-__global__ void cnorm_kernel(const float* __restrict__ c, int k, int d,
-                             long long si, long long sj, float* __restrict__ cn) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < k) {
-    float s = 0.f;
-    for (int j = 0; j < d; ++j) {
-      const float v = c[i * si + j * sj];
-      s = fmaf(v, v, s);
-    }
-    cn[i] = s;
-  }
-}
-
-__global__ void __launch_bounds__(T)
-reduce_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-              const float* __restrict__ centers, const float* __restrict__ cn,
-              long long n, int d, int k, Plan p, float* __restrict__ bpart) {
-  extern __shared__ __align__(16) float smem[];
-  const int t = threadIdx.x;
-  const int w = (int)p.w, dp = (int)p.dp, G = (int)p.groups;
-  float* x_s = smem;
-  float* c_s = x_s + T * dp;
-  int* lab_s = reinterpret_cast<int*>(c_s + CT * w);
-  float* w_s = reinterpret_cast<float*>(lab_s + T);
-  float* r_s = w_s + T;
-  const size_t kd = (size_t)k * d;
-  float* out = bpart + (size_t)blockIdx.x * p.rec;
-  float* P = p.p_in_smem ? r_s + T : out;
-  float* Pc = P + G * kd;
-
-  const long long ntiles = (n + T - 1) / T;
-  const int nch = (d + w - 1) / w;
-  const int nct = (k + CT - 1) / CT;
-
-  for (size_t e = t; e < G * (kd + k); e += T) P[e] = 0.f;
-  float inert = 0.f;
-  long long c_staged = -1;
-
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long r0 = tile * T;
-    const int rows = (int)min((long long)T, n - r0);
-    const bool live = t < rows;
-    int x_staged = -1;
-    float xn = 0.f, best = INFINITY;
-    int bidx = 0;
-    for (int ct = 0; ct < nct; ++ct) {
-      float acc[CT];
-#pragma unroll
-      for (int c = 0; c < CT; ++c) acc[c] = 0.f;
-      for (int ch = 0; ch < nch; ++ch) {
-        const int j0 = ch * w, wc = min(w, d - j0);
-        const long long cid = (long long)ct * nch + ch;
-        const bool need_x = x_staged != ch, need_c = c_staged != cid;
-        if (need_x || need_c) {
-          __syncthreads();  // all readers of the old contents are done
-          if (need_x) { stage_x(x_s, x, r0, rows, d, j0, wc, dp); x_staged = ch; }
-          if (need_c) { stage_c(c_s, centers, k, d, ct, j0, wc); c_staged = cid; }
-          __syncthreads();
-        }
-        if (live) {
-          const float* xr = x_s + t * dp;
-#pragma unroll 2
-          for (int j = 0; j < wc; ++j) {
-            const float xj = xr[j];
-            if (ct == 0) xn = fmaf(xj, xj, xn);
-            const float4 a = *reinterpret_cast<const float4*>(c_s + j * CT);
-            const float4 b = *reinterpret_cast<const float4*>(c_s + j * CT + 4);
-            acc[0] = fmaf(xj, a.x, acc[0]);
-            acc[1] = fmaf(xj, a.y, acc[1]);
-            acc[2] = fmaf(xj, a.z, acc[2]);
-            acc[3] = fmaf(xj, a.w, acc[3]);
-            acc[4] = fmaf(xj, b.x, acc[4]);
-            acc[5] = fmaf(xj, b.y, acc[5]);
-            acc[6] = fmaf(xj, b.z, acc[6]);
-            acc[7] = fmaf(xj, b.w, acc[7]);
-          }
-        }
-      }
-      if (live) {
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          const int cc = ct * CT + c;
-          if (cc < k) {
-            const float dd = fmaxf((xn + cn[cc]) - 2.f * acc[c], 0.f);
-            if (dd < best) { best = dd; bidx = cc; }
-          }
-        }
-      }
-    }
-    const float wgt = live ? mask[r0 + t] : 0.f;
-    if (live) inert += wgt * best;
-    lab_s[t] = bidx;
-    w_s[t] = wgt;
-    const int g = t / w, jj = t % w;
-    for (int ch = 0; ch < nch; ++ch) {
-      const int j0 = ch * w, wc = min(w, d - j0);
-      __syncthreads();  // lab_s/w_s written; old x_s readers done
-      if (x_staged != ch) {
-        stage_x(x_s, x, r0, rows, d, j0, wc, dp);
-        x_staged = ch;
-        __syncthreads();
-      }
-      if (g < G && jj < wc) {
-        float* Pg = P + g * kd + j0 + jj;
-        for (int r = g; r < rows; r += G)
-          Pg[(size_t)lab_s[r] * d] += w_s[r] * x_s[r * dp + jj];
-        if (ch == 0 && jj == 0) {
-          float* Pcg = Pc + (size_t)g * k;
-          for (int r = g; r < rows; r += G) Pcg[lab_s[r]] += w_s[r];
-        }
-      }
-    }
-  }
-
-  // per-block record, in a fixed order
-  r_s[t] = inert;
-  __syncthreads();
-  for (int s = T / 2; s > 0; s >>= 1) {
-    if (t < s) r_s[t] += r_s[t + s];
-    __syncthreads();
-  }
-  if (p.p_in_smem) {
-    for (size_t e = t; e < kd + k; e += T) {
-      const float* src = e < kd ? P + e : Pc + (e - kd);
-      const size_t stride = e < kd ? kd : (size_t)k;
-      float s = 0.f;
-      for (int g = 0; g < G; ++g) s += src[g * stride];
-      out[e] = s;
-    }
-  }
-  if (t == 0) out[p.rec - 1] = r_s[0];
+// Packs the k centers for tiles of BN into scratch, laid out as cn (slots
+// floats), then cp (slots*d floats); returns cp.
+template <int BN>
+float* pack_centers(const float* centers, int k, int d, float* scratch, cudaStream_t s) {
+  const int slots = center_slots(k, BN);
+  float* cp = scratch + slots;
+  pack_centers_kernel<BN><<<(slots + 127) / 128, 128, 0, s>>>(centers, k, d, slots, scratch, cp);
+  return cp;
 }
 
 // out[e] = sum over blocks b, in order, of bpart[b*rec + e]
@@ -253,38 +121,6 @@ __global__ void finalize_kernel(const float* __restrict__ bpart, int blocks,
     for (int b = 0; b < blocks; ++b) s += bpart[(size_t)b * rec + e];
     out[e] = s;
   }
-}
-
-cudaError_t make_plan(long long n, int d, int k, Plan* p) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  p->w = d < DCH ? d : DCH;
-  p->dp = p->w | 1;
-  p->groups = T / p->w < GMAX ? T / p->w : GMAX;
-  const size_t base = (size_t)(T * p->dp + CT * p->w + 3 * T) * sizeof(float);
-  const size_t part = (size_t)p->groups * ((size_t)k * d + k) * sizeof(float);
-  p->p_in_smem = base + part <= SMEM_BUDGET;
-  if (!p->p_in_smem) p->groups = 1;
-  p->smem = (long long)(base + (p->p_in_smem ? part : 0));
-  err = cudaFuncSetAttribute(reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)p->smem);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, reduce_kernel, T,
-                                                      (size_t)p->smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) per_sm = 1;
-  if (per_sm > MAX_BLOCKS_PER_SM) per_sm = MAX_BLOCKS_PER_SM;
-  // a record of k*d + k + 1 floats a block: keep large ones few
-  if (!p->p_in_smem) per_sm = 1;
-  const long long ntiles = (n + T - 1) / T;
-  const long long most = (long long)sms * per_sm;
-  p->blocks = ntiles < most ? ntiles : most;
-  p->rec = (long long)k * d + k + 1;
-  p->scratch = k + (long long)p->blocks * p->rec;
-  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------- assign
@@ -404,21 +240,17 @@ __device__ __forceinline__ void copy_x(float* xs, const float* __restrict__ x, l
   }
 }
 
-// cs[j*BN + c] <- cT[(j0 + j)*ldc + c0 + c], cn_s[c] <- cn[c0 + c]; centers
-// past k are zero.  cT is (d, ldc) with ldc % 4 == 0 and zeros past k, so
-// the copies are 16-byte and coalesced.
+// cs[j*BN + c] <- cp[(ct*d + j0 + j)*BN + c] for j < wc, cn_s[c] <- cn[ct*BN
+// + c]: center tile ct's feature chunk from the packed centers
+// (pack_centers_kernel), one contiguous run, 16 bytes at a time.
 template <class S>
-__device__ __forceinline__ void copy_c(float* cs, float* cn_s, const float* __restrict__ cT,
-                                       int ldc, const float* __restrict__ cn, int k, int c0,
-                                       int j0, int wc) {
-  constexpr int Q = S::BN / 4;
-  for (int e = threadIdx.x; e < Q * wc; e += T) {
-    const int j = e / Q, c = 4 * (e % Q);
-    const bool in = c0 + c < ldc;
-    cp_async16(cs + j * S::BN + c, in ? cT + (size_t)(j0 + j) * ldc + c0 + c : cT, in ? 16 : 0);
-  }
-  for (int c = threadIdx.x; c < S::BN; c += T)
-    cp_async4(cn_s + c, c0 + c < k ? cn + c0 + c : cn, c0 + c < k ? 4 : 0);
+__device__ __forceinline__ void copy_c(float* cs, float* cn_s, const float* __restrict__ cp,
+                                       const float* __restrict__ cn, int d, int ct, int j0,
+                                       int wc) {
+  const float* src = cp + ((size_t)ct * d + j0) * S::BN;
+  for (int e = 4 * threadIdx.x; e < wc * S::BN; e += 4 * T) cp_async16(cs + e, src + e, 16);
+  for (int e = 4 * threadIdx.x; e < S::BN; e += 4 * T)
+    cp_async16(cn_s + e, cn + ct * S::BN + e, 16);
 }
 
 // acc += x·c over the wc features of a chunk; XN: also xn += x·x (one row
@@ -483,7 +315,7 @@ __device__ __forceinline__ void fold_tile(float (&acc)[S::TM][S::TN], const floa
 template <class S>
 __global__ void __launch_bounds__(T, 2)
 assign_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-              const float* __restrict__ cT, int ldc, const float* __restrict__ cn,
+              const float* __restrict__ cp, const float* __restrict__ cn,
               const long long* __restrict__ slot, long long n, int d, int k,
               int64_t* __restrict__ labels, float* __restrict__ mind2,
               float* __restrict__ bpart) {
@@ -504,7 +336,7 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   int ct = 0, ch = 0, px = 0, pc = 0;  // this step, and its x and center buffers
   bool x_new = true;
   copy_x<S>(xs, x, n, d, tile * BM, 0, w);
-  copy_c<S>(cs, cn_s, cT, ldc, cn, k, 0, 0, w);
+  copy_c<S>(cs, cn_s, cp, cn, d, 0, 0, w);
   cp_async_commit();
 
   float inert = 0.f;
@@ -531,8 +363,7 @@ assign_kernel(const float* __restrict__ x, const float* __restrict__ mask,
     const bool c2 = more && (ct2 != ct || ch2 != ch);
     const int wc2 = min(w, d - ch2 * w);
     if (x2) copy_x<S>(xs + (px ^ 1) * XB, x, n, d, tile2 * BM, ch2 * w, wc2);
-    if (c2) copy_c<S>(cs + (pc ^ 1) * CB, cn_s + (pc ^ 1) * BN, cT, ldc, cn, k, ct2 * BN,
-                      ch2 * w, wc2);
+    if (c2) copy_c<S>(cs + (pc ^ 1) * CB, cn_s + (pc ^ 1) * BN, cp, cn, d, ct2, ch2 * w, wc2);
     cp_async_commit();
     cp_async_wait_prior();
     __syncthreads();  // this step's x and centers have landed, from every thread
@@ -635,7 +466,275 @@ cudaError_t plan_for(long long n, int d, int k, AssignPlan* p) {
   const long long most = (long long)sms * per_sm;
   p->blocks = ntiles < most ? ntiles : most;
   p->smem = (long long)smem;
-  p->scratch = k + p->blocks;
+  p->scratch = (long long)center_slots(k, S::BN) * (d + 1) + p->blocks;
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------- reduce
+
+constexpr int Q = 4;     // register path: feature columns a thread
+constexpr int GMAX = 8;  // partial path: row groups
+constexpr size_t SMEM_BUDGET = 200 * 1024;
+constexpr int MAX_BLOCKS_PER_SM = 4;
+
+// A reduce launch's plan: made once per call by lloyd_plan, which hands it
+// to the caller as 8 int64s to size the scratch, and passed back to the
+// launch.
+struct Plan {
+  long long kr;         // register path for up to kr (8 or 16) clusters, or 0
+  long long groups;     // partial path: row groups, each with its own partial
+  long long p_in_smem;  // partial path: the (groups, k*d + k) partial lives in
+                        // shared memory; else groups == 1 and it is the record
+  long long c_in_smem;  // the packed centers and norms are staged once
+  long long smem;       // dynamic shared bytes per block
+  long long blocks;
+  long long rec;        // floats per block record: k*d + k + 1
+  long long scratch;    // floats of scratch the call needs
+};
+static_assert(sizeof(Plan) == 8 * sizeof(long long), "Plan is 8 int64s");
+
+// Register path: column groups of Q columns (d features and the count) and
+// the row slices that run side by side in a block.
+__host__ __device__ __forceinline__ int col_groups(int d) { return (d + Q) / Q; }
+
+// A block walks steps, its row tiles grid-stride.  Whole rows (d <= DCH)
+// take one step a tile: distances, then the reduce, on one staged copy.
+// Chunked rows take a step per (center tile, feature chunk) for the
+// distances, then one per feature chunk for the reduce.  The copy of step
+// s+1 is in flight while step s computes.  KR > 0: the register path for
+// k <= KR (whole rows only); KR == 0: the partial path.
+template <int KR>
+__global__ void __launch_bounds__(T, 2)
+reduce_kernel(const float* __restrict__ x, const float* __restrict__ mask,
+              const float* __restrict__ cp, const float* __restrict__ cn, long long n,
+              int d, int k, Plan p, float* __restrict__ bpart) {
+  using S = Narrow;
+  constexpr int BN = S::BN;
+  extern __shared__ __align__(16) float smem[];
+  const int t = threadIdx.x;
+  const int w = d < DCH ? d : DCH;
+  const int XB = S::xbuf(d, w);
+  const int nch = (d + w - 1) / w, nct = (k + BN - 1) / BN, slots = center_slots(k, BN);
+  float* xs = smem;  // 2 x buffers
+  int* lab_s = reinterpret_cast<int*>(xs + 2 * XB);
+  float* w_s = reinterpret_cast<float*>(lab_s + T);
+  float* r_s = w_s + T;
+  float* cs = r_s + T;  // packed centers, then their norms (c_in_smem)
+  const bool c_smem = KR > 0 || p.c_in_smem;
+  const float* cpb = c_smem ? cs : cp;
+  const float* cnb = c_smem ? cs + (size_t)slots * d : cn;
+  const size_t kd = (size_t)k * d, prec = kd + k;
+  float* out = bpart + (size_t)blockIdx.x * p.rec;
+  float* P = p.p_in_smem ? cs + (c_smem ? (size_t)slots * (d + 1) : 0) : out;
+  const int G = (int)p.groups;
+  const long long ntiles = (n + S::BM - 1) / S::BM;
+  const int nd = nch == 1 ? 1 : nct * nch;  // distance steps a tile
+  const int ns = nch == 1 ? 1 : nd + nch;   // steps a tile
+
+  // register path: thread (slice sl, column group g) owns columns g + q*NG
+  const int NG = KR > 0 ? col_groups(d) : 1, NS = T / NG;
+  const int g = t % NG, sl = t / NG;
+  float racc[KR > 0 ? KR : 1][Q];
+#pragma unroll
+  for (int c = 0; c < (KR > 0 ? KR : 1); ++c)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) racc[c][q] = 0.f;
+  if constexpr (KR == 0)
+    for (size_t e = t; e < G * prec; e += T) P[e] = 0.f;
+
+  long long tile = blockIdx.x;
+  int i = 0, px = 0;  // this step and its x buffer
+  copy_x<S>(xs, x, n, d, tile * S::BM, 0, w);
+  if (c_smem)
+    for (int e = 4 * t; e < slots * (d + 1); e += 4 * T)
+      cp_async16(cs + e, e < slots * d ? cp + e : cn + (e - slots * d), 16);
+  cp_async_commit();
+
+  float inert = 0.f, wgt = 0.f;
+  float best[1] = {INFINITY}, xn[1] = {0.f}, acc[1][BN];
+  int bidx[1] = {0};
+#pragma unroll
+  for (int c = 0; c < BN; ++c) acc[0][c] = 0.f;
+
+  while (true) {
+    long long tile2 = tile;
+    int i2 = i + 1;
+    if (i2 == ns) { i2 = 0; tile2 += gridDim.x; }
+    const int ch = nch == 1 ? 0 : i < nd ? i % nch : i - nd;
+    const int ch2 = nch == 1 ? 0 : i2 < nd ? i2 % nch : i2 - nd;
+    const bool more = tile2 < ntiles;
+    const bool x2 = more && (tile2 != tile || ch2 != ch);
+    if (x2) copy_x<S>(xs + (px ^ 1) * XB, x, n, d, tile2 * S::BM, ch2 * w, min(w, d - ch2 * w));
+    cp_async_commit();
+    cp_async_wait_prior();
+    __syncthreads();  // this step's x has landed, from every thread
+
+    const long long r0 = tile * S::BM;
+    const int rows = (int)min((long long)S::BM, n - r0);
+    const int j0 = ch * w, wc = min(w, d - j0), xp = row_stride(d, wc);
+    const float* xb = xs + px * XB;
+    if (i < nd) {  // distances
+      if (i == nd - 1) wgt = t < rows ? __ldcs(mask + r0 + t) : 0.f;
+      for (int ct = nch == 1 ? 0 : i / nch; ct < (nch == 1 ? nct : i / nch + 1); ++ct) {
+        const float* cb = cpb + ((size_t)ct * d + j0) * BN;
+        if (ct == 0) dot_chunk<S, true>(xb, cb, xp, wc, 0, t, acc, xn[0]);
+        else dot_chunk<S, false>(xb, cb, xp, wc, 0, t, acc, xn[0]);
+        if (ch == nch - 1) {
+          if ((ct + 1) * BN <= k) fold_tile<S, false>(acc, xn, cnb + ct * BN, ct * BN, k, 0, best, bidx);
+          else fold_tile<S, true>(acc, xn, cnb + ct * BN, ct * BN, k, 0, best, bidx);
+        }
+      }
+      if (i == nd - 1) {  // the row's nearest center is known
+        if (t < rows) inert += wgt * best[0];
+        lab_s[t] = bidx[0];
+        w_s[t] = wgt;
+        best[0] = INFINITY;
+        bidx[0] = 0;
+        xn[0] = 0.f;
+      }
+      if (nch == 1) __syncthreads();  // lab_s and w_s are written
+    }
+    if (nch == 1 || i >= nd) {  // the reduce of chunk ch
+      if constexpr (KR > 0) {
+        if (sl < NS) {
+          for (int r = sl; r < rows; r += NS) {
+            const int lab = lab_s[r];
+            const float wr = w_s[r];
+            const float* xr = xb + r * xp;
+            float v[Q];
+#pragma unroll
+            for (int q = 0; q < Q; ++q) {
+              const int col = g + q * NG;
+              v[q] = wr * (col < d ? xr[col] : col == d ? 1.f : 0.f);
+            }
+#pragma unroll
+            for (int c = 0; c < KR; ++c)
+              if (lab == c) {
+#pragma unroll
+                for (int q = 0; q < Q; ++q) racc[c][q] += v[q];
+              }
+          }
+        }
+      } else {
+        const int cols = wc + (ch == 0);  // chunk 0 also carries the count column
+        const int gg = t / cols, jj = t - gg * cols;
+        if (gg < G) {
+          const bool one = jj == wc;
+          float* base = P + gg * prec + (one ? kd : (size_t)(j0 + jj));
+          const size_t stride = one ? 1 : d;
+          const float* xc = xb + jj;
+          int r = gg;
+          for (; r + G < rows; r += 2 * G) {
+            const int la = lab_s[r], lb = lab_s[r + G];
+            const float va = w_s[r] * (one ? 1.f : xc[r * xp]);
+            const float vb = w_s[r + G] * (one ? 1.f : xc[(r + G) * xp]);
+            float* pa = base + la * stride;
+            float* pb = base + lb * stride;
+            const float a = *pa, b = *pb;
+            if (la == lb) {
+              *pa = (a + va) + vb;
+            } else {
+              *pa = a + va;
+              *pb = b + vb;
+            }
+          }
+          if (r < rows) base[lab_s[r] * stride] += w_s[r] * (one ? 1.f : xc[r * xp]);
+        }
+      }
+    }
+    if (x2) __syncthreads();  // the next step's copies refill this step's buffer
+    if (!more) break;
+    if (x2) px ^= 1;
+    tile = tile2;
+    i = i2;
+  }
+
+  // per-block record, in a fixed order
+  r_s[t] = inert;
+  __syncthreads();
+  for (int s = T / 2; s > 0; s >>= 1) {
+    if (t < s) r_s[t] += r_s[t + s];
+    __syncthreads();
+  }
+  const float total = r_s[0];
+  if constexpr (KR > 0) {
+    __syncthreads();  // every thread has read r_s: the merge reuses shared memory
+    const int NC = NG * Q;
+    float* M = smem;  // (slice, cluster, column)
+    if (sl < NS)
+#pragma unroll
+      for (int c = 0; c < KR; ++c)
+#pragma unroll
+        for (int q = 0; q < Q; ++q) M[(sl * KR + c) * NC + g + q * NG] = racc[c][q];
+    __syncthreads();
+    for (int e = t; e < k * (d + 1); e += T) {
+      const int c = e / (d + 1), col = e - c * (d + 1);
+      float s = 0.f;
+      for (int s2 = 0; s2 < NS; ++s2) s += M[(s2 * KR + c) * NC + col];
+      out[col < d ? (size_t)c * d + col : kd + c] = s;
+    }
+  } else if (p.p_in_smem) {
+    for (size_t e = t; e < prec; e += T) {
+      float s = 0.f;
+      for (int gg = 0; gg < G; ++gg) s += P[gg * prec + e];
+      out[e] = s;
+    }
+  }
+  if (t == 0) out[p.rec - 1] = total;
+}
+
+template <int KR>
+cudaError_t reduce_occupancy(size_t smem, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(reduce_kernel<KR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, reduce_kernel<KR>, T, smem);
+}
+
+cudaError_t make_plan(long long n, int d, int k, Plan* p) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int w = d < DCH ? d : DCH;
+  const long long slots = center_slots(k, Narrow::BN);
+  const size_t base = 2 * (size_t)Narrow::xbuf(d, w) + 3 * T;  // x buffers, lab_s, w_s, r_s
+  const size_t cf = (size_t)slots * (d + 1);                    // packed centers, norms
+  const size_t prec = (size_t)k * d + k;
+  const size_t budget = SMEM_BUDGET / sizeof(float);
+  p->kr = d > DCH ? 0 : k <= 8 ? 8 : k <= 16 ? 16 : 0;
+  size_t floats;
+  if (p->kr) {
+    const int ng = col_groups(d);
+    const size_t merge = (size_t)(T / ng) * p->kr * ng * Q;
+    p->groups = 0;
+    p->p_in_smem = 0;
+    p->c_in_smem = 1;
+    floats = base + cf > merge ? base + cf : merge;
+  } else {
+    p->c_in_smem = base + cf <= budget;
+    const size_t used = base + (p->c_in_smem ? cf : 0);
+    long long g = T / (w + 1) < GMAX ? T / (w + 1) : GMAX;
+    while (g > 1 && used + g * prec > budget) --g;
+    p->p_in_smem = used + g * prec <= budget;
+    p->groups = p->p_in_smem ? g : 1;
+    floats = used + (p->p_in_smem ? g * prec : 0);
+  }
+  p->smem = (long long)(floats * sizeof(float));
+  err = p->kr == 8    ? reduce_occupancy<8>((size_t)p->smem, &per_sm)
+        : p->kr == 16 ? reduce_occupancy<16>((size_t)p->smem, &per_sm)
+                      : reduce_occupancy<0>((size_t)p->smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) per_sm = 1;
+  if (per_sm > MAX_BLOCKS_PER_SM) per_sm = MAX_BLOCKS_PER_SM;
+  // a record of k*d + k + 1 floats a block: keep large ones few
+  if (!p->kr && !p->p_in_smem) per_sm = 1;
+  const long long ntiles = (n + T - 1) / T;
+  const long long most = (long long)sms * per_sm;
+  p->blocks = ntiles < most ? ntiles : most;
+  p->rec = (long long)prec + 1;
+  p->scratch = slots * (d + 1) + p->blocks * p->rec;
   return cudaSuccess;
 }
 
@@ -653,18 +752,24 @@ int lloyd_plan(long long n, int d, int k, void* plan) {
   return (int)make_plan(n, d, k, (Plan*)plan);
 }
 
-// x (n,d), mask (n,), centers (k,d): float32, contiguous, on one device.
-// out: k*d sums, then k counts, then the inertia (k*d + k + 1 floats).
+// x (n,d), mask (n,), centers (k,d): float32, contiguous, on one device,
+// x 16-byte aligned.  out: k*d sums, then k counts, then the inertia
+// (k*d + k + 1 floats).
 int lloyd_assign_reduce(const void* x, const void* mask, const void* centers,
                         long long n, int d, int k, const void* plan,
                         void* scratch, void* out, void* stream) {
   const Plan p = *(const Plan*)plan;
   cudaStream_t s = (cudaStream_t)stream;
   float* cn = (float*)scratch;
-  float* bpart = cn + k;
-  cnorm_kernel<<<(k + 127) / 128, 128, 0, s>>>((const float*)centers, k, d, d, 1, cn);
-  reduce_kernel<<<(int)p.blocks, T, (size_t)p.smem, s>>>(
-      (const float*)x, (const float*)mask, (const float*)centers, cn, n, d, k, p, bpart);
+  float* cp = pack_centers<Narrow::BN>((const float*)centers, k, d, cn, s);
+  float* bpart = cp + (size_t)center_slots(k, Narrow::BN) * d;
+  const float *xf = (const float*)x, *mf = (const float*)mask;
+  if (p.kr == 8)
+    reduce_kernel<8><<<(int)p.blocks, T, (size_t)p.smem, s>>>(xf, mf, cp, cn, n, d, k, p, bpart);
+  else if (p.kr == 16)
+    reduce_kernel<16><<<(int)p.blocks, T, (size_t)p.smem, s>>>(xf, mf, cp, cn, n, d, k, p, bpart);
+  else
+    reduce_kernel<0><<<(int)p.blocks, T, (size_t)p.smem, s>>>(xf, mf, cp, cn, n, d, k, p, bpart);
   const long long fb = (p.rec + 255) / 256;
   finalize_kernel<<<(int)(fb < 1024 ? fb : 1024), 256, 0, s>>>(
       bpart, (int)p.blocks, p.rec, (float*)out);
@@ -679,27 +784,27 @@ int assign_plan(long long n, int d, int k, void* plan) {
   return (int)(p->wide ? plan_for<Wide>(n, d, k, p) : plan_for<Narrow>(n, d, k, p));
 }
 
-// x (n,d), mask (n,): float32, x 16-byte aligned; centers_t (d,ldc) float32,
-// the k centers feature-major, ldc % 4 == 0, zeros past k; slot (k,) int64
-// or null: the label of center i is slot[i] (else i).  labels (n,) int64,
-// mind2 (n,) float32, inertia (1,).
-int lloyd_assign(const void* x, const void* mask, const void* centers_t, int ldc,
-                 const void* slot, long long n, int d, int k, const void* plan,
-                 void* labels, void* mind2, void* scratch, void* inertia,
-                 void* stream) {
+// x (n,d), mask (n,), centers (k,d): float32, contiguous, x 16-byte
+// aligned; slot (k,) int64 or null: the label of center i is slot[i] (else
+// i).  labels (n,) int64, mind2 (n,) float32, inertia (1,).
+int lloyd_assign(const void* x, const void* mask, const void* centers, const void* slot,
+                 long long n, int d, int k, const void* plan, void* labels, void* mind2,
+                 void* scratch, void* inertia, void* stream) {
   const AssignPlan p = *(const AssignPlan*)plan;
   cudaStream_t s = (cudaStream_t)stream;
   float* cn = (float*)scratch;
-  float* bpart = cn + k;
-  const float *xf = (const float*)x, *mf = (const float*)mask, *cf = (const float*)centers_t;
+  const float *xf = (const float*)x, *mf = (const float*)mask, *cf = (const float*)centers;
   const long long* sl = (const long long*)slot;
-  cnorm_kernel<<<(k + 127) / 128, 128, 0, s>>>(cf, k, d, 1, ldc, cn);
+  const int bn = p.wide ? Wide::BN : Narrow::BN;
+  float* cp = p.wide ? pack_centers<Wide::BN>(cf, k, d, cn, s)
+                     : pack_centers<Narrow::BN>(cf, k, d, cn, s);
+  float* bpart = cp + (size_t)center_slots(k, bn) * d;
   if (p.wide)
     assign_kernel<Wide><<<(int)p.blocks, T, (size_t)p.smem, s>>>(
-        xf, mf, cf, ldc, cn, sl, n, d, k, (int64_t*)labels, (float*)mind2, bpart);
+        xf, mf, cp, cn, sl, n, d, k, (int64_t*)labels, (float*)mind2, bpart);
   else
     assign_kernel<Narrow><<<(int)p.blocks, T, (size_t)p.smem, s>>>(
-        xf, mf, cf, ldc, cn, sl, n, d, k, (int64_t*)labels, (float*)mind2, bpart);
+        xf, mf, cp, cn, sl, n, d, k, (int64_t*)labels, (float*)mind2, bpart);
   finalize_kernel<<<1, 32, 0, s>>>(bpart, (int)p.blocks, 1, (float*)inertia);
   return (int)cudaGetLastError();
 }

@@ -37,7 +37,7 @@ def _load():
         lib.lloyd_assign_reduce.argtypes = [_VP, _VP, _VP, _LL, _INT, _INT,
                                             _VP, _VP, _VP, _VP]
         lib.lloyd_assign_reduce.restype = _INT
-        lib.lloyd_assign.argtypes = [_VP, _VP, _VP, _INT, _VP, _LL, _INT, _INT,
+        lib.lloyd_assign.argtypes = [_VP, _VP, _VP, _VP, _LL, _INT, _INT,
                                      _VP, _VP, _VP, _VP, _VP, _VP]
         lib.lloyd_assign.restype = _INT
         lib.lloyd_error_string.argtypes = [_INT]
@@ -82,6 +82,11 @@ def _validate(x, mask, centers, cvalid=None):
     if k * d >= 2**31:
         raise ValueError(f"k*d = {k * d} is past the kernels' 32-bit center index")
     return n, d, k
+
+
+def _check_aligned(x):
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (the kernel copies 16 bytes at a time)")
 
 
 def _plan(lib, name, words, n, d, k, device):
@@ -137,13 +142,15 @@ def lloyd_assign_reduce(x, mask, centers):
     """One Lloyd round's reduce: per-cluster weighted sums Σ mask·x, counts
     Σ mask and the masked inertia Σ mask·min d², fused over one read of x.
 
-    ``x`` (n, d), ``mask`` (n,), ``centers`` (k, d), all float32.
+    ``x`` (n, d), ``mask`` (n,), ``centers`` (k, d), all float32; on CUDA x
+    must start on a 16-byte boundary.
     """
     if x.device.type == "cpu":
         return lloyd_assign_reduce_ref(x, mask, centers)
     n, d, k = _validate(x, mask, centers)
     if x.device.type != "cuda":
         raise ValueError(f"lloyd_assign_reduce runs on cuda or cpu, not {x.device}")
+    _check_aligned(x)
     lib = _load()
     with torch.cuda.device(x.device):
         out = torch.empty(k * d + k + 1, dtype=torch.float32, device=x.device)
@@ -170,22 +177,17 @@ def lloyd_assign(x, mask, centers, cvalid=None):
     n, d, _ = _validate(x, mask, centers, cvalid)
     if x.device.type != "cuda":
         raise ValueError(f"lloyd_assign runs on cuda or cpu, not {x.device}")
-    if x.data_ptr() % 16:
-        raise ValueError("x must start on a 16-byte boundary (the kernel copies 16 bytes at a time)")
+    _check_aligned(x)
     slot, valid = _compact(centers, cvalid)
     k = valid.shape[0]
-    ldc = -(-k // 4) * 4
     lib = _load()
     with torch.cuda.device(x.device):
-        # feature-major, rows padded with zeros to a multiple of 4 floats
-        centers_t = torch.zeros(d, ldc, dtype=torch.float32, device=x.device)
-        centers_t[:, :k] = valid.t()
         labels = torch.empty(n, dtype=torch.int64, device=x.device)
         min_d2 = torch.empty(n, dtype=torch.float32, device=x.device)
         inertia = torch.empty(1, dtype=torch.float32, device=x.device)
         plan, scratch = _plan(lib, "assign_plan", 4, n, d, k, x.device)
         err = lib.lloyd_assign(
-            x.data_ptr(), mask.data_ptr(), centers_t.data_ptr(), ldc,
+            x.data_ptr(), mask.data_ptr(), valid.data_ptr(),
             None if slot is None else slot.data_ptr(), n, d, k,
             plan, labels.data_ptr(), min_d2.data_ptr(), scratch.data_ptr(),
             inertia.data_ptr(), torch.cuda.current_stream().cuda_stream)

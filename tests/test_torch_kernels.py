@@ -52,11 +52,29 @@ def _label_ok(labels, ref_labels, x, centers, cvalid=None):
     return bool(((labels == ref_labels) | tie).all())
 
 
+def _case(d, k, n=10_007, edge=None, name=None):
+    return pytest.param(d, k, n, edge, id=name or f"{d}-{k}")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,k", [(50, 8), (64, 64), (3, 1000), (130, 9), (130, 300)])
-def test_kernels_match_plain_versions(cuda, d, k):
-    n = 10_007  # not a multiple of the 256-row tile
+@pytest.mark.parametrize("d,k,n,edge", [
+    _case(50, 8), _case(64, 64), _case(3, 1000), _case(130, 9), _case(130, 300),
+    # the reduce's register path ends at k = 16; d % 4 != 0; d past one
+    # 64-feature chunk with few clusters
+    _case(50, 16), _case(50, 17), _case(3, 8), _case(3, 16), _case(130, 8),
+    # n under one 256-row tile, and not a multiple of it
+    _case(50, 8, 100, name="50-8-n100"), _case(64, 64, 300, name="64-64-n300"),
+    # nothing weighted; a cluster no row is nearest to (both reduce paths)
+    _case(50, 8, edge="zero_mask", name="50-8-zero_mask"),
+    _case(50, 8, edge="empty_cluster", name="50-8-empty_cluster"),
+    _case(64, 64, edge="empty_cluster", name="64-64-empty_cluster"),
+])
+def test_kernels_match_plain_versions(cuda, d, k, n, edge):
     x, mask, centers, cvalid = _inputs(n, d, k, d * k, cuda)
+    if edge == "zero_mask":
+        mask.zero_()
+    if edge == "empty_cluster":
+        centers[-1] = 1e3
     sums, counts, inertia = lloyd.lloyd_assign_reduce(x, mask, centers)
     kl, kd2, _ = lloyd.lloyd_assign(x, mask, centers)
     # float32 index_add_ sums in atomic order; hold the reduce to the plain
@@ -68,6 +86,11 @@ def test_kernels_match_plain_versions(cuda, d, k):
     torch.testing.assert_close(counts.double(), bucket_sum(m64, kl, k), rtol=TOL, atol=TOL)
     torch.testing.assert_close(inertia.double(), torch.sum(kd2.double() * m64),
                                rtol=TOL, atol=0)
+    if edge == "zero_mask":
+        assert not bool(sums.any()) and not bool(counts.any()) and float(inertia) == 0.0
+    if edge == "empty_cluster":
+        assert not bool((kl == k - 1).any())
+        assert not bool(sums[-1].any()) and float(counts[-1]) == 0.0
     for cv in (None, cvalid):
         kl, kd2, ki = lloyd.lloyd_assign(x, mask, centers, cv)
         rl, rd2, ri2 = lloyd.lloyd_assign_ref(x, mask, centers, cv)
@@ -76,6 +99,17 @@ def test_kernels_match_plain_versions(cuda, d, k):
         assert bool(((kd2 - rd2).abs() <= TOL * scale).all())
         assert _label_ok(kl, rl, x, centers, cv)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_reduce_rejects_misaligned_x(cuda):
+    x, mask, centers, _ = _inputs(1000, 50, 8, 3, cuda)
+    flat = torch.empty(1000 * 50 + 1, device=cuda)
+    shifted = flat[1:].view(1000, 50)  # 4 bytes past an aligned start
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        lloyd.lloyd_assign_reduce(shifted, mask, centers)
 
 
 def _assign_case(n, d, k, n_valid, seed, device, dup=False):

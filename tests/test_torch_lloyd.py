@@ -115,6 +115,30 @@ def test_lloyd_round_matches_reference(seed, fractional, empty):
     assert abs(float(shift) - float(ref_shift)) <= 2 * delta * err + err ** 2
 
 
+# The plain round (what ``lloyd_assign_reduce`` runs on the CPU) against
+# the JAX ``_lloyd_step_fn`` at sizes the other cases do not take: a few
+# rows, odd widths, more clusters, and nothing weighted.  The kernel's own
+# edges are the ``cuda`` cases of tests/test_torch_kernels.py.
+@pytest.mark.parametrize("n,d,k,zero_mask", [
+    (100, 50, 8, False),    # few rows
+    (300, 3, 17, False),    # an odd width, many clusters for the rows
+    (2001, 130, 9, False),  # a wide row
+    (2001, 6, 5, True),     # nothing weighted: every center stays
+])
+def test_lloyd_round_edges_match_reference(n, d, k, zero_mask):
+    x, mask, centers, _ = _case(10 + d, n=n, d=d, k=k)
+    if zero_mask:
+        mask[:] = 0.0
+    ref_new, ref_inertia, _ = ref_km._lloyd_step_fn(*map(jnp.asarray, (x, mask, centers)))
+    new, inertia, _ = km._lloyd_step_fn(*map(torch.from_numpy, (x, mask, centers)))
+    np.testing.assert_allclose(new.numpy(), np.asarray(ref_new), rtol=RTOL,
+                               atol=RTOL * np.abs(x).max())
+    np.testing.assert_allclose(float(inertia), float(ref_inertia), rtol=RTOL)
+    if zero_mask:
+        np.testing.assert_array_equal(new.numpy(), centers)
+        assert float(inertia) == 0.0
+
+
 @pytest.mark.parametrize("seed,fractional", [(4, False), (5, True)])
 def test_assign_matches_reference(seed, fractional):
     x, mask, centers, n = _case(seed, fractional=fractional)
