@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero:
    with fractional masks and candidate holes; plus a bitwise repeat (the
    kernels are deterministic).  ``lloyd_assign`` also against 1729 slots
    with duplicated candidates (exact ties go to the earlier slot) and with
-   a single valid slot; it computes only the valid slots.
+   a single valid slot; it computes only the valid slots.  K2 (both
+   variants) at (P, m, d) in ``LOGISTIC_SHAPES``, with fractional masks, a
+   last lane of only pad rows and, once more, with lane 1 inactive (its
+   outputs must keep their bits); plus a bitwise repeat.
 4. The main path at BASELINE ``configs[1]``: make_blobs 100M x 50 float32
    with 8 centres, generated on the card from a seed;
    ``KMeans(n_clusters=8, random_state=0).fit(X)`` (k-means|| init), then
@@ -33,8 +36,21 @@ Phases, in order; any failure exits non-zero:
    k=64, and both at d=130, on X's data viewed 130 wide); ``lloyd_assign``
    also at the last k-means|| round's shape (all candidate slots, with
    holes; the kernel computes the valid ones), held and timed against its
-   plain version taken over row chunks.  Then the ``kernels`` line, the
-   card line and the result.
+   plain version taken over row chunks.
+6. The ADMM main path at BASELINE ``configs[0]``'s shape: bench.py's
+   HIGGS stand-in, 11M x 28 float32 generated on the card from a seed
+   (w, X standard normal, y = [sigmoid(Xw) > U]), at 8 shards;
+   ``LogisticRegression(solver="admm", C=1e4, max_iter=10,
+   solver_kwargs={"inner_iter": 30}).fit(X, y)``.  Both K2 variants must
+   have launched in that fit and its plain version never; the cosine of
+   ``coef_`` to the true w must be >= 0.999; the same fit through the
+   plain version must agree (equal ``n_iter_``, ‖Δβ‖∞ <= 1e-3·‖β‖∞).
+   Prints the fit's time, ``n_iter_``, launches, host syncs and peak
+   memory; one more fit under ``torch.profiler``; bench.py's fixed-work
+   rounds (timed at 2 and 10 rounds, the slope per round); and K2 at the
+   main shape held against its plain version, then timed beside it, its
+   bound and the library pair (a batched forward and transposed gemv).
+   Then the ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -67,6 +83,16 @@ CHECK_ROWS = 1_000_003  # not a multiple of the 256-row tile
 CHECK_SHAPES = ((50, 8), (64, 64), (3, 1000), (130, 300), (50, 1729))
 TOL = 1e-5
 CHUNK = 1 << 20  # rows per step where a float64 or plain pass would not fit
+# K2 in phase 3, (P, m, d): one lane, the HIGGS width (28 + intercept), a
+# width past one 64-feature multiple with fewer rows a tile, and d = 1
+LOGISTIC_SHAPES = ((1, 1001, 3), (8, 1375, 29), (8, 4097, 130), (3, 777, 1))
+# phase 6: bench.py's HIGGS stand-in and its ADMM fit
+HIGGS_ROWS = 11_000_000
+HIGGS_D = 28
+HIGGS_SHARDS = 8
+ADMM_ROUNDS = 10
+ADMM_INNER = 30
+ADMM_RTOL = 1e-3  # the fit through the kernel against the fit through the plain version
 
 
 def log(msg: str) -> None:
@@ -89,7 +115,7 @@ def ptxas_lines(report):
         if m:
             mangled = m.group(1)
             kern = re.search(r"\d([a-z_]+_kernel)", mangled)
-            tile = re.findall(r"Li(\d+)E", mangled)
+            tile = re.findall(r"L[bi](\d+)E", mangled)
             name = (kern.group(1) if kern else mangled) + (f"<{','.join(tile)}>" if tile else "")
         elif "registers" in line or "spill" in line:
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
@@ -528,6 +554,301 @@ def candidate_pass(torch, lloyd, X, slots, valid, card):
         f"max abs err {err:.6g}) [{card}]")
 
 
+def logistic_inputs(torch, P, m, d, seed, device):
+    """x, y, fractional mask, beta for K2; for P > 1 the last lane holds
+    only pad rows (x zero, mask zero), as a shard of padding does."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(P, m, d, generator=gen, device=device)
+    beta = torch.randn(P, d, generator=gen, device=device) / d ** 0.5
+    y = (torch.rand(P, m, generator=gen, device=device) < 0.4).float()
+    mask = torch.rand(P, m, generator=gen, device=device)
+    mask[torch.rand(P, m, generator=gen, device=device) < 0.1] = 0.0
+    if P > 1:
+        x[-1] = 0.0
+        mask[-1] = 0.0
+    return x, y, mask, beta
+
+
+def logistic_magnitudes(torch, x, y, mask, beta):
+    """Σ|terms| of f and of each g element in float64, lane by lane: the
+    scale of the float32 rounding of any summation order."""
+    f_mag, g_mag = [], []
+    for p in range(x.shape[0]):
+        xp, yp, mp = x[p].double(), y[p].double(), mask[p].double()
+        eta = xp @ beta[p].double()
+        f_mag.append((mp * (torch.logaddexp(torch.zeros_like(eta), eta).abs()
+                            + (yp * eta).abs())).sum())
+        g_mag.append((mp * (torch.sigmoid(eta) - yp)).abs() @ xp.abs())
+        del xp
+    return torch.stack(f_mag), torch.stack(g_mag)
+
+
+def hold_logistic(torch, logistic, x, y, mask, beta, what, active=None):
+    """Both K2 variants against the plain version on the same inputs: f and
+    g within TOL of their Σ|terms| (float64) on the active lanes; lanes
+    that are not active are never written (their zeros stay); the two
+    variants give the same f; a second call gives the same bits.  Returns
+    the largest absolute differences (value-and-grad, value)."""
+    P = x.shape[0]
+    f, g = logistic.logistic_value_and_grad(x, y, mask, beta, active)
+    fv = logistic.logistic_value(x, y, mask, beta, active)
+    again = logistic.logistic_value_and_grad(x, y, mask, beta, active)
+    torch.cuda.synchronize()
+    lanes = (torch.ones(P, dtype=torch.bool, device=x.device) if active is None else active)
+    if not (torch.equal(f[lanes], again[0][lanes]) and torch.equal(g[lanes], again[1][lanes])):
+        raise AssertionError(f"K2 is not deterministic at {what}")
+    if not torch.equal(f[lanes], fv[lanes]):
+        raise AssertionError(f"the two K2 variants give different f at {what}")
+    off = ~lanes
+    if bool(f[off].any()) or bool(fv[off].any()) or bool(g[off].any()):
+        raise AssertionError(f"K2 wrote an inactive lane at {what}")
+    rf, rg = logistic.logistic_value_and_grad_ref(x, y, mask, beta)
+    f_mag, g_mag = logistic_magnitudes(torch, x, y, mask, beta)
+    df = (f - rf).abs()[lanes]
+    dg = (g - rg).abs()[lanes]
+    if not bool((df.double() <= TOL * f_mag[lanes] + 1e-6).all()):
+        raise AssertionError(f"K2 f differs from its plain version at {what}")
+    if not bool((dg.double() <= TOL * g_mag[lanes] + 1e-6).all()):
+        raise AssertionError(f"K2 g differs from its plain version at {what}")
+    worst_f = float((df.double() / (f_mag[lanes] + 1e-30)).max())
+    worst_g = float((dg.double() / (g_mag[lanes] + 1e-30)).max())
+    log(f"  logistic {what}: f within {worst_f:.2e}, g within {worst_g:.2e} of Σ|terms|; "
+        f"deterministic; inactive lanes unwritten")
+    return float(torch.cat([df, dg.reshape(-1)]).max()), float(df.max())
+
+
+def compare_logistic(torch, logistic, device):
+    """Phase 3 for K2: each shape of LOGISTIC_SHAPES with all lanes active
+    and, for P > 1, with lane 1 inactive.  Returns the largest absolute
+    differences per wrapper."""
+    err = {"logistic_value_and_grad": 0.0, "logistic_value": 0.0}
+    for P, m, d in LOGISTIC_SHAPES:
+        x, y, mask, beta = logistic_inputs(torch, P, m, d, P * m + d, device)
+        actives = [None]
+        if P > 1:
+            act = torch.ones(P, dtype=torch.bool, device=device)
+            act[1] = False
+            actives.append(act)
+        for act in actives:
+            what = f"P={P} m={m} d={d}" + ("" if act is None else " lane 1 inactive")
+            e_vg, e_v = hold_logistic(torch, logistic, x, y, mask, beta, what, act)
+            err["logistic_value_and_grad"] = max(err["logistic_value_and_grad"], e_vg)
+            err["logistic_value"] = max(err["logistic_value"], e_v)
+    return err
+
+
+def higgs_standin(torch, n, d, seed, device):
+    """bench.py's stand-in at the HIGGS shape, generated on the card: w and
+    X standard normal, y = [σ(Xw) > U] with U uniform on [0, 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn(d, generator=gen, device=device)
+    X = torch.randn(n, d, generator=gen, device=device)
+    y = (torch.sigmoid(X @ w) > torch.rand(n, generator=gen, device=device)).float()
+    return X, y, w
+
+
+def admm_estimator():
+    """bench.py's end-to-end fit (``bench.py:1031-1035``)."""
+    from dask_ml_tpu_torch import LogisticRegression
+
+    return LogisticRegression(solver="admm", C=1e4, max_iter=ADMM_ROUNDS,
+                              solver_kwargs={"inner_iter": ADMM_INNER})
+
+
+def reset_logistic_counts(logistic, algorithms):
+    logistic.logistic_value_and_grad.launches = 0
+    logistic.logistic_value.launches = 0
+    logistic.logistic_value_and_grad_ref.calls = 0
+    algorithms.reset_dispatch_counts()
+
+
+def admm_main_path(torch, logistic, algorithms, X, y, w, card):
+    """Phase 6: ``LogisticRegression(solver='admm')`` on the HIGGS stand-in,
+    every K2 launch and host sync counted."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_logistic_counts(logistic, algorithms)
+    t0 = time.perf_counter()
+    est = admm_estimator().fit(X, y)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    launches = {"logistic_value_and_grad": logistic.logistic_value_and_grad.launches,
+                "logistic_value": logistic.logistic_value.launches}
+    plain_calls = logistic.logistic_value_and_grad_ref.calls
+    syncs = algorithms.HOST_SYNCS["syncs"]
+    n, d = X.shape
+    log(f"phase 6: ADMM fit {n}x{d} at {HIGGS_SHARDS} shards: {t_fit:.3f} s on the host clock, "
+        f"n_iter_ {int(est.n_iter_[0])}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    log(f"launches on the ADMM path: {launches}, plain-version calls {plain_calls}, "
+        f"host syncs {syncs}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched on the ADMM path")
+    if plain_calls:
+        raise AssertionError(f"the ADMM path called K2's plain version {plain_calls} times")
+    coef = est.coef_
+    if coef.shape != (d,) or not bool(torch.isfinite(coef).all()):
+        raise AssertionError("coef_ is malformed")
+    cos = float(coef @ w / (coef.norm() * w.norm()))
+    acc = est.score(X, y)
+    log(f"train accuracy {acc:.6f}; cosine(coef_, w) {cos:.7f} (>= 0.999); "
+        f"‖coef_‖ {float(coef.norm()):.4f}, ‖w‖ {float(w.norm()):.4f}")
+    if not cos >= 0.999:
+        raise AssertionError(f"cosine between coef_ and the true w is {cos} < 0.999")
+    return est, launches, syncs, t_fit
+
+
+def plain_fit_check(torch, logistic, X, y, est):
+    """The same fit again through the kernel (warm: the same bits, since K2
+    is deterministic), then with K2's plain version in place of the kernel
+    (on the card, as a check only): ‖Δβ‖∞ ≤ ADMM_RTOL·‖β‖∞ and equal
+    n_iter_."""
+    t0 = time.perf_counter()
+    again = admm_estimator().fit(X, y)
+    torch.cuda.synchronize()
+    log(f"phase 6: the same fit again through the kernel: {time.perf_counter() - t0:.3f} s")
+    if not torch.equal(again.betas_, est.betas_):
+        raise AssertionError("a second fit through the kernel gave other bits")
+    kernel = (logistic.logistic_value_and_grad, logistic.logistic_value)
+
+    def plain_vg(x, y, mask, beta, active=None):
+        return logistic.logistic_value_and_grad_ref(x, y, mask, beta, active, True)
+
+    def plain_v(x, y, mask, beta, active=None):
+        return logistic.logistic_value_and_grad_ref(x, y, mask, beta, active, False)[0]
+
+    logistic.logistic_value_and_grad, logistic.logistic_value = plain_vg, plain_v
+    try:
+        t0 = time.perf_counter()
+        plain = admm_estimator().fit(X, y)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    finally:
+        logistic.logistic_value_and_grad, logistic.logistic_value = kernel
+    diff = float((plain.betas_ - est.betas_).abs().max())
+    scale = float(est.betas_.abs().max())
+    log(f"phase 6: the same fit through the plain version: {t_plain:.3f} s, n_iter_ "
+        f"{int(plain.n_iter_[0])}; ‖Δβ‖∞ {diff:.3e} = {diff / scale:.3e}·‖β‖∞ "
+        f"(<= {ADMM_RTOL})")
+    if int(plain.n_iter_[0]) != int(est.n_iter_[0]):
+        raise AssertionError(f"n_iter_ {int(est.n_iter_[0])} through the kernel, "
+                             f"{int(plain.n_iter_[0])} through the plain version")
+    if not diff <= ADMM_RTOL * scale:
+        raise AssertionError(f"β differs from the plain-version fit by {diff / scale:.3e}·‖β‖∞")
+
+
+def profiled_admm_fit(torch, algorithms, X, y, card):
+    """Phase 6: one more fit under ``torch.profiler``: device time by kernel
+    name, and the device's idle share over the fit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    algorithms.reset_dispatch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        admm_estimator().fit(X, y)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    syncs = algorithms.HOST_SYNCS["syncs"]
+    per_name = {}
+    launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, count = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+            launches += 1
+    log(f"phase 6: profiled ADMM fit {wall_ms:.3f} ms on the host clock, {syncs} host syncs "
+        f"({wall_ms / max(syncs, 1):.4f} ms of host clock a sync) [{card}]")
+    if not per_name:
+        log("  device time by kernel: not measured (the profiler recorded no device event)")
+        return
+    busy = sum(ms for ms, _ in per_name.values())
+    k2 = [(ms, count) for name, (ms, count) in per_name.items()
+          if any(k in name for k in ("tiled_kernel", "row_kernel", "finalize_kernel"))]
+    k2_ms, k2_launches = sum(ms for ms, _ in k2), sum(c for _, c in k2)
+    for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:14]:
+        log(f"  device {ms:12.3f} ms {count:7d}x  {name[:110]}")
+    log(f"  device busy {busy:.3f} ms of {wall_ms:.3f} ms: idle share "
+        f"{(wall_ms - busy) / wall_ms:.4f}; K2's kernels {k2_ms:.3f} ms in {k2_launches} "
+        f"launches, the other {launches - k2_launches} launches {busy - k2_ms:.3f} ms")
+
+
+def fixed_work_rounds(torch, logistic, algorithms, Xi, y, card):
+    """Phase 6: bench.py's ``admm_logreg_{n}x{d}_10outer`` workload: the
+    solver at fixed work (abstol = reltol = inner_tol = 0, 30 inner
+    iterations, λ = 1e-4), timed at 2 and 10 rounds; the slope is the time
+    of one round."""
+    from dask_ml_tpu_torch.solvers import L2, admm
+
+    def solve(rounds):
+        torch.cuda.synchronize()
+        reset_logistic_counts(logistic, algorithms)
+        t0 = time.perf_counter()
+        _, n_it = admm(Xi, y, lamduh=1e-4, max_iter=rounds, regularizer=L2,
+                       inner_iter=ADMM_INNER, abstol=0.0, reltol=0.0, inner_tol=0.0,
+                       n_shards=HIGGS_SHARDS, return_n_iter=True)
+        torch.cuda.synchronize()
+        if n_it != rounds:
+            raise AssertionError(f"the fixed-work solve ran {n_it} rounds, not {rounds}")
+        return (time.perf_counter() - t0, algorithms.HOST_SYNCS["syncs"],
+                logistic.logistic_value_and_grad.launches, logistic.logistic_value.launches)
+
+    t2, s2, g2, v2 = solve(2)
+    t10, s10, g10, v10 = solve(10)
+    per_round = (t10 - t2) / 8
+    n = Xi.n_samples
+    log(f"phase 6: fixed-work ADMM at {n}x{Xi.data.shape[1]}: 2 rounds {t2:.4f} s "
+        f"({s2} syncs), 10 rounds {t10:.4f} s ({s10} syncs): {1e3 * per_round:.3f} ms a round, "
+        f"{n / per_round:.4g} rows/s; a round: {(s10 - s2) / 8:.1f} host syncs, "
+        f"{(g10 - g2) / 8:.1f} value-and-grad and {(v10 - v2) / 8:.1f} value launches [{card}]")
+
+
+def logistic_table(torch, logistic, Xi, y, launches, card):
+    """Phase 6: K2 at the main path's shape ((8, n/8, 29) lanes of Xi) held
+    against its plain version, then both variants timed (CUDA events)
+    beside the plain version, the bound and the library pair (a batched
+    forward and transposed gemv, informational: no single PyTorch call
+    computes K2).  ``max_abs_err`` is that check's."""
+    P = HIGGS_SHARDS
+    n, d = Xi.data.shape
+    m = n // P
+    x3 = Xi.data.view(P, m, d)
+    y2 = y.reshape(P, m).contiguous()
+    m2 = Xi.mask.view(P, m)
+    gen = torch.Generator(device=Xi.data.device).manual_seed(3)
+    beta = torch.randn(P, d, generator=gen, device=Xi.data.device) / d ** 0.5
+    what = f"({P}, {m}, {d})"
+    log(f"phase 6: K2 vs its plain version at the main path's shape {what}")
+    err_vg, err_v = hold_logistic(torch, logistic, x3, y2, m2, beta, what)
+    ms_vg = time_ms(torch, lambda: logistic.logistic_value_and_grad(x3, y2, m2, beta), 20)
+    ms_v = time_ms(torch, lambda: logistic.logistic_value(x3, y2, m2, beta), 20)
+    plain_vg = time_ms(torch, lambda: logistic.logistic_value_and_grad_ref(x3, y2, m2, beta), 3)
+    plain_v = time_ms(
+        torch, lambda: logistic.logistic_value_and_grad_ref(x3, y2, m2, beta, grad=False), 3)
+    wv = torch.rand(P, m, 1, generator=gen, device=Xi.data.device)
+    lib_ms = time_ms(torch, lambda: (torch.bmm(x3, beta[:, :, None]),
+                                     torch.bmm(x3.transpose(1, 2), wv)), 20)
+    nbytes = n * (d + 2) * 4 + 2 * P * d * 4 + P * 4
+    out = []
+    for name, ms, plain_ms, flops, err in (
+            ("logistic_value_and_grad", ms_vg, plain_vg, 4 * n * d, err_vg),
+            ("logistic_value", ms_v, plain_v, 2 * n * d, err_v)):
+        b_ms, b_by = bound_ms(nbytes, flops)
+        log(f"{name} at {what}: {ms:.4f} ms, {n / ms * 1e3:.4g} rows/s, "
+            f"{nbytes / ms / 1e6:.1f} GB/s, {b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; "
+            f"library pair, informational: {lib_ms:.4f} ms) [{card}]")
+        out.append({"name": name, "route": "cuda",
+                    "source": "dask_ml_tpu_torch/csrc/logistic.cu",
+                    "replaces": "dask_ml_tpu/solvers/families.py:34",
+                    "launches": launches[name], "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -535,7 +856,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     from dask_ml_tpu_torch.core import set_device
-    from dask_ml_tpu_torch.ops import _build, lloyd
+    from dask_ml_tpu_torch.ops import _build, lloyd, logistic
+    from dask_ml_tpu_torch.solvers import algorithms
 
     # 1. environment
     card = card_line()
@@ -558,6 +880,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     log(f"phase 3: kernels vs plain versions, n={CHECK_ROWS}, rtol {TOL}")
     log(f"phase 3 largest absolute differences: {compare_kernels(torch, lloyd, device)}")
+    log(f"phase 3 K2 largest absolute differences: {compare_logistic(torch, logistic, device)}")
 
     small_fit(torch, device)
 
@@ -570,7 +893,25 @@ def main() -> int:
     out = kernel_table(torch, lloyd, X, est.cluster_centers_, launches, card)
     reduce_off_path(torch, lloyd, X, OFF_PATH_SHAPES, card)
     candidate_pass(torch, lloyd, X, slots, valid, card)
-    del X
+    del X, est
+    torch.cuda.synchronize()
+
+    # 6. the ADMM main path: LogisticRegression on the HIGGS stand-in
+    from dask_ml_tpu_torch.core import shard_rows, use_device
+    from dask_ml_tpu_torch.linear_model.utils import add_intercept
+    t0 = time.perf_counter()
+    X, y, w = higgs_standin(torch, HIGGS_ROWS, HIGGS_D, 0, device)
+    torch.cuda.synchronize()
+    log(f"phase 6: HIGGS stand-in {HIGGS_ROWS}x{HIGGS_D} on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    with use_device(device, n_shards=HIGGS_SHARDS):
+        est, k2_launches, _, _ = admm_main_path(torch, logistic, algorithms, X, y, w, card)
+        plain_fit_check(torch, logistic, X, y, est)
+        profiled_admm_fit(torch, algorithms, X, y, card)
+        Xi = add_intercept(shard_rows(X))
+        fixed_work_rounds(torch, logistic, algorithms, Xi, y, card)
+        out += logistic_table(torch, logistic, Xi, y, k2_launches, card)
+    del X, Xi, y
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": out}), flush=True)

@@ -7,8 +7,9 @@ run on CUDA unless the caller asks for the CPU (``core.set_device``).
 """
 
 from .cluster import KMeans
-from .convert import kmeans_from_reference
+from .convert import kmeans_from_reference, logistic_regression_from_reference
 from .core import get_device, set_device, shard_rows
+from .linear_model import LogisticRegression
 
-__all__ = ["KMeans", "get_device", "kmeans_from_reference", "set_device",
-           "shard_rows"]
+__all__ = ["KMeans", "LogisticRegression", "get_device", "kmeans_from_reference",
+           "logistic_regression_from_reference", "set_device", "shard_rows"]

@@ -85,6 +85,13 @@ def clone(estimator):
     return type(estimator)(**params)
 
 
+class ClassifierMixin:
+    """Marks a classifier, as scikit-learn's mixin does; each estimator
+    defines its own ``score``."""
+
+    _estimator_type = "classifier"
+
+
 class TransformerMixin:
     def fit_transform(self, X, y=None, **fit_params):
         return self.fit(X, y, **fit_params).transform(X)

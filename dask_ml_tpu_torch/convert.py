@@ -1,5 +1,6 @@
 """Weights carried across: a fitted reference estimator's attributes, as
-numpy arrays, into a fitted port estimator."""
+numpy arrays, into a fitted port estimator (``KMeans`` and binary
+``LogisticRegression``)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import torch
 
 from .cluster.k_means import KMeans
 from .core.mesh import get_device
+from .linear_model.glm import LogisticRegression
 
 
 def kmeans_from_reference(arrays, *, device=None, **params) -> KMeans:
@@ -35,4 +37,42 @@ def kmeans_from_reference(arrays, *, device=None, **params) -> KMeans:
     est.n_iter_ = int(arrays["n_iter_"])
     est.inertia_ = float(arrays["inertia_"])
     est.n_features_in_ = int(arrays["n_features_in_"])
+    return est
+
+
+def logistic_regression_from_reference(arrays, *, device=None, **params) -> LogisticRegression:
+    """A fitted binary port ``LogisticRegression`` from the reference's.
+
+    ``arrays`` maps ``coef_``, ``intercept_``, ``classes_``, ``betas_`` and
+    ``n_iter_`` to numpy arrays or scalars; ``params`` go to the
+    constructor (``fit_intercept`` is read from the shape of ``betas_``).
+    ``betas_`` and ``coef_`` land on ``device`` (default: the active
+    device) as float32, so ``decision_function``, ``predict`` and
+    ``predict_proba`` compute what the reference's do.
+    """
+    missing = {"coef_", "intercept_", "classes_", "betas_", "n_iter_"} - set(arrays)
+    if missing:
+        raise ValueError(f"missing fitted attributes: {sorted(missing)}")
+    classes = np.asarray(arrays["classes_"])
+    betas = np.asarray(arrays["betas_"], dtype=np.float32)
+    coef = np.asarray(arrays["coef_"], dtype=np.float32)
+    if len(classes) != 2 or betas.ndim != 2 or betas.shape[0] != 1:
+        raise NotImplementedError(
+            f"{len(classes)} classes with betas_ of shape {betas.shape}: only binary "
+            "models are ported yet (ROADMAP: [port-admm] packed one-vs-rest and multinomial)")
+    d = coef.shape[-1]
+    if betas.shape[1] not in (d, d + 1):
+        raise ValueError(f"betas_ of shape {betas.shape} does not match coef_ {coef.shape}")
+    fit_intercept = betas.shape[1] == d + 1
+    if params.setdefault("fit_intercept", fit_intercept) != fit_intercept:
+        raise ValueError(f"fit_intercept={params['fit_intercept']} does not match betas_ "
+                         f"of shape {betas.shape} for {d} features")
+    device = torch.device(device) if device is not None else get_device()
+    est = LogisticRegression(**params)
+    est.betas_ = torch.tensor(betas, device=device)
+    est.coef_ = est.betas_[0, :d]
+    est.intercept_ = float(np.asarray(arrays["intercept_"]))
+    est.classes_ = classes
+    est.n_iter_ = np.asarray(arrays["n_iter_"], dtype=np.int32).reshape(-1)
+    est.n_features_in_ = d
     return est

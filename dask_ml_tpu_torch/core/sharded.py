@@ -94,6 +94,16 @@ def shard_rows(x, device=None, *, n_shards=None, dtype=None) -> ShardedRows:
     return ShardedRows(data=x, mask=mask, n_samples=n)
 
 
+def as_sharded(x):
+    """Wrap a raw tensor (1-D targets or 2-D designs alike) into a
+    :class:`ShardedRows` where it lies (pad+mask on its device, no host
+    round trip); anything else (ShardedRows, numpy, pandas, lists, None)
+    passes through unchanged."""
+    if isinstance(x, torch.Tensor):
+        return shard_rows(x)
+    return x
+
+
 def unshard(x) -> np.ndarray:
     """Bring a tensor (or the real rows of a ShardedRows) to host memory."""
     if isinstance(x, ShardedRows):

@@ -1,4 +1,5 @@
-"""The Lloyd kernels against their plain versions, on a card.
+"""The Lloyd kernels and K2 (the logistic loss and gradient) against their
+plain versions, on a card.
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip without a
 card and ``nvcc``.  They import neither JAX nor the reference, so on a
@@ -9,7 +10,9 @@ Tolerance: float32 with another summation order, so sums agree to 1e-5
 of each cluster's Σ|mask·x| and inertia to rtol 1e-5 (both against the
 plain reduce taken in float64, since float32 atomics carry an error of
 that size themselves), and d² to 1e-5 of ‖x‖²+‖c‖²; a label may differ
-only where the two smallest d² are that close.
+only where the two smallest d² are that close.  K2's f and g agree with
+the plain version to 1e-5 of their Σ|terms| (float64), the scale of the
+float32 rounding of either summation order.
 """
 
 import shutil
@@ -17,7 +20,7 @@ import shutil
 import pytest
 import torch
 
-from dask_ml_tpu_torch.ops import lloyd
+from dask_ml_tpu_torch.ops import logistic, lloyd
 from dask_ml_tpu_torch.ops.scatter import bucket_sum
 
 TOL = 1e-5
@@ -176,3 +179,93 @@ def test_wrapper_counts_its_launches(cuda):
     lloyd.lloyd_assign(x, mask, centers)
     lloyd.lloyd_assign_ref(x, mask, centers)
     assert lloyd.lloyd_assign.launches == before + 1
+
+
+# ------------------------------------------------------------------ K2
+
+def _logistic_inputs(P, m, d, seed, device, pad_lane=False):
+    """x, y, fractional mask, beta; ``pad_lane``: the last lane holds only
+    pad rows (x zero, mask zero), as a shard of padding does."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(P, m, d, generator=gen, device=device)
+    beta = torch.randn(P, d, generator=gen, device=device) / d ** 0.5
+    y = (torch.rand(P, m, generator=gen, device=device) < 0.4).float()
+    mask = torch.rand(P, m, generator=gen, device=device)
+    mask[torch.rand(P, m, generator=gen, device=device) < 0.1] = 0.0
+    if pad_lane:
+        x[-1] = 0.0
+        mask[-1] = 0.0
+    return x, y, mask, beta
+
+
+def _logistic_magnitudes(x, y, mask, beta):
+    """Σ|terms| of f and of each g element, in float64: the scale of the
+    float32 rounding of either summation order."""
+    x, y, mask, beta = x.double(), y.double(), mask.double(), beta.double()
+    eta = torch.einsum("pmd,pd->pm", x, beta)
+    sp = torch.logaddexp(torch.zeros_like(eta), eta)
+    f_mag = (mask * (sp.abs() + (y * eta).abs())).sum(1)
+    g_mag = torch.einsum("pm,pmd->pd", (mask * (torch.sigmoid(eta) - y)).abs(), x.abs())
+    return f_mag, g_mag
+
+
+def _hold_logistic(f, g, x, y, mask, beta, lanes):
+    rf, rg = logistic.logistic_value_and_grad_ref(x, y, mask, beta)
+    f_mag, g_mag = _logistic_magnitudes(x, y, mask, beta)
+    assert bool(((f - rf).abs()[lanes].double() <= TOL * f_mag[lanes] + 1e-6).all())
+    if g is not None:
+        assert bool(((g - rg).abs()[lanes].double() <= TOL * g_mag[lanes] + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,m,d", [(1, 1001, 3), (8, 1375, 29), (8, 4097, 130),
+                                   (3, 777, 1), (2, 300, 2000)])
+def test_logistic_matches_plain_version(cuda, P, m, d):
+    x, y, mask, beta = _logistic_inputs(P, m, d, P * m + d, cuda, pad_lane=P > 1)
+    lanes = torch.ones(P, dtype=torch.bool, device=cuda)
+    f, g = logistic.logistic_value_and_grad(x, y, mask, beta)
+    fv = logistic.logistic_value(x, y, mask, beta)
+    torch.cuda.synchronize()
+    _hold_logistic(f, g, x, y, mask, beta, lanes)
+    assert torch.equal(f, fv)  # both variants compute f the same way
+    if P > 1:  # the lane of pad rows sums to zero
+        assert float(f[-1]) == 0.0 and not bool(g[-1].any())
+    again = logistic.logistic_value_and_grad(x, y, mask, beta)
+    assert torch.equal(f, again[0]) and torch.equal(g, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad", [True, False])
+def test_logistic_leaves_inactive_lanes_unwritten(cuda, grad):
+    P, m, d = 4, 2049, 29
+    x, y, mask, beta = _logistic_inputs(P, m, d, 5, cuda)
+    active = torch.tensor([True, False, True, True], device=cuda)
+    if grad:
+        f, g = logistic.logistic_value_and_grad(x, y, mask, beta, active)
+    else:
+        f, g = logistic.logistic_value(x, y, mask, beta, active), None
+    torch.cuda.synchronize()
+    assert float(f[1]) == 0.0 and (g is None or not bool(g[1].any()))  # never written
+    assert bool((f[active] != 0).all())
+    _hold_logistic(f, g, x, y, mask, beta, active)
+
+
+@pytest.mark.cuda
+def test_logistic_rejects_what_the_kernel_does_not_take(cuda):
+    x, y, mask, beta = _logistic_inputs(2, 100, 29, 1, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        logistic.logistic_value_and_grad(x.bfloat16(), y, mask, beta)
+    with pytest.raises(ValueError, match="contiguous"):
+        logistic.logistic_value_and_grad(x.transpose(1, 2).contiguous().transpose(1, 2),
+                                         y, mask, beta)
+
+
+@pytest.mark.cuda
+def test_logistic_wrappers_count_their_launches(cuda):
+    x, y, mask, beta = _logistic_inputs(2, 100, 5, 1, cuda)
+    before = (logistic.logistic_value_and_grad.launches, logistic.logistic_value.launches)
+    logistic.logistic_value_and_grad(x, y, mask, beta)
+    logistic.logistic_value(x, y, mask, beta)
+    logistic.logistic_value_and_grad_ref(x, y, mask, beta)
+    assert (logistic.logistic_value_and_grad.launches,
+            logistic.logistic_value.launches) == (before[0] + 1, before[1] + 1)
