@@ -50,7 +50,24 @@ Phases, in order; any failure exits non-zero:
    rounds (timed at 2 and 10 rounds, the slope per round); and K2 at the
    main shape held against its plain version, then timed beside it, its
    bound and the library pair (a batched forward and transposed gemv).
-   Then the ``kernels`` line, the card line and the result.
+7. Multi-class LogisticRegression on the HIGGS width: 11M x 28 float32
+   generated on the card from a seed, with K=4 classes drawn from a true
+   softmax model (W (4, 28) standard normal, y = argmax_k(X W_k + Gumbel
+   noise)), at 8 shards; the phase-6 estimator with
+   ``multi_class="ovr"`` (the packed fit, 32 lanes through K2-OvR) and
+   ``multi_class="multinomial"`` (through K2-MN).  Each fit must launch its
+   kernel and never its plain version, reach 0.98 of the true W's train
+   accuracy, and agree with the same fit through the plain versions
+   (equal ``n_iter_``, ‖Δβ‖∞ <= 1e-3·‖β‖∞); the multinomial fit's
+   ``coef_[k] - coef_[0]`` must have cosine >= 0.999 to ``W[k] - W[0]``.
+   Prints each fit's time, ``n_iter_``, launches, host syncs, peak memory
+   and, from one more profiled fit each, the idle share.  Then bench.py's
+   packed-vs-sequential fixed-work A/B (1M x 28, K=4 and K=16, ``lbfgs``,
+   λ=1, 20 iterations, tol 0) with every lane's executed iterations; both
+   kernels at the phase-7 shapes (and K2-OvR at the A/B's K=16 shape) held
+   against their plain versions and timed beside their bounds, their plain
+   versions and informational comparisons; and ``dryrun_multichip(8)`` on
+   the card.  Then the ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -93,6 +110,15 @@ HIGGS_SHARDS = 8
 ADMM_ROUNDS = 10
 ADMM_INNER = 30
 ADMM_RTOL = 1e-3  # the fit through the kernel against the fit through the plain version
+# K2-OvR and K2-MN in phase 3, (P, m, d, K): K in {2, 3, 4, 16, 100} and d in
+# {1, 29, 130, 2000}; the last two take the wide path (row_kernel)
+MULTICLASS_SHAPES = ((1, 1001, 29, 2), (8, 1375, 29, 4), (8, 4097, 130, 3), (3, 777, 1, 16),
+                     (2, 3001, 29, 100), (2, 300, 2000, 4), (2, 300, 2000, 100))
+# phase 7: classes of the softmax stand-in, and bench.py's packed A/B
+MC_CLASSES = 4
+AB_ROWS = 1_000_000
+AB_CLASSES = (4, 16)
+AB_ITERS = 20
 
 
 def log(msg: str) -> None:
@@ -738,17 +764,19 @@ def plain_fit_check(torch, logistic, X, y, est):
         raise AssertionError(f"β differs from the plain-version fit by {diff / scale:.3e}·‖β‖∞")
 
 
-def profiled_admm_fit(torch, algorithms, X, y, card):
-    """Phase 6: one more fit under ``torch.profiler``: device time by kernel
-    name, and the device's idle share over the fit."""
+def profiled_admm_fit(torch, algorithms, X, y, card, make=None, label="phase 6: profiled ADMM fit"):
+    """Phases 6 and 7: one more fit (``make()``, default the phase-6
+    estimator) under ``torch.profiler``: device time by kernel name, and
+    the device's idle share over the fit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    make = make or admm_estimator
     torch.cuda.synchronize()
     algorithms.reset_dispatch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        admm_estimator().fit(X, y)
+        make().fit(X, y)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     syncs = algorithms.HOST_SYNCS["syncs"]
@@ -759,7 +787,7 @@ def profiled_admm_fit(torch, algorithms, X, y, card):
             ms, count = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
             launches += 1
-    log(f"phase 6: profiled ADMM fit {wall_ms:.3f} ms on the host clock, {syncs} host syncs "
+    log(f"{label} {wall_ms:.3f} ms on the host clock, {syncs} host syncs "
         f"({wall_ms / max(syncs, 1):.4f} ms of host clock a sync) [{card}]")
     if not per_name:
         log("  device time by kernel: not measured (the profiler recorded no device event)")
@@ -771,7 +799,7 @@ def profiled_admm_fit(torch, algorithms, X, y, card):
     for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  device {ms:12.3f} ms {count:7d}x  {name[:110]}")
     log(f"  device busy {busy:.3f} ms of {wall_ms:.3f} ms: idle share "
-        f"{(wall_ms - busy) / wall_ms:.4f}; K2's kernels {k2_ms:.3f} ms in {k2_launches} "
+        f"{(wall_ms - busy) / wall_ms:.4f}; the loss kernels {k2_ms:.3f} ms in {k2_launches} "
         f"launches, the other {launches - k2_launches} launches {busy - k2_ms:.3f} ms")
 
 
@@ -849,6 +877,410 @@ def logistic_table(torch, logistic, Xi, y, launches, card):
     return out
 
 
+
+def multiclass_magnitudes(torch, mode, x, y, mask, beta):
+    """Σ|terms| of f and of each g element in float64, shard by shard: the
+    scale of the float32 rounding of any summation order."""
+    P, m, d = x.shape
+    f_mag, g_mag = [], []
+    for p in range(P):
+        xp, mp = x[p].double(), mask[p].double()
+        if mode == "ovr":
+            K = y.shape[0]
+            eta = xp @ beta.view(K, P, d)[:, p].double().T  # (m, K)
+            yp = y[:, p].double().T
+            sp = torch.logaddexp(torch.zeros_like(eta), eta)
+            f_mag.append((mp[:, None] * (sp.abs() + (yp * eta).abs())).sum(0))
+            w = (mp[:, None] * (torch.sigmoid(eta) - yp)).abs()
+            g_mag.append(w.T @ xp.abs())  # (K, d)
+        else:
+            K = beta.shape[1] // d
+            eta = xp @ beta[p].double().view(d, K)
+            onehot = torch.nn.functional.one_hot(y[p].long().clamp(0, K - 1), K).double()
+            f_mag.append((mp * (torch.logsumexp(eta, 1).abs()
+                                + (eta * onehot).sum(1).abs())).sum().reshape(1))
+            w = (mp[:, None] * (torch.softmax(eta, 1) - onehot)).abs()
+            g_mag.append((xp.abs().T @ w).reshape(1, d * K))
+        del xp
+    if mode == "ovr":  # lanes k*P + p
+        return torch.stack(f_mag, 1).reshape(-1), torch.stack(g_mag, 1).reshape(-1, d)
+    return torch.cat(f_mag), torch.cat(g_mag)
+
+
+def multiclass_wrappers(multiclass, mode):
+    if mode == "ovr":
+        return (multiclass.logistic_ovr_value_and_grad, multiclass.logistic_ovr_value,
+                multiclass.logistic_ovr_value_and_grad_ref)
+    return (multiclass.multinomial_value_and_grad, multiclass.multinomial_value,
+            multiclass.multinomial_value_and_grad_ref)
+
+
+def hold_multiclass(torch, multiclass, mode, x, y, mask, beta, what, active=None):
+    """Both variants of K2-OvR (``mode`` "ovr") or K2-MN ("mn") against the
+    plain version on the same inputs taken in float64 (the float32 plain
+    K2-MN's gradient is a gemm whose sums over 1.375M rows carry an error
+    past TOL·Σ|terms| themselves): f and g within TOL of their Σ|terms|
+    on the active lanes; inactive lanes never written; the same f from
+    both variants; a second call gives the same bits.  Returns the largest
+    absolute differences (value-and-grad, value)."""
+    vg, v, ref = multiclass_wrappers(multiclass, mode)
+    f, g = vg(x, y, mask, beta, active)
+    fv = v(x, y, mask, beta, active)
+    again = vg(x, y, mask, beta, active)
+    torch.cuda.synchronize()
+    lanes = torch.ones(f.shape[0], dtype=torch.bool, device=x.device) if active is None else active
+    if not (torch.equal(f[lanes], again[0][lanes]) and torch.equal(g[lanes], again[1][lanes])):
+        raise AssertionError(f"{mode} is not deterministic at {what}")
+    if not torch.equal(f[lanes], fv[lanes]):
+        raise AssertionError(f"the two {mode} variants give different f at {what}")
+    off = ~lanes
+    if bool(f[off].any()) or bool(fv[off].any()) or bool(g[off].any()):
+        raise AssertionError(f"{mode} wrote an inactive lane at {what}")
+    rf, rg = ref(x.double(), y.double(), mask.double(), beta.double())
+    f_mag, g_mag = multiclass_magnitudes(torch, mode, x, y, mask, beta)
+    df, dg = (f.double() - rf).abs()[lanes], (g.double() - rg).abs()[lanes]
+    del rf, rg
+    worst_f = float((df / (f_mag[lanes] + 1e-30)).max())
+    worst_g = float((dg / (g_mag[lanes] + 1e-30)).max())
+    if not bool((df <= TOL * f_mag[lanes] + 1e-6).all()):
+        raise AssertionError(f"{mode} f differs from its plain version at {what} ({worst_f:.3g})")
+    if not bool((dg <= TOL * g_mag[lanes] + 1e-6).all()):
+        raise AssertionError(f"{mode} g differs from its plain version at {what} ({worst_g:.3g})")
+    log(f"  {mode} {what}: f within {worst_f:.2e}, g within {worst_g:.2e} of Σ|terms|; "
+        f"deterministic; inactive lanes unwritten")
+    return float(torch.cat([df, dg.reshape(-1)]).max()), float(df.max())
+
+
+def multiclass_inputs(torch, mode, P, m, d, K, seed, device):
+    """x, targets, fractional mask, beta and the lane count; for P > 1 the
+    last shard holds only pad rows."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(P, m, d, generator=gen, device=device)
+    mask = torch.rand(P, m, generator=gen, device=device)
+    mask[torch.rand(P, m, generator=gen, device=device) < 0.1] = 0.0
+    if P > 1:
+        x[-1] = 0.0
+        mask[-1] = 0.0
+    if mode == "ovr":
+        y = (torch.rand(K, P, m, generator=gen, device=device) < 0.4).float()
+        beta = torch.randn(K * P, d, generator=gen, device=device) / d ** 0.5
+        return x, y, mask, beta, K * P
+    y = torch.randint(0, K, (P, m), generator=gen, device=device).float()
+    beta = torch.randn(P, d * K, generator=gen, device=device) / d ** 0.5
+    return x, y, mask, beta, P
+
+
+def compare_multiclass(torch, multiclass, device):
+    """Phase 3 for K2-OvR and K2-MN: each shape of MULTICLASS_SHAPES with
+    all lanes active and with lane 1 inactive.  Returns the largest
+    absolute differences per wrapper."""
+    err = {}
+    for mode in ("ovr", "mn"):
+        vg, v, _ = multiclass_wrappers(multiclass, mode)
+        err[vg.__name__] = err[v.__name__] = 0.0
+        for P, m, d, K in MULTICLASS_SHAPES:
+            x, y, mask, beta, lanes = multiclass_inputs(torch, mode, P, m, d, K, P * m + d + K,
+                                                        device)
+            act = torch.ones(lanes, dtype=torch.bool, device=device)
+            act[min(1, lanes - 1)] = False
+            for a in (None, act) if lanes > 1 else (None,):
+                what = f"P={P} m={m} d={d} K={K}" + ("" if a is None else " lane 1 inactive")
+                e_vg, e_v = hold_multiclass(torch, multiclass, mode, x, y, mask, beta, what, a)
+                err[vg.__name__] = max(err[vg.__name__], e_vg)
+                err[v.__name__] = max(err[v.__name__], e_v)
+            del x, y, mask, beta
+    return err
+
+
+def softmax_standin(torch, n, d, K, seed, device):
+    """The HIGGS-width stand-in with K classes from a true softmax model,
+    generated on the card: W (K, d) and X standard normal, y =
+    argmax_k(X W_k + Gumbel noise), as float class indices."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    W = torch.randn(K, d, generator=gen, device=device)
+    X = torch.randn(n, d, generator=gen, device=device)
+    u = torch.rand(n, K, generator=gen, device=device).clamp_(min=1e-12)
+    y = torch.argmax(X @ W.T - torch.log(-torch.log(u)), dim=1).float()
+    return X, y, W
+
+
+def mc_estimator(multi_class):
+    from dask_ml_tpu_torch import LogisticRegression
+
+    return LogisticRegression(solver="admm", C=1e4, max_iter=ADMM_ROUNDS,
+                              multi_class=multi_class,
+                              solver_kwargs={"inner_iter": ADMM_INNER})
+
+
+def reset_multiclass_counts(multiclass, logistic, algorithms):
+    for mode in ("ovr", "mn"):
+        vg, v, ref = multiclass_wrappers(multiclass, mode)
+        vg.launches = v.launches = ref.calls = 0
+    reset_logistic_counts(logistic, algorithms)
+
+
+def multiclass_fit(torch, multiclass, logistic, algorithms, X, y, W, acc_true, multi_class,
+                   card):
+    """Phase 7: one multi-class fit, every launch and host sync counted.
+    Returns (estimator, launches of its kernel's two wrappers)."""
+    mode = "ovr" if multi_class == "ovr" else "mn"
+    vg, v, ref = multiclass_wrappers(multiclass, mode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_multiclass_counts(multiclass, logistic, algorithms)
+    t0 = time.perf_counter()
+    est = mc_estimator(multi_class).fit(X, y)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    launches = {vg.__name__: vg.launches, v.__name__: v.launches}
+    plain = {f.__name__: f.calls for f in (
+        multiclass.logistic_ovr_value_and_grad_ref, multiclass.multinomial_value_and_grad_ref,
+        logistic.logistic_value_and_grad_ref)}
+    k2 = logistic.logistic_value_and_grad.launches + logistic.logistic_value.launches
+    n, d = X.shape
+    log(f"phase 7: {multi_class} ADMM fit {n}x{d} K={MC_CLASSES} at {HIGGS_SHARDS} shards "
+        f"({algorithms.DISPATCH_COUNTS['solves']} solve(s)): {t_fit:.3f} s on the host clock, "
+        f"n_iter_ {est.n_iter_.tolist()}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    log(f"launches in the {multi_class} fit: {launches}, K2 launches {k2}, plain-version calls "
+        f"{plain}, host syncs {algorithms.HOST_SYNCS['syncs']}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched in the {multi_class} fit")
+    if any(plain.values()):
+        raise AssertionError(f"the {multi_class} fit called a plain version: {plain}")
+    if not bool(torch.isfinite(est.betas_).all()) or tuple(est.coef_.shape) != (MC_CLASSES, d):
+        raise AssertionError(f"the {multi_class} fit's coef_ is malformed")
+    acc = est.score(X, y)
+    log(f"train accuracy {acc:.6f} (the true W's {acc_true:.6f}; >= 0.98 of it)")
+    if not acc >= 0.98 * acc_true:
+        raise AssertionError(f"{multi_class} accuracy {acc} < 0.98 * {acc_true}")
+    if multi_class == "multinomial":
+        coef = est.coef_
+        cos = [float(torch.nn.functional.cosine_similarity(coef[k] - coef[0], W[k] - W[0], dim=0))
+               for k in range(1, MC_CLASSES)]
+        log(f"cosine(coef_[k] - coef_[0], W[k] - W[0]) for k = 1..{MC_CLASSES - 1}: "
+            f"{[round(c, 7) for c in cos]} (>= 0.999)")
+        if not min(cos) >= 0.999:
+            raise AssertionError(f"multinomial coefficients off the true W: cosines {cos}")
+    return est, launches
+
+
+def plain_multiclass_fit(torch, multiclass, X, y, est, multi_class):
+    """The same fit with K2-OvR's and K2-MN's plain versions in place of the
+    kernels (on the card, as a check only): equal n_iter_ and ‖Δβ‖∞ ≤
+    ADMM_RTOL·‖β‖∞.  For the multinomial fit β is held with its mean over
+    the classes taken out: the softmax is the same when one vector is added
+    to every class's row, so that component is fixed only by the weak
+    penalty (λ = 1e-4) and ADMM's ρ term, and the inner solves' stops at
+    the float32 noise floor leave it wherever the last accepted step put
+    it.  The raw ‖Δβ‖∞ is printed beside it."""
+    names = ("logistic_ovr_value_and_grad", "logistic_ovr_value", "multinomial_value_and_grad",
+             "multinomial_value")
+    kernels = {name: getattr(multiclass, name) for name in names}
+
+    def plain(ref, grad):
+        def call(x, yv, mask, beta, active=None):
+            out = ref(x, yv, mask, beta, active, grad)
+            return out if grad else out[0]
+        return call
+
+    ovr, mn = multiclass.logistic_ovr_value_and_grad_ref, multiclass.multinomial_value_and_grad_ref
+    for name, fn in zip(names, (plain(ovr, True), plain(ovr, False), plain(mn, True),
+                                plain(mn, False))):
+        setattr(multiclass, name, fn)
+    try:
+        t0 = time.perf_counter()
+        other = mc_estimator(multi_class).fit(X, y)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    finally:
+        for name, fn in kernels.items():
+            setattr(multiclass, name, fn)
+    delta = other.betas_ - est.betas_
+    raw = float(delta.abs().max())
+    scale = float(est.betas_.abs().max())
+    if multi_class == "multinomial":
+        delta = delta - delta.mean(dim=0, keepdim=True)
+    diff = float(delta.abs().max())
+    log(f"phase 7: the {multi_class} fit through the plain versions: {t_plain:.3f} s, n_iter_ "
+        f"{other.n_iter_.tolist()}; ‖Δβ‖∞ {diff:.3e} = {diff / scale:.3e}·‖β‖∞ (<= {ADMM_RTOL})"
+        + (f", with the class mean taken out; raw ‖Δβ‖∞ {raw:.3e} = {raw / scale:.3e}·‖β‖∞"
+           if multi_class == "multinomial" else ""))
+    if other.n_iter_.tolist() != est.n_iter_.tolist():
+        raise AssertionError(f"n_iter_ {est.n_iter_.tolist()} through the kernels, "
+                             f"{other.n_iter_.tolist()} through the plain versions")
+    if not diff <= ADMM_RTOL * scale:
+        raise AssertionError(f"β differs from the plain-version fit by {diff / scale:.3e}·‖β‖∞")
+
+
+def packed_ab(torch, multiclass, algorithms, device, card):
+    """Phase 7: bench.py's ``packed_ovr_fixedwork_{n}x{d}_K{K}`` A/B
+    (``bench.py:1812-1900``): learnable targets (X·Wᵀ > 0), ``lbfgs`` with
+    λ = 1, 20 iterations, tol 0, backtracking; the packed arm (K lanes of
+    one solve through K2-OvR) against the sequential one (K solves through
+    K2), each timed as the median of 3 runs after a warm-up."""
+    import os
+
+    from dask_ml_tpu_torch.core import shard_rows
+    from dask_ml_tpu_torch.solvers import packed_solve
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    X = torch.randn(AB_ROWS, HIGGS_D, generator=gen, device=device)
+    Wall = torch.randn(max(AB_CLASSES), HIGGS_D, generator=gen, device=device)
+    Yall = (X @ Wall.T > 0).float().T.contiguous()
+    sX = shard_rows(X, n_shards=1)
+    prev = os.environ.get("DASK_ML_TPU_TORCH_PACK")
+    out = {}
+    try:
+        for K in AB_CLASSES:
+            Y = Yall[:K].contiguous()
+            iters, times = {}, {}
+            for arm in ("packed", "sequential"):
+                os.environ["DASK_ML_TPU_TORCH_PACK"] = arm
+
+                def run():
+                    _, nit = packed_solve("lbfgs", sX, Y, lamduh=1.0, max_iter=AB_ITERS, tol=0.0,
+                                          line_search="backtrack")
+                    torch.cuda.synchronize()
+                    return nit
+
+                iters[arm] = run().tolist()
+                runs = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    run()
+                    runs.append(time.perf_counter() - t0)
+                times[arm] = sorted(runs)[1]
+            matched = all(i == AB_ITERS for arm in iters for i in iters[arm])
+            log(f"phase 7: packed_ovr_fixedwork_{AB_ROWS}x{HIGGS_D}_K{K}: packed "
+                f"{1e3 * times['packed']:.3f} ms, sequential {1e3 * times['sequential']:.3f} ms "
+                f"(median of 3, host clock): packed speedup "
+                f"{times['sequential'] / times['packed']:.3f}x; executed iterations packed "
+                f"{iters['packed']}, sequential {iters['sequential']}; work_matched "
+                f"{str(matched).lower()} [{card}]")
+            out[K] = times
+    finally:
+        if prev is None:
+            os.environ.pop("DASK_ML_TPU_TORCH_PACK", None)
+        else:
+            os.environ["DASK_ML_TPU_TORCH_PACK"] = prev
+    return out
+
+
+def multiclass_table(torch, multiclass, logistic, Xi, y_idx, launches, card):
+    """Phase 7: K2-OvR and K2-MN at the phase-7 shape ((8, n/8, 29) lanes of
+    Xi, K=4) held against their plain versions, then both variants timed
+    (CUDA events, 20 launches) beside their plain versions and bounds.
+    Informational comparisons (no single PyTorch call computes either
+    kernel, so ``library_ms`` is null): for K2-OvR, K launches of K2 and
+    the ``torch.bmm`` pair; for K2-MN, ``bmm`` + ``log_softmax`` + ``bmm``.
+    K2-OvR is also held and timed at bench.py's K=16 A/B shape."""
+    P, K = HIGGS_SHARDS, MC_CLASSES
+    n, d = Xi.data.shape
+    m = n // P
+    dev = Xi.data.device
+    x3, m2 = Xi.data.view(P, m, d), Xi.mask.view(P, m)
+    y2 = y_idx.reshape(P, m).contiguous()
+    Y3 = (y2[None] == torch.arange(K, device=dev, dtype=y2.dtype)[:, None, None]).float()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B_ovr = torch.randn(K * P, d, generator=gen, device=dev) / d ** 0.5
+    B_mn = torch.randn(P, d * K, generator=gen, device=dev) / d ** 0.5
+    what = f"({P}, {m}, {d}) K={K}"
+    log(f"phase 7: K2-OvR and K2-MN vs their plain versions at {what}")
+    err = {}
+    err["logistic_ovr_value_and_grad"], err["logistic_ovr_value"] = hold_multiclass(
+        torch, multiclass, "ovr", x3, Y3, m2, B_ovr, what)
+    err["multinomial_value_and_grad"], err["multinomial_value"] = hold_multiclass(
+        torch, multiclass, "mn", x3, y2, m2, B_mn, what)
+    # informational comparisons
+    k2_ms = time_ms(torch, lambda: [logistic.logistic_value_and_grad(
+        x3, Y3[k], m2, B_ovr[k * P:(k + 1) * P].contiguous()) for k in range(K)], 20)
+    wv = torch.rand(P, m, K, generator=gen, device=dev)
+    bmm_ovr = time_ms(torch, lambda: (torch.bmm(x3, B_ovr.view(K, P, d).permute(1, 2, 0)),
+                                      torch.bmm(x3.transpose(1, 2), wv)), 20)
+    Bv = B_mn.view(P, d, K)
+    bmm_mn = time_ms(torch, lambda: torch.bmm(
+        x3.transpose(1, 2), torch.log_softmax(torch.bmm(x3, Bv), dim=2)), 20)
+    out = []
+    specs = [
+        ("logistic_ovr_value_and_grad", "ovr", True, x3, Y3, B_ovr, K * P,
+         f"K launches of K2 {k2_ms:.4f} ms; torch.bmm pair {bmm_ovr:.4f} ms",
+         "dask_ml_tpu/solvers/families.py:34"),
+        ("logistic_ovr_value", "ovr", False, x3, Y3, B_ovr, K * P, None,
+         "dask_ml_tpu/solvers/families.py:34"),
+        ("multinomial_value_and_grad", "mn", True, x3, y2, B_mn, P,
+         f"bmm + log_softmax + bmm {bmm_mn:.4f} ms", "dask_ml_tpu/solvers/families.py:85"),
+        ("multinomial_value", "mn", False, x3, y2, B_mn, P, None,
+         "dask_ml_tpu/solvers/families.py:85"),
+    ]
+    for name, mode, grad, x, yv, B, lanes, info, replaces in specs:
+        fn = getattr(multiclass, name)
+        ref = multiclass_wrappers(multiclass, mode)[2]
+        ms = time_ms(torch, lambda: fn(x, yv, m2, B), 20)
+        plain_ms = time_ms(torch, lambda: ref(x, yv, m2, B, None, grad), 3)
+        targets = yv.numel() * 4
+        nbytes = n * d * 4 + targets + n * 4 + B.numel() * 4 * (2 if grad else 1) + lanes * 4
+        flops = (4 if grad else 2) * n * d * K
+        b_ms, b_by = bound_ms(nbytes, flops)
+        log(f"{name} at {what}: {ms:.4f} ms, {n / ms * 1e3:.4g} rows/s, "
+            f"{nbytes / ms / 1e6:.1f} GB/s, {b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP"
+            + (f"; informational: {info}" if info else "") + f") [{card}]")
+        out.append({"name": name, "route": "cuda",
+                    "source": "dask_ml_tpu_torch/csrc/multiclass.cu", "replaces": replaces,
+                    "launches": launches[name], "max_abs_err": err[name],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None})
+    del Y3, wv
+    # K2-OvR at bench.py's K=16 A/B shape: one shard of 1M rows, 28 wide
+    Kb = max(AB_CLASSES)
+    xb = Xi.data.view(-1)[:AB_ROWS * HIGGS_D].view(1, AB_ROWS, HIGGS_D)
+    mb = torch.ones(1, AB_ROWS, device=dev)
+    Yb = (torch.rand(Kb, 1, AB_ROWS, generator=gen, device=dev) < 0.5).float()
+    Bb = torch.randn(Kb, HIGGS_D, generator=gen, device=dev) / HIGGS_D ** 0.5
+    wb = f"(1, {AB_ROWS}, {HIGGS_D}) K={Kb}"
+    hold_multiclass(torch, multiclass, "ovr", xb, Yb, mb, Bb, wb)
+    ms = time_ms(torch, lambda: multiclass.logistic_ovr_value_and_grad(xb, Yb, mb, Bb), 20)
+    nbytes = AB_ROWS * (HIGGS_D + Kb + 1) * 4 + 2 * Bb.numel() * 4 + Kb * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * AB_ROWS * HIGGS_D * Kb)
+    log(f"logistic_ovr_value_and_grad at {wb}: {ms:.4f} ms, {b_ms / ms:.1%} of the bound "
+        f"(bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.4f} GB) [{card}]")
+    return out
+
+
+def multiclass_phase(torch, multiclass, logistic, algorithms, device, card):
+    """Phase 7 end to end; returns the four kernels' lines of the table."""
+    from dask_ml_tpu_torch.core import shard_rows, use_device
+    from dask_ml_tpu_torch.entry import dryrun_multichip
+    from dask_ml_tpu_torch.linear_model.utils import add_intercept
+
+    t0 = time.perf_counter()
+    X, y, W = softmax_standin(torch, HIGGS_ROWS, HIGGS_D, MC_CLASSES, 1, device)
+    acc_true = float((torch.argmax(X @ W.T, dim=1).float() == y).float().mean())
+    torch.cuda.synchronize()
+    log(f"phase 7: softmax stand-in {HIGGS_ROWS}x{HIGGS_D} K={MC_CLASSES} on the card in "
+        f"{time.perf_counter() - t0:.2f} s; the true W's train accuracy {acc_true:.6f}")
+    launches = {}
+    with use_device(device, n_shards=HIGGS_SHARDS):
+        for multi_class in ("ovr", "multinomial"):
+            est, counts = multiclass_fit(torch, multiclass, logistic, algorithms, X, y, W,
+                                         acc_true, multi_class, card)
+            launches.update(counts)
+            plain_multiclass_fit(torch, multiclass, X, y, est, multi_class)
+            profiled_admm_fit(torch, algorithms, X, y, card,
+                              make=lambda mc=multi_class: mc_estimator(mc),
+                              label=f"phase 7: profiled {multi_class} fit")
+        Xi = add_intercept(shard_rows(X))
+        del X
+        out = multiclass_table(torch, multiclass, logistic, Xi, y, launches, card)
+    del Xi, y
+    torch.cuda.synchronize()
+    packed_ab(torch, multiclass, algorithms, device, card)
+    ran = dryrun_multichip(HIGGS_SHARDS)
+    log(f"phase 7: dryrun_multichip({HIGGS_SHARDS}) on the card ran {len(ran)} sections")
+    return out
+
 def main() -> int:
     import torch
 
@@ -856,7 +1288,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     from dask_ml_tpu_torch.core import set_device
-    from dask_ml_tpu_torch.ops import _build, lloyd, logistic
+    from dask_ml_tpu_torch.ops import _build, lloyd, logistic, multiclass
     from dask_ml_tpu_torch.solvers import algorithms
 
     # 1. environment
@@ -881,6 +1313,8 @@ def main() -> int:
     log(f"phase 3: kernels vs plain versions, n={CHECK_ROWS}, rtol {TOL}")
     log(f"phase 3 largest absolute differences: {compare_kernels(torch, lloyd, device)}")
     log(f"phase 3 K2 largest absolute differences: {compare_logistic(torch, logistic, device)}")
+    log("phase 3 K2-OvR and K2-MN largest absolute differences: "
+        f"{compare_multiclass(torch, multiclass, device)}")
 
     small_fit(torch, device)
 
@@ -913,6 +1347,9 @@ def main() -> int:
         out += logistic_table(torch, logistic, Xi, y, k2_launches, card)
     del X, Xi, y
     torch.cuda.synchronize()
+
+    # 7. multi-class LogisticRegression: packed one-vs-rest and multinomial
+    out += multiclass_phase(torch, multiclass, logistic, algorithms, device, card)
 
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

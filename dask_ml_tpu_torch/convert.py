@@ -1,6 +1,6 @@
 """Weights carried across: a fitted reference estimator's attributes, as
-numpy arrays, into a fitted port estimator (``KMeans`` and binary
-``LogisticRegression``)."""
+numpy arrays, into a fitted port estimator (``KMeans`` and
+``LogisticRegression``: binary, one-vs-rest and multinomial)."""
 
 from __future__ import annotations
 
@@ -40,15 +40,22 @@ def kmeans_from_reference(arrays, *, device=None, **params) -> KMeans:
     return est
 
 
-def logistic_regression_from_reference(arrays, *, device=None, **params) -> LogisticRegression:
-    """A fitted binary port ``LogisticRegression`` from the reference's.
+def logistic_regression_from_reference(arrays, *, multinomial=None, device=None,
+                                       **params) -> LogisticRegression:
+    """A fitted port ``LogisticRegression`` from the reference's.
 
     ``arrays`` maps ``coef_``, ``intercept_``, ``classes_``, ``betas_`` and
     ``n_iter_`` to numpy arrays or scalars; ``params`` go to the
     constructor (``fit_intercept`` is read from the shape of ``betas_``).
-    ``betas_`` and ``coef_`` land on ``device`` (default: the active
-    device) as float32, so ``decision_function``, ``predict`` and
-    ``predict_proba`` compute what the reference's do.
+    ``betas_`` is ``(1, p)`` for two classes and ``(K, p)`` for K > 2,
+    where it holds either K one-vs-rest rows or a softmax's K rows.  Which
+    of the two is read from the reference's ``_multinomial`` in
+    ``arrays`` where it is there; the ``multinomial`` flag, where given,
+    takes precedence; with neither, a K > 2 model raises, since
+    ``predict_proba`` differs between them.  ``betas_`` and ``coef_`` land
+    on ``device`` (default: the active device) as float32, so
+    ``decision_function``, ``predict`` and ``predict_proba`` compute what
+    the reference's do.
     """
     missing = {"coef_", "intercept_", "classes_", "betas_", "n_iter_"} - set(arrays)
     if missing:
@@ -56,10 +63,14 @@ def logistic_regression_from_reference(arrays, *, device=None, **params) -> Logi
     classes = np.asarray(arrays["classes_"])
     betas = np.asarray(arrays["betas_"], dtype=np.float32)
     coef = np.asarray(arrays["coef_"], dtype=np.float32)
-    if len(classes) != 2 or betas.ndim != 2 or betas.shape[0] != 1:
-        raise NotImplementedError(
-            f"{len(classes)} classes with betas_ of shape {betas.shape}: only binary "
-            "models are ported yet (ROADMAP: [port-admm] packed one-vs-rest and multinomial)")
+    K = len(classes)
+    if K < 2 or betas.ndim != 2 or betas.shape[0] != (1 if K == 2 else K):
+        raise ValueError(f"{K} classes with betas_ of shape {betas.shape}")
+    if multinomial is None:
+        multinomial = arrays.get("_multinomial")
+    if K > 2 and multinomial is None:
+        raise ValueError("a model of more than two classes needs multinomial=True or False "
+                         "(or the reference's _multinomial in arrays)")
     d = coef.shape[-1]
     if betas.shape[1] not in (d, d + 1):
         raise ValueError(f"betas_ of shape {betas.shape} does not match coef_ {coef.shape}")
@@ -70,8 +81,10 @@ def logistic_regression_from_reference(arrays, *, device=None, **params) -> Logi
     device = torch.device(device) if device is not None else get_device()
     est = LogisticRegression(**params)
     est.betas_ = torch.tensor(betas, device=device)
-    est.coef_ = est.betas_[0, :d]
-    est.intercept_ = float(np.asarray(arrays["intercept_"]))
+    est.coef_ = est.betas_[0, :d] if K == 2 else est.betas_[:, :d]
+    intercept = np.asarray(arrays["intercept_"], dtype=np.float32)
+    est.intercept_ = float(intercept) if K == 2 else intercept.reshape(K)
+    est._multinomial = K > 2 and bool(multinomial)
     est.classes_ = classes
     est.n_iter_ = np.asarray(arrays["n_iter_"], dtype=np.int32).reshape(-1)
     est.n_features_in_ = d

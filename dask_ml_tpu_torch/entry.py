@@ -1,0 +1,117 @@
+"""Entry points of the port: the twin of the repository's
+``__graft_entry__.py``.
+
+``entry()``            the logistic forward (decision function through the
+                       sigmoid) on a coefficient vector, with its example
+                       arguments.
+``dryrun_multichip(n)`` the flagship fits at ``n`` logical shards on tiny
+                       shapes, each with a check of what it returned.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+
+import numpy as np
+import torch
+
+from .core.mesh import get_device, use_device
+
+
+def entry():
+    """Returns ``(forward, (x, coef, intercept))``: the logistic forward
+    ``1 / (1 + exp(-(x @ coef + intercept)))`` and the reference's example
+    arguments (the same numpy draws from seed 0) as float32 tensors on the
+    active device."""
+
+    def forward(x, coef, intercept):
+        eta = x @ coef + intercept
+        return 1.0 / (1.0 + torch.exp(-eta))
+
+    rng = np.random.RandomState(0)
+    device = get_device()
+    x = torch.from_numpy(rng.normal(size=(256, 28)).astype(np.float32)).to(device)
+    coef = torch.from_numpy(rng.normal(size=28).astype(np.float32)).to(device)
+    intercept = torch.tensor(0.1, dtype=torch.float32, device=device)
+    return forward, (x, coef, intercept)
+
+
+@contextlib.contextmanager
+def _env(name, value):
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def dryrun_multichip(n_shards: int, device=None) -> list:
+    """The reference's dryrun (``__graft_entry__.py :: dryrun_multichip``)
+    at ``n_shards`` logical row shards on one device: the card, unless
+    ``device`` asks for another (``"cpu"``).  The data are the reference's:
+    16 rows a shard, 8 features, seed 0.  Sections run, each checked:
+
+    - the binary ADMM fit, ``max_iter=2``, ``inner_iter=5``;
+    - the KMeans fit, ``init="random"``, ``max_iter=2``;
+    - the packed one-vs-rest ADMM fit on 3 classes (packed forced), each
+      class held against an independent binary solve to atol 1e-4;
+    - the multinomial ``lbfgs`` fit, ``max_iter=5``;
+    - ``class_weight="balanced"`` with ``lbfgs``, ``max_iter=5``.
+
+    Not run yet, each waiting for its ROADMAP item: the bf16 ``lbfgs`` fit
+    ([port-admm] bf16 X), ring pairwise distances and MiniBatchKMeans
+    ([port-rest]), scanned minibatch SGD ([port-stream]), TSQR through PCA
+    ([port-tsqr]), the packed SGD cohort on a data × model mesh, Hyperband
+    and the packed C-grid ([port-search]), and the multi-process run
+    ([port-multi]).  Prints the sections it ran and returns their names.
+    """
+    from .cluster import KMeans
+    from .core.sharded import shard_rows
+    from .linear_model import LogisticRegression
+
+    ran = []
+    with use_device(device, n_shards=n_shards):
+        rng = np.random.RandomState(0)
+        n, d = 16 * n_shards, 8
+        X = rng.normal(size=(n, d)).astype(np.float32)
+        w = rng.normal(size=d)
+        y = (X @ w > 0).astype(np.float32)
+        sX, sy = shard_rows(X), shard_rows(y)
+
+        lr = LogisticRegression(solver="admm", max_iter=2, solver_kwargs={"inner_iter": 5})
+        lr.fit(sX, sy)
+        assert tuple(lr.coef_.shape) == (d,) and lr.n_iter_.shape == (1,)
+        ran.append("binary ADMM")
+
+        km = KMeans(n_clusters=3, init="random", random_state=0, max_iter=2).fit(sX)
+        assert tuple(km.cluster_centers_.shape) == (3, d)
+        ran.append("KMeans init=random")
+
+        ym = rng.randint(0, 3, size=n).astype(np.float32)
+        sym = shard_rows(ym)
+        kw = dict(solver="admm", max_iter=2, solver_kwargs={"inner_iter": 4})
+        with _env("DASK_ML_TPU_TORCH_PACK", "packed"):
+            lrm = LogisticRegression(**kw).fit(sX, sym)
+        assert tuple(lrm.betas_.shape) == (3, d + 1)
+        for k in range(3):
+            bk = LogisticRegression(**kw).fit(sX, shard_rows((ym == k).astype(np.float32)))
+            gap = float((lrm.betas_[k] - bk.betas_[0]).abs().max())
+            assert gap <= 1e-4, f"packed OvR class {k} is {gap} from its binary solve"
+        ran.append("packed OvR ADMM")
+
+        lmn = LogisticRegression(solver="lbfgs", max_iter=5, multi_class="multinomial")
+        lmn.fit(sX, sym)
+        assert tuple(lmn.coef_.shape) == (3, d)
+        ran.append("multinomial lbfgs")
+
+        lrw = LogisticRegression(solver="lbfgs", max_iter=5, class_weight="balanced").fit(sX, sy)
+        assert tuple(lrw.coef_.shape) == (d,)
+        ran.append("class_weight balanced")
+        dev = sX.data.device
+    print(f"dryrun_multichip({n_shards}) on {dev}: {', '.join(ran)} OK")
+    return ran

@@ -2,12 +2,11 @@
 
 An sklearn-style facade that maps ``C``/``penalty``/``solver`` onto the
 solver library (``lamduh = 1/C``, the reference's convention), adds the
-intercept column and exposes ``coef_``/``intercept_``.  The port has the
-binary ``LogisticRegression`` by ``admm`` or ``lbfgs``; what it does not
-have yet raises ``NotImplementedError`` naming its ROADMAP item
-([port-admm]): more than two classes (packed one-vs-rest),
-``multi_class='multinomial'``,
-``class_weight``, ``fit_checkpoint``, the other solvers, and
+intercept column and exposes ``coef_``/``intercept_``.  The port has
+``LogisticRegression`` by ``admm`` or ``lbfgs``: binary, packed
+one-vs-rest, multinomial, with ``sample_weight`` and ``class_weight``;
+what it does not have yet raises ``NotImplementedError`` naming its
+ROADMAP item ([port-admm]): ``fit_checkpoint``, the other solvers, and
 ``LinearRegression``/``PoissonRegression``.
 """
 
@@ -19,8 +18,8 @@ import torch
 from ..base import ClassifierMixin, TorchEstimator
 from ..core.sharded import ShardedRows, as_sharded
 from ..preprocessing.data import _ingest_float
-from ..solvers import Logistic, admm, get_regularizer, lbfgs
-from ..utils import reweight_rows
+from ..solvers import Logistic, admm, get_regularizer, lbfgs, multinomial, packed_solve
+from ..utils import host_class_weight_rows, reweight_rows
 from .utils import add_intercept, binary_indicator
 
 _SOLVERS = {"admm": admm, "lbfgs": lbfgs}
@@ -89,16 +88,15 @@ class _GLM(TorchEstimator):
             kwargs["tol"] = self.tol
         return kwargs
 
-    def _solve(self, X: ShardedRows, y, family=None, beta0=None):
-        return _SOLVERS[self.solver](
-            X, y, return_n_iter=True, family=family or self.family, beta0=beta0,
-            **self._solver_call_kwargs())
-
     @staticmethod
-    def _warm_ok(prev, shape, *, classes_match=True):
+    def _warm_ok(prev, shape, *, was_multinomial=False, want_multinomial=False,
+                 classes_match=True):
         """Previous betas are reusable only for the same problem geometry
-        (matching classes and parameter shape); else the solve cold-starts."""
+        (matching classes, parameter shape and multinomial-ness); else the
+        solve cold-starts."""
         if prev is None or not classes_match:
+            return None
+        if was_multinomial != want_multinomial:
             return None
         if tuple(prev.shape) != shape:
             return None
@@ -109,21 +107,24 @@ class _GLM(TorchEstimator):
 
 
 class LogisticRegression(ClassifierMixin, _GLM):
-    """Binary logistic regression over the solver library.
+    """Binary and multi-class logistic regression over the solver library.
 
-    ``classes_`` is fitted and ``predict`` returns original labels (strings
-    included).  ``fit(..., sample_weight=)`` scales the row mask, so the
-    solvers' masked sums become the weighted loss.  ``warm_start=True``
-    seeds the solver with the previous fit's coefficients when the classes
-    and parameter shape are unchanged (ADMM re-seeds z and every shard's
-    β).  Fitted ``coef_`` and ``betas_`` are tensors on the fit's device.
+    Multi-class is one-vs-rest (``multi_class='ovr'``): the K class solves
+    run as the lanes of one packed solve (``solvers.packed_solve``), or a
+    true softmax fit with ``multi_class='multinomial'``.  ``classes_`` is
+    fitted and ``predict`` returns original labels (strings included).
+    ``class_weight`` (dict or ``'balanced'``) and ``fit(...,
+    sample_weight=)`` scale the row mask, so the solvers' masked sums
+    become the weighted loss.  ``warm_start=True`` seeds the solver with
+    the previous fit's coefficients when the classes, parameter shape and
+    multinomial-ness are unchanged (ADMM re-seeds z and every shard's β).
+    Fitted ``coef_`` and ``betas_`` are tensors on the fit's device.
     """
 
     family = Logistic
+    _multinomial = False  # a fitted softmax model (K > 2)
 
     def fit(self, X, y=None, sample_weight=None):
-        if self.class_weight is not None:
-            raise _not_ported("class_weight")
         if self.fit_checkpoint is not None:
             raise _not_ported("fit_checkpoint")
         if self.multi_class not in ("ovr", "auto", "multinomial"):
@@ -131,9 +132,10 @@ class LogisticRegression(ClassifierMixin, _GLM):
                 f"multi_class must be 'ovr', 'auto' or 'multinomial'; got "
                 f"{self.multi_class!r}"
             )
-        self._solver_call_kwargs()  # validates the solver before any work
+        kwargs = self._solver_call_kwargs()  # validates the solver before any work
         prev_betas = getattr(self, "betas_", None) if self.warm_start else None
         prev_classes = getattr(self, "classes_", None) if self.warm_start else None
+        prev_multinomial = self._multinomial
 
         y = as_sharded(y)
         if isinstance(y, ShardedRows):
@@ -150,35 +152,85 @@ class LogisticRegression(ClassifierMixin, _GLM):
                 "LogisticRegression needs samples of at least 2 classes; "
                 f"got {classes.tolist()}"
             )
-        if len(classes) > 2:
-            raise _not_ported(
-                f"{len(classes)} classes (packed one-vs-rest and multinomial)")
-        if self.multi_class == "multinomial":
-            raise _not_ported("multinomial")
         self.classes_ = classes
         X = _ingest_f32(self, X)
         self.n_features_in_ = X.data.shape[1]
         Xi = add_intercept(X) if self.fit_intercept else X
-        Xi = reweight_rows(Xi, sample_weight=sample_weight)
-
-        warm = self._warm_ok(
-            prev_betas, (1, Xi.data.shape[1]),
-            classes_match=(prev_classes is not None
-                           and np.array_equal(np.asarray(prev_classes), classes)))
-        y01 = binary_indicator(yv if yv is not None else y, classes[1])
-        beta, n_it = self._solve(Xi, y01, beta0=None if warm is None else warm[0])
-        self.betas_ = beta[None, :]
-        self.n_iter_ = np.asarray([n_it], dtype=np.int32)
-        if self.fit_intercept:
-            self.coef_ = beta[:-1]
-            self.intercept_ = float(beta[-1])
+        if self.class_weight is not None and yv is not None:
+            # host labels may be strings or big ints that a device cast
+            # would corrupt: resolve the row weights on the host
+            row_w = host_class_weight_rows(self.class_weight, classes, yv)
+            if sample_weight is not None:
+                row_w = row_w * np.asarray(sample_weight, np.float32)
+            Xi = reweight_rows(Xi, sample_weight=row_w)
         else:
-            self.coef_ = beta
-            self.intercept_ = 0.0
+            Xi = reweight_rows(Xi, sample_weight=sample_weight, class_weight=self.class_weight,
+                               classes=classes, y_padded=None if yv is not None else y.data)
+
+        K, p = len(classes), Xi.data.shape[1]
+
+        def warm(shape, want_multinomial=False):
+            return self._warm_ok(
+                prev_betas, shape, was_multinomial=prev_multinomial,
+                want_multinomial=want_multinomial,
+                classes_match=(prev_classes is not None and len(prev_classes) == K
+                               and np.array_equal(np.asarray(prev_classes), classes)))
+
+        self._multinomial = False
+        if K == 2 and not (self.multi_class == "multinomial" and self.penalty != "l2"):
+            # one sigmoid solve; a two-class softmax under L2 is the sigmoid
+            # at half the penalty (w = w1 - w0)
+            w0 = warm((1, p))
+            if self.multi_class == "multinomial":
+                kwargs["lamduh"] = kwargs["lamduh"] / 2.0
+            beta, n_it = _SOLVERS[self.solver](
+                Xi, binary_indicator(yv if yv is not None else y, classes[1]),
+                return_n_iter=True, family=self.family, beta0=None if w0 is None else w0[0],
+                **kwargs)
+            self.betas_ = beta[None, :]
+            n_iter = [n_it]
+        elif self.multi_class == "multinomial":
+            # one softmax solve over a flat (features, K) parameter vector
+            if yv is None:
+                cls = torch.as_tensor(classes, dtype=yd.dtype, device=yd.device)
+                y_idx = ShardedRows(data=torch.searchsorted(cls, yd).to(torch.float32),
+                                    mask=y.mask, n_samples=y.n_samples)
+            else:
+                y_idx = np.searchsorted(classes, yv).astype(np.float32)
+            # betas_ holds W (K, p); the flat vector is its (p, K) transpose
+            wm = warm((K, p), want_multinomial=True)
+            beta_flat, n_it = _SOLVERS[self.solver](
+                Xi, y_idx, return_n_iter=True, family=multinomial(K),
+                beta0=None if wm is None else wm.T.reshape(-1), **kwargs)
+            W = beta_flat.reshape(p, K).T
+            if K == 2:
+                # non-L2 two-class softmax, collapsed to the sigmoid form
+                self.betas_ = (W[1] - W[0])[None, :]
+            else:
+                self.betas_ = W.contiguous()
+                self._multinomial = True
+            n_iter = [n_it]
+        else:
+            # packed one-vs-rest: K solves as the lanes of one
+            if yv is None:
+                cls = torch.as_tensor(classes, dtype=y.data.dtype, device=y.data.device)
+                Y = (y.data[None, :] == cls[:, None]).to(torch.float32)
+            else:
+                Y = (yv[None, :] == classes[:, None]).astype(np.float32)
+            self.betas_, n_iter = packed_solve(self.solver, Xi, Y, family=self.family,
+                                               Beta0=warm((K, p)), **kwargs)
+        self.n_iter_ = np.asarray(n_iter, dtype=np.int32)
+        if self.fit_intercept:
+            self.coef_ = self.betas_[0, :-1] if K == 2 else self.betas_[:, :-1]
+            icpt = self.betas_[:, -1]
+        else:
+            self.coef_ = self.betas_[0] if K == 2 else self.betas_
+            icpt = torch.zeros(K)
+        self.intercept_ = float(icpt[0]) if K == 2 else icpt.cpu().numpy()
         return self
 
     def _etas(self, X):
-        """(X, raw margins (padded n, 1))."""
+        """(X, raw margins (padded n, K or 1))."""
         X = _ingest_f32(self, X)
         betas = self.betas_.to(X.data.device)
         if self.fit_intercept:
@@ -187,23 +239,45 @@ class LogisticRegression(ClassifierMixin, _GLM):
             eta = X.data @ betas.T
         return X, eta
 
+    def _pred_index(self, eta):
+        if len(self.classes_) == 2:
+            return (eta[:, 0] > 0).to(torch.int64)
+        return torch.argmax(eta, dim=1)
+
     def decision_function(self, X):
         X, eta = self._etas(X)
-        return eta[: X.n_samples, 0]
+        eta = eta[: X.n_samples]
+        return eta[:, 0] if len(self.classes_) == 2 else eta
 
     def predict(self, X):
-        idx = (self.decision_function(X) > 0).cpu().numpy().astype(np.intp)
+        X, eta = self._etas(X)
+        idx = self._pred_index(eta[: X.n_samples]).cpu().numpy()
         return self.classes_[idx]
 
     def predict_proba(self, X):
-        p1 = Logistic.predict(self.decision_function(X))
-        return torch.stack([1.0 - p1, p1], dim=1)
+        """Binary: the sigmoid; multinomial: the softmax; one-vs-rest: the
+        per-class sigmoids, normalised to sum to 1."""
+        eta = self.decision_function(X)
+        if len(self.classes_) == 2:
+            p1 = Logistic.predict(eta)
+            return torch.stack([1.0 - p1, p1], dim=1)
+        if self._multinomial:
+            return torch.softmax(eta, dim=1)
+        p = Logistic.predict(eta)
+        return p / torch.sum(p, dim=1, keepdim=True)
 
     def predict_log_proba(self, X):
-        """Log class probabilities as ``log_sigmoid(±eta)`` (stable)."""
+        """Log class probabilities: ``log_sigmoid(±eta)`` (binary) and
+        ``log_softmax`` (multinomial), both stable; one-vs-rest logs its
+        normalised sigmoids."""
         eta = self.decision_function(X)
-        return torch.stack([torch.nn.functional.logsigmoid(-eta),
-                            torch.nn.functional.logsigmoid(eta)], dim=1)
+        if len(self.classes_) == 2:
+            return torch.stack([torch.nn.functional.logsigmoid(-eta),
+                                torch.nn.functional.logsigmoid(eta)], dim=1)
+        if self._multinomial:
+            return torch.log_softmax(eta, dim=1)
+        p = Logistic.predict(eta)
+        return torch.log(p / torch.sum(p, dim=1, keepdim=True))
 
     def score(self, X, y, sample_weight=None):
         """Mean accuracy, weighted by ``sample_weight`` where given.  A
@@ -213,9 +287,8 @@ class LogisticRegression(ClassifierMixin, _GLM):
         if isinstance(y, ShardedRows) and np.issubdtype(self.classes_.dtype, np.number):
             Xi, eta = self._etas(X)
             yd = y.data.to(eta.device)
-            c0, c1 = (torch.as_tensor(c, dtype=yd.dtype, device=yd.device)
-                      for c in self.classes_)
-            hit = torch.where(eta[:, 0] > 0, yd == c1, yd == c0).to(torch.float64)
+            cls = torch.as_tensor(self.classes_, dtype=yd.dtype, device=yd.device)
+            hit = (cls[self._pred_index(eta)] == yd).to(torch.float64)
             w = reweight_rows(Xi, sample_weight=sample_weight).mask.to(torch.float64)
             return float(torch.sum(hit * w) / torch.sum(w))
         yv = y.unpad().cpu().numpy() if isinstance(y, ShardedRows) else np.asarray(y)

@@ -91,13 +91,19 @@ def _validate(x, y, mask, beta, active):
             raise ValueError(f"active is on {active.device}, x on {x.device}")
 
 
+def logistic_terms(x, y, mask, beta, grad=True):
+    """K2's arithmetic on every lane: ``(f (P,), g (P, d) or None)``."""
+    eta = torch.einsum("pmd,pd->pm", x, beta)
+    f = torch.sum(mask * (torch.logaddexp(torch.zeros_like(eta), eta) - y * eta), dim=1)
+    g = torch.einsum("pm,pmd->pd", mask * (torch.sigmoid(eta) - y), x) if grad else None
+    return f, g
+
+
 def logistic_value_and_grad_ref(x, y, mask, beta, active=None, grad=True):
     """Plain version of K2: ``(f (P,), g (P, d) or None)``; the lanes that
     ``active`` (P,) bool leaves out come back as zeros."""
     logistic_value_and_grad_ref.calls += 1
-    eta = torch.einsum("pmd,pd->pm", x, beta)
-    f = torch.sum(mask * (torch.logaddexp(torch.zeros_like(eta), eta) - y * eta), dim=1)
-    g = torch.einsum("pm,pmd->pd", mask * (torch.sigmoid(eta) - y), x) if grad else None
+    f, g = logistic_terms(x, y, mask, beta, grad)
     if active is not None:
         f = torch.where(active, f, 0.0)
         g = torch.where(active[:, None], g, 0.0) if grad else None

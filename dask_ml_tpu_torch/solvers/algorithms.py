@@ -11,15 +11,23 @@ over the lane axis.  The consensus step, the Boyd residuals and the
 adaptive ρ step stay on the device as small tensors; the loop reads one
 flag per round on the host (``lbfgs_core.HOST_SYNCS``).
 
+``packed_solve`` runs K one-vs-rest problems over the same rows as K·P
+lanes of the same batched loops (K for ``lbfgs``), the reference's vmap
+over its whole-solve ``while_loop`` written out: their objective
+evaluations are K2-OvR launches, one read of x for all K classes, and the
+ADMM loop keeps K consensus vectors, one ρ, one residual pair and one
+round count a class, still reading one flag a loop step for all lanes.
+
 Not ported yet (ROADMAP: [port-admm]): ``gradient_descent``,
-``proximal_grad``, ``newton``, ``packed_solve``, ``lambda_sweep``, the
-``*_strategy`` policies other than ``line_search_strategy``, and bf16
-design matrices.
+``proximal_grad``, ``newton``, ``lambda_sweep``, ``grid_pack_strategy``,
+and bf16 design matrices.
 """
 
 from __future__ import annotations
 
+import logging
 import math
+import os
 
 import numpy as np
 import torch
@@ -29,6 +37,8 @@ from ..core.sharded import ShardedRows, shard_rows
 from .families import Family, Logistic
 from .lbfgs_core import HOST_SYNCS, any_active, check_line_search, lbfgs_minimize
 from .regularizers import L2, get_regularizer
+
+logger = logging.getLogger(__name__)
 
 def _prep(X, y):
     """Normalize inputs to (x, y, mask) padded float32 tensors on X's device.
@@ -102,15 +112,16 @@ def reset_dispatch_counts():
 def _shards(x, yv, mask, n_shards):
     """``(P, n/P, d)``, ``(P, n/P)``, ``(P, n/P)`` views: contiguous row
     shards, as ``shard_map`` splits the padded rows (zero rows with zero
-    mask are added first where the rows do not split evenly)."""
+    mask are added first where the rows do not split evenly).  A ``yv``
+    of K targets ``(K, n)`` becomes ``(K, P, n/P)``."""
     P = int(n_shards)
     pad = (-x.shape[0]) % P
     if pad:
         x = torch.cat([x, x.new_zeros(pad, x.shape[1])])
-        yv = torch.cat([yv, yv.new_zeros(pad)])
+        yv = torch.cat([yv, yv.new_zeros(yv.shape[:-1] + (pad,))], dim=-1)
         mask = torch.cat([mask, mask.new_zeros(pad)])
     m = x.shape[0] // P
-    return x.view(P, m, x.shape[1]), yv.view(P, m), mask.view(P, m)
+    return x.view(P, m, x.shape[1]), yv.view(yv.shape[:-1] + (P, m)), mask.view(P, m)
 
 
 def _make_objective(family, reg, x3, y2, m2, lamduh):
@@ -138,6 +149,27 @@ def line_search_strategy(requested: str = "auto") -> str:
 # ---------------------------------------------------------------- lbfgs --
 
 
+def _lbfgs_run(x, yv, mask, B0, lamduh, max_iter, tol, *, family, reg, line_search):
+    """The reference's ``_lbfgs_run`` over all rows as one shard, for the
+    lanes of ``B0`` (L, D): one problem (``yv`` (n,), L = 1) or L
+    one-vs-rest problems (``yv`` (L, n)).  Returns (β (L, D), iterations
+    (L,))."""
+    x3, y2, m2 = _shards(x, yv, mask, 1)
+    lam = torch.tensor(lamduh, dtype=_param_dtype(x), device=x.device)
+    obj = _make_objective(family, reg, x3, y2, m2, lam)
+    beta, st = lbfgs_minimize(obj, B0, max_iter=int(max_iter), tol=float(tol),
+                              line_search=line_search)
+    return beta, st.k
+
+
+def _check_smooth(solver, reg, lamduh):
+    if lamduh and not reg.smooth:
+        raise ValueError(
+            f"{solver} requires a smooth penalty; got {reg.__name__}. "
+            "Use proximal_grad or admm for l1/elastic_net."
+        )
+
+
 def lbfgs(X, y, *, family: type[Family] = Logistic, regularizer=L2,
           lamduh: float = 0.0, max_iter: int = 100, tol: float = 1e-5,
           beta0=None, return_n_iter: bool = False, line_search: str = "auto"):
@@ -145,88 +177,125 @@ def lbfgs(X, y, *, family: type[Family] = Logistic, regularizer=L2,
     all rows.  Reference: ``dask_ml_tpu/solvers/algorithms.py :: lbfgs``."""
     line_search = line_search_strategy(line_search)
     reg = get_regularizer(regularizer)
-    if lamduh and not reg.smooth:
-        raise ValueError(
-            f"lbfgs requires a smooth penalty; got {reg.__name__}. "
-            "Use proximal_grad or admm for l1/elastic_net."
-        )
+    _check_smooth("lbfgs", reg, lamduh)
     x, yv, mask = _prep(X, y)
     DISPATCH_COUNTS["solves"] += 1
-    beta0 = _init_beta(beta0, x, family)
-    x3, y2, m2 = _shards(x, yv, mask, 1)
-    lam = torch.tensor(lamduh, dtype=_param_dtype(x), device=x.device)
-    obj = _make_objective(family, reg, x3, y2, m2, lam)
-    beta, st = lbfgs_minimize(obj, beta0[None], max_iter=int(max_iter), tol=float(tol),
-                              line_search=line_search)
-    return (beta[0], int(st.k[0])) if return_n_iter else beta[0]
+    beta, k = _lbfgs_run(x, yv, mask, _init_beta(beta0, x, family)[None], lamduh, max_iter,
+                         tol, family=family, reg=reg, line_search=line_search)
+    return (beta[0], int(k[0])) if return_n_iter else beta[0]
 
 
 # --------------------------------------------------------------- admm --
 
 
-def _admm_run(x3, y2, m2, lamduh, rho, abstol, reltol, inner_tol, max_it, z_init, *,
+def _admm_run(x3, y, m2, lamduh, rho, abstol, reltol, inner_tol, max_it, z_init, *,
               family, reg, inner_iter, line_search, adaptive_rho):
-    """The reference's ``_admm_run`` with the P shards as lanes: returns
-    (z, rounds)."""
+    """The reference's ``_admm_run`` with the P shards as lanes, for one
+    problem (``y`` (P, m)) or, under ``packed_solve``, K one-vs-rest
+    problems over the same rows (``y`` (K, P, m)): K·P lanes, lane
+    ``k·P + p`` the class k of shard p, with K consensus vectors, ρs,
+    residual pairs and round counts.  A class whose loop has ended keeps
+    its state bit for bit and its lanes drop out of every evaluation, as
+    a lane of the reference's vmapped ``while_loop`` does; one flag a loop
+    step is read for all classes.  ``z_init`` (K, D); returns (z (K, D),
+    rounds (K,))."""
     P = x3.shape[0]
+    K = y.shape[0] if y.ndim == 3 else 1
     dt = _param_dtype(x3)
     dev = x3.device
-    d = x3.shape[2]
-    sqrt_d = torch.sqrt(torch.tensor(float(d), dtype=dt, device=dev))
-    beta_l = z_init[None].expand(P, d).clone()
-    u_l = torch.zeros(P, d, dtype=dt, device=dev)
+    D = z_init.shape[1]
+    sqrt_d = torch.sqrt(torch.tensor(float(D), dtype=dt, device=dev))
+
+    def per_lane(v):  # a class's value on each of its P lanes
+        return torch.repeat_interleave(v, P, dim=0)
+
+    beta_l = per_lane(z_init).clone()
+    u_l = torch.zeros(K * P, D, dtype=dt, device=dev)
     z = z_init.clone()
     rho0 = torch.tensor(rho, dtype=dt, device=dev)
-    rho_c = rho0.clone()
-    primal = dual = torch.tensor(math.inf, dtype=dt, device=dev)
-    eps_pri = eps_dual = torch.tensor(0.0, dtype=dt, device=dev)
-    rho_moved = torch.tensor(False, device=dev)
-    i = 0
-    while i < max_it and any_active((primal >= eps_pri) | (dual >= eps_dual) | rho_moved):
-        z_old, u0, rho_r = z, u_l, rho_c
+    rho_c = rho0.expand(K).clone()
+    primal = torch.full((K,), math.inf, dtype=dt, device=dev)
+    dual = primal.clone()
+    eps_pri = torch.zeros(K, dtype=dt, device=dev)
+    eps_dual = eps_pri.clone()
+    rho_moved = torch.zeros(K, dtype=torch.bool, device=dev)
+    rounds = torch.zeros(K, dtype=torch.int32, device=dev)
+    while True:
+        run = (rounds < max_it) & ((primal >= eps_pri) | (dual >= eps_dual) | rho_moved)
+        if not any_active(run):
+            break
+        lanes = per_lane(run)
+        z_old, u0 = z, u_l
+        z_lane, rho_lane = per_lane(z_old), per_lane(rho_c)
 
         def local_obj(b, active, grad):
-            diff = b - z_old + u0
-            pen = 0.5 * rho_r * torch.sum(diff ** 2, dim=1)
+            diff = b - z_lane + u0
+            pen = 0.5 * rho_lane * torch.sum(diff ** 2, dim=1)
             if not grad:
-                return family.loss(b, x3, y2, m2, active) + pen
-            f, g = family.loss_and_grad(b, x3, y2, m2, active)
-            return f + pen, g + rho_r * diff
+                return family.loss(b, x3, y, m2, active) + pen
+            f, g = family.loss_and_grad(b, x3, y, m2, active)
+            return f + pen, g + rho_lane[:, None] * diff
 
         b_new, _ = lbfgs_minimize(local_obj, beta_l, max_iter=inner_iter, tol=inner_tol,
-                                  line_search=line_search)
-        b_bar = torch.sum(b_new, dim=0) / P
-        u_bar = torch.sum(u0, dim=0) / P
-        z = reg.prox(b_bar + u_bar, lamduh / (rho_c * P))
-        u_l = u0 + b_new - z
-        beta_l = b_new
+                                  line_search=line_search, active=lanes)
+        bk = b_new.view(K, P, D)
+        b_bar = torch.sum(bk, dim=1) / P
+        u_bar = torch.sum(u0.view(K, P, D), dim=1) / P
+        z_new = reg.prox(b_bar + u_bar, lamduh / (rho_c[:, None] * P))
+        u_new = u0 + b_new - per_lane(z_new)
         # residual pieces: per-shard sums, then the sum over shards
-        primal_sq = torch.sum(torch.sum((b_new - z) ** 2, dim=1))
-        beta_sq = torch.sum(torch.sum(b_new ** 2, dim=1))
-        u_sq = torch.sum(torch.sum(u_l ** 2, dim=1))
-        primal = torch.sqrt(primal_sq)
-        dual = rho_c * torch.sqrt(P * torch.sum((z - z_old) ** 2))
-        eps_pri = sqrt_d * abstol + reltol * torch.maximum(
-            torch.sqrt(beta_sq), math.sqrt(P * 1.0) * torch.linalg.vector_norm(z))
-        eps_dual = sqrt_d * abstol + reltol * rho_c * torch.sqrt(u_sq)
+        primal_sq = torch.sum(torch.sum((bk - z_new[:, None]) ** 2, dim=2), dim=1)
+        beta_sq = torch.sum(torch.sum(bk ** 2, dim=2), dim=1)
+        u_sq = torch.sum(torch.sum(u_new.view(K, P, D) ** 2, dim=2), dim=1)
+        primal_new = torch.sqrt(primal_sq)
+        dual_new = rho_c * torch.sqrt(P * torch.sum((z_new - z_old) ** 2, dim=1))
+        eps_pri_new = sqrt_d * abstol + reltol * torch.maximum(
+            torch.sqrt(beta_sq), math.sqrt(P * 1.0) * torch.linalg.vector_norm(z_new, dim=1))
+        eps_dual_new = sqrt_d * abstol + reltol * rho_c * torch.sqrt(u_sq)
+        rho_new, moved = rho_c, torch.zeros_like(rho_moved)
         if adaptive_rho:
             # Boyd §3.4.1 residual balancing, as the reference: rescale the
             # scaled dual on every change of rho, suppress the exit while
             # rho moves, and stop balancing once both residuals pass
-            done = (primal < eps_pri) & (dual < eps_dual)
-            grow = ~done & (primal > 10.0 * dual)
-            shrink = ~done & (dual > 10.0 * primal)
+            done = (primal_new < eps_pri_new) & (dual_new < eps_dual_new)
+            grow = ~done & (primal_new > 10.0 * dual_new)
+            shrink = ~done & (dual_new > 10.0 * primal_new)
             factor = torch.where(
                 grow | shrink,
-                torch.clamp(torch.sqrt(primal / torch.clamp(dual, min=1e-30)), 0.1, 10.0),
+                torch.clamp(torch.sqrt(primal_new / torch.clamp(dual_new, min=1e-30)), 0.1, 10.0),
                 1.0,
             )
             rho_new = torch.minimum(torch.maximum(rho_c * factor, rho0 * 1e-6), rho0 * 1e6)
-            rho_moved = rho_new != rho_c
-            u_l = u_l * (rho_c / rho_new)
-            rho_c = rho_new
-        i += 1
-    return z, i
+            moved = rho_new != rho_c
+            u_new = u_new * per_lane(rho_c / rho_new)[:, None]
+        # the classes whose loop has ended keep every piece of their state
+        z = torch.where(run[:, None], z_new, z)
+        beta_l = torch.where(lanes[:, None], b_new, beta_l)
+        u_l = torch.where(lanes[:, None], u_new, u_l)
+        primal = torch.where(run, primal_new, primal)
+        dual = torch.where(run, dual_new, dual)
+        eps_pri = torch.where(run, eps_pri_new, eps_pri)
+        eps_dual = torch.where(run, eps_dual_new, eps_dual)
+        rho_c = torch.where(run, rho_new, rho_c)
+        rho_moved = torch.where(run, moved, rho_moved)
+        rounds = rounds + run.to(torch.int32)
+    return z, rounds
+
+
+def _admm_solve(x, yv, mask, Z0, P, *, lamduh, rho, abstol, reltol, inner_tol, max_iter,
+                family, reg, inner_iter, line_search, adaptive_rho):
+    """``_admm_run`` on the padded rows split into P shards: ``yv`` (n,)
+    and ``Z0`` (1, D), or K one-vs-rest targets (K, n) and (K, D)."""
+    dt = _param_dtype(x)
+    x3, y2, m2 = _shards(x, yv, mask, P)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=dt, device=x.device)
+
+    return _admm_run(
+        x3, y2, m2, scalar(lamduh), rho, scalar(abstol), scalar(reltol), float(inner_tol),
+        int(max_iter), Z0, family=family, reg=reg, inner_iter=int(inner_iter),
+        line_search=line_search, adaptive_rho=adaptive_rho)
 
 
 def admm(X, y, *, family: type[Family] = Logistic, regularizer=L2,
@@ -247,15 +316,118 @@ def admm(X, y, *, family: type[Family] = Logistic, regularizer=L2,
     reg = get_regularizer(regularizer)
     x, yv, mask = _prep(X, y)
     DISPATCH_COUNTS["solves"] += 1
-    dt = _param_dtype(x)
     P = get_n_shards() if n_shards is None else int(n_shards)
-    x3, y2, m2 = _shards(x, yv, mask, P)
+    z, rounds = _admm_solve(
+        x, yv, mask, _init_beta(beta0, x, family)[None], P, lamduh=lamduh, rho=rho,
+        abstol=abstol, reltol=reltol, inner_tol=inner_tol, max_iter=max_iter, family=family,
+        reg=reg, inner_iter=inner_iter, line_search=line_search, adaptive_rho=adaptive_rho)
+    return (z[0], int(rounds[0])) if return_n_iter else z[0]
 
-    def scalar(v):
-        return torch.tensor(v, dtype=dt, device=x.device)
 
-    beta, n_it = _admm_run(
-        x3, y2, m2, scalar(lamduh), rho, scalar(abstol), scalar(reltol), float(inner_tol),
-        int(max_iter), _init_beta(beta0, x, family), family=family, reg=reg,
-        inner_iter=int(inner_iter), line_search=line_search, adaptive_rho=adaptive_rho)
-    return (beta, n_it) if return_n_iter else beta
+# ------------------------------------------------------- packed (lanes) --
+
+_PACK_ENV = "DASK_ML_TPU_TORCH_PACK"
+_NOT_PORTED = ("gradient_descent", "proximal_grad", "newton")
+
+
+def pack_strategy(n_lanes: int | None = None, device=None) -> str:
+    """How one-vs-rest multi-class solves execute,
+    ``DASK_ML_TPU_TORCH_PACK`` = ``packed`` | ``sequential`` | ``auto``
+    (reference: ``algorithms.py :: pack_strategy``, ``DASK_ML_TPU_PACK``):
+
+    - ``packed``: the K solves as the lanes of one batched solve, whose
+      evaluations read x once for all K classes (K2-OvR).
+    - ``sequential``: K whole solves, one a class.
+    - ``auto`` (default): packed on CUDA, sequential on the CPU, as the
+      reference packs on its accelerator and not on the CPU.  ``device``
+      (default: the active device) is where the rows lie.  ``n_lanes`` is
+      accepted as the reference's is; the policy does not read it.
+    """
+    v = os.environ.get(_PACK_ENV, "auto").strip().lower()
+    if v not in ("auto", "packed", "sequential"):
+        raise ValueError(f"{_PACK_ENV} must be auto|packed|sequential, got {v!r}")
+    if v != "auto":
+        return v
+    device = torch.device(device) if device is not None else get_device()
+    return "packed" if device.type == "cuda" else "sequential"
+
+
+def packed_solve(solver: str, X, Y, *, family: type[Family] = Logistic,
+                 regularizer=L2, lamduh: float = 0.0, max_iter: int = 100,
+                 tol: float = 1e-5, rho: float = 1.0, abstol: float = 1e-4,
+                 reltol: float = 1e-2, inner_iter: int = 50,
+                 inner_tol: float = 1e-6, n_shards=None,
+                 line_search: str | None = None, Beta0=None):
+    """K independent solves over the leading axis of ``Y`` (reference:
+    ``algorithms.py :: packed_solve``).  Under ``pack_strategy() ==
+    "packed"`` they run as the lanes of one batched solve (K lanes for
+    ``lbfgs``, K·P for ``admm``), each stopping by its own rules; under
+    ``"sequential"`` as K solves.  The answers agree up to the order of
+    float32 sums.
+
+    Args:
+      solver: ``admm`` or ``lbfgs`` (the others raise
+        ``NotImplementedError``).
+      Y: (K, padded_rows) stacked 0/1 targets aligned with ``X``'s padded
+        rows (pad rows are dead through the mask).
+      Beta0: (K, D) warm starts, one row a class (default zeros).
+    Returns:
+      (betas (K, D) tensor, n_iters (K,) int32 numpy): each class's own
+      executed-iteration count.
+    """
+    if solver in _NOT_PORTED:
+        raise NotImplementedError(
+            f"packed_solve with solver={solver!r} is not ported yet "
+            f"(ROADMAP: [port-admm] gradient_descent, proximal_grad, newton)")
+    if solver not in ("admm", "lbfgs"):
+        raise ValueError(f"Unknown solver {solver!r}")
+    reg = get_regularizer(regularizer)
+    x, _, mask = _prep(X, np.zeros(1, np.float32))
+    Yd = Y if isinstance(Y, torch.Tensor) else torch.from_numpy(np.asarray(Y, np.float32))
+    Yd = Yd.to(device=x.device, dtype=_param_dtype(x))
+    if Yd.ndim != 2 or Yd.shape[1] > x.shape[0]:
+        raise ValueError(f"Y must be (K, padded_rows={x.shape[0]}); got {tuple(Yd.shape)}")
+    if Yd.shape[1] < x.shape[0]:
+        Yd = torch.cat([Yd, Yd.new_zeros(Yd.shape[0], x.shape[0] - Yd.shape[1])], dim=1)
+    Yd = Yd.contiguous()
+    K = Yd.shape[0]
+    strategy = pack_strategy(K, x.device)
+    if strategy == "packed":
+        # lanes in lockstep run one line search: backtrack, as the
+        # reference forces under vmap
+        if line_search not in (None, "backtrack", "auto"):
+            logger.info("packed_solve forces line_search='backtrack' (requested %r)",
+                        line_search)
+        line_search = "backtrack"
+    else:
+        line_search = line_search_strategy("auto" if line_search is None else line_search)
+    if Beta0 is None:
+        B0 = torch.zeros(K, _pdim(x, family), dtype=_param_dtype(x), device=x.device)
+    else:
+        if len(Beta0) != K:
+            raise ValueError(f"Beta0 must have {K} rows (one per lane); got {len(Beta0)}")
+        B0 = torch.stack([_init_beta(b, x, family) for b in Beta0])
+    if solver == "lbfgs":
+        _check_smooth(solver, reg, lamduh)
+
+        def run(yv, b0):
+            return _lbfgs_run(x, yv, mask, b0, lamduh, max_iter, tol, family=family, reg=reg,
+                              line_search=line_search)
+    else:
+        P = get_n_shards() if n_shards is None else int(n_shards)
+
+        def run(yv, b0):
+            return _admm_solve(
+                x, yv, mask, b0, P, lamduh=lamduh, rho=rho, abstol=abstol, reltol=reltol,
+                inner_tol=inner_tol, max_iter=max_iter, family=family, reg=reg,
+                inner_iter=inner_iter, line_search=line_search, adaptive_rho=True)
+
+    if strategy == "packed":
+        DISPATCH_COUNTS["solves"] += 1
+        betas, n_its = run(Yd, B0)
+    else:
+        DISPATCH_COUNTS["solves"] += K
+        outs = [run(Yd[c], B0[c:c + 1]) for c in range(K)]
+        betas = torch.cat([b for b, _ in outs])
+        n_its = torch.cat([n for _, n in outs])
+    return betas, n_its.cpu().numpy().astype(np.int32)

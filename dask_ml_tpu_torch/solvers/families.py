@@ -4,15 +4,19 @@ The reference defines each family by its masked scalar loss and takes the
 gradient with ``jax.grad``.  The port's solvers are batched over lanes (one
 a row shard) and take explicit gradients: ``Logistic.loss`` and
 ``Logistic.loss_and_grad`` go through K2 (``ops/logistic.py``), one read
-of x per evaluation.  ``Normal``, ``Poisson`` and ``multinomial`` are not
-ported yet (ROADMAP: [port-admm]).
+of x per evaluation, or, for K one-vs-rest targets ``y`` (K, P, m) over
+K·P lanes, through K2-OvR (``ops/multiclass.py``), one read of x for all
+K classes; ``multinomial(K)`` goes through K2-MN.  ``Normal`` and
+``Poisson`` are not ported yet (ROADMAP: [port-admm]).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
-from ..ops import logistic
+from ..ops import logistic, multiclass
 
 
 class Family:
@@ -37,14 +41,22 @@ class Family:
 
 
 class Logistic(Family):
-    """y ∈ {0,1}; loss = Σ mask·(log(1+exp(Xβ)) − y·Xβ)."""
+    """y ∈ {0,1}; loss = Σ mask·(log(1+exp(Xβ)) − y·Xβ).
+
+    A 3-D ``y`` (K, P, m) holds K one-vs-rest targets of the same rows:
+    beta is then (K·P, d), lane ``k·P + p`` the class k of shard p (the
+    packed fit's lanes), evaluated by K2-OvR."""
 
     @staticmethod
     def loss(beta, X, y, mask, active=None):
+        if y.ndim == 3:
+            return multiclass.logistic_ovr_value(X, y, mask, beta, active)
         return logistic.logistic_value(X, y, mask, beta, active)
 
     @staticmethod
     def loss_and_grad(beta, X, y, mask, active=None):
+        if y.ndim == 3:
+            return multiclass.logistic_ovr_value_and_grad(X, y, mask, beta, active)
         return logistic.logistic_value_and_grad(X, y, mask, beta, active)
 
     @staticmethod
@@ -55,3 +67,30 @@ class Logistic(Family):
     @staticmethod
     def predict(eta):
         return torch.sigmoid(eta)
+
+
+@lru_cache(maxsize=None)
+def multinomial(n_classes: int) -> type[Family]:
+    """True softmax (multinomial) logistic family for K classes, cached per
+    K (reference: ``families.py :: multinomial``).  ``params_per_feature``
+    tells the solvers to size β as features × K; each lane's flat β is the
+    reference's ``(features, K)`` row-major layout, and ``y`` holds class
+    indices as floats.  Loss and gradient go through K2-MN."""
+
+    class _Multinomial(Family):
+        params_per_feature = n_classes
+
+        @staticmethod
+        def loss(beta, X, y, mask, active=None):
+            return multiclass.multinomial_value(X, y, mask, beta, active)
+
+        @staticmethod
+        def loss_and_grad(beta, X, y, mask, active=None):
+            return multiclass.multinomial_value_and_grad(X, y, mask, beta, active)
+
+        @staticmethod
+        def predict(eta):
+            return torch.softmax(eta, dim=-1)
+
+    _Multinomial.__name__ = f"Multinomial{n_classes}"
+    return _Multinomial

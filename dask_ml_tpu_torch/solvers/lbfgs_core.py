@@ -168,19 +168,22 @@ def lbfgs_minimize(
     c1: float = 1e-4,
     max_backtracks: int = 30,
     line_search: str = "backtrack",
+    active=None,
 ):
     """Minimize P objectives at once, one a lane; returns (x, LBFGSState).
 
     ``fun(x, active, grad)`` as the module says; ``x0`` (P, d).  Per lane,
     the reference's rules: convergence at ‖g‖_∞ ≤ tol, or a relative
     objective decrease ≤ 10·eps (active only when ``tol > 0``), or a line
-    search that fails; at most ``max_iter`` iterations.
+    search that fails; at most ``max_iter`` iterations.  ``active`` (P,)
+    bool (default all): the other lanes are never evaluated, take no
+    step, and come back as their ``x0`` with ``k = 0``.
     """
     check_line_search(line_search)
     m = history
     P, d = x0.shape
     dev = x0.device
-    everyone = torch.ones(P, dtype=torch.bool, device=dev)
+    everyone = torch.ones(P, dtype=torch.bool, device=dev) if active is None else active
     f0, g0 = fun(x0, everyone, True)
     eps = torch.finfo(f0.dtype).eps
     st = LBFGSState(
@@ -192,7 +195,7 @@ def lbfgs_minimize(
         rho=torch.zeros(P, m, dtype=f0.dtype, device=dev),
         k=torch.zeros(P, dtype=torch.int32, device=dev),
         n_updates=torch.zeros(P, dtype=torch.int32, device=dev),
-        converged=torch.amax(torch.abs(g0), dim=1) <= tol,
+        converged=(torch.amax(torch.abs(g0), dim=1) <= tol) | ~everyone,
     )
     lanes = torch.arange(P, device=dev)
     steps = 0

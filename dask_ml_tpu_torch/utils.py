@@ -1,5 +1,5 @@
-"""The helpers of ``dask_ml_tpu/utils.py`` that the KMeans path calls,
-re-done for torch tensors."""
+"""The helpers of ``dask_ml_tpu/utils.py`` that the KMeans and
+LogisticRegression paths call, re-done for torch tensors."""
 
 from __future__ import annotations
 
@@ -54,41 +54,100 @@ def safe_denominator(x):
     return torch.where(x > 0, x, torch.ones_like(x))
 
 
-def effective_mask(mask, *, sample_weight=None, n_samples=None):
-    """Fold per-row ``sample_weight`` into a validity mask (pad rows stay
-    at 0).  The reference's ``class_weight`` branch is not on this path."""
-    if sample_weight is None:
-        return mask
-    if isinstance(sample_weight, torch.Tensor):
-        sw = sample_weight.detach().reshape(-1).to(mask.device, torch.float32)
-    else:
-        sw = torch.from_numpy(
-            np.asarray(sample_weight, np.float32).ravel()).to(mask.device)
-    n = int(n_samples) if n_samples is not None else sw.shape[0]
-    if sw.shape[0] != n:
-        raise ValueError(f"sample_weight has {sw.shape[0]} entries for {n} samples")
-    pad = mask.shape[0] - sw.shape[0]
-    if pad < 0:
+def _check_class_weight_keys(class_weight, classes):
+    """A dict key naming no fitted class is a typo, not a preference: raise
+    as sklearn's ``compute_class_weight`` does."""
+    known = set(np.asarray(classes).tolist())
+    unknown = [k for k in class_weight if k not in known]
+    if unknown:
         raise ValueError(
-            f"sample_weight longer ({sw.shape[0]}) than padded rows "
-            f"({mask.shape[0]})"
+            f"class_weight keys {unknown!r} are not in the fitted classes "
+            f"{sorted(known)!r}"
         )
-    if pad:
-        sw = torch.cat([sw, sw.new_zeros(pad)])
-    return mask * sw
 
 
-def reweight_rows(X: ShardedRows, *, sample_weight=None) -> ShardedRows:
-    """``X`` with ``sample_weight`` folded into its mask; the same object
-    when there are no weights."""
-    if sample_weight is None:
+def _check_balanced(class_weight):
+    if class_weight != "balanced":
+        raise ValueError(f"class_weight must be a dict or 'balanced'; got {class_weight!r}")
+
+
+def effective_mask(mask, y_padded=None, *, sample_weight=None, class_weight=None,
+                   classes=None, n_samples=None):
+    """Fold per-row weights into a validity mask (pad rows stay at 0): the
+    mask is the per-row weight of every masked reduction, so
+    ``sample_weight`` and ``class_weight`` scale it.  sklearn semantics:
+    ``'balanced'`` is ``n / (K·count_k)`` with unweighted counts, and a
+    dict's absent classes weigh 1.0.  ``class_weight`` needs the padded
+    labels ``y_padded`` (on the mask's device, numeric) and ``classes``."""
+    w = mask
+    if sample_weight is not None:
+        if isinstance(sample_weight, torch.Tensor):
+            sw = sample_weight.detach().reshape(-1).to(mask.device, torch.float32)
+        else:
+            sw = torch.from_numpy(
+                np.asarray(sample_weight, np.float32).ravel()).to(mask.device)
+        n = int(n_samples) if n_samples is not None else sw.shape[0]
+        if sw.shape[0] != n:
+            raise ValueError(f"sample_weight has {sw.shape[0]} entries for {n} samples")
+        pad = mask.shape[0] - sw.shape[0]
+        if pad < 0:
+            raise ValueError(
+                f"sample_weight longer ({sw.shape[0]}) than padded rows "
+                f"({mask.shape[0]})"
+            )
+        if pad:
+            sw = torch.cat([sw, sw.new_zeros(pad)])
+        w = w * sw
+    if class_weight is not None:
+        if y_padded is None or classes is None:
+            raise ValueError("class_weight requires labels and classes")
+        cls_np = np.asarray(classes)
+        cls = torch.as_tensor(cls_np, dtype=y_padded.dtype, device=mask.device)
+        ind = (y_padded.to(mask.device)[None, :] == cls[:, None]).to(torch.float32) * mask[None, :]
+        if isinstance(class_weight, str):
+            _check_balanced(class_weight)
+            cw = torch.sum(mask) / (len(cls_np) * safe_denominator(torch.sum(ind, dim=1)))
+        else:
+            _check_class_weight_keys(class_weight, cls_np)
+            cw = torch.tensor([float(class_weight.get(c, 1.0)) for c in cls_np.tolist()],
+                              dtype=torch.float32, device=mask.device)
+        w = w * torch.sum(cw[:, None] * ind, dim=0)
+    return w
+
+
+def reweight_rows(X: ShardedRows, *, sample_weight=None, class_weight=None, classes=None,
+                  y_padded=None) -> ShardedRows:
+    """``X`` with per-row weights folded into its mask
+    (:func:`effective_mask`); the same object when there are no weights."""
+    if sample_weight is None and class_weight is None:
         return X
     return ShardedRows(
         data=X.data,
-        mask=effective_mask(X.mask, sample_weight=sample_weight,
+        mask=effective_mask(X.mask, y_padded, sample_weight=sample_weight,
+                            class_weight=class_weight, classes=classes,
                             n_samples=X.n_samples),
         n_samples=X.n_samples,
     )
+
+
+def host_class_weight_rows(class_weight, classes, yv):
+    """Per-row class weights resolved on the host, for labels that cannot go
+    to the device (strings, big ints): the twin of :func:`effective_mask`'s
+    class-weight branch, with the same semantics."""
+    classes = np.asarray(classes)
+    yv = np.asarray(yv)
+    if isinstance(class_weight, str):
+        _check_balanced(class_weight)
+        # counts over the full class inventory: a class absent from yv must
+        # not shift the weight table
+        uniq, counts_u = np.unique(yv, return_counts=True)
+        counts = np.zeros(len(classes))
+        counts[np.searchsorted(classes, uniq)] = counts_u
+        cw = yv.shape[0] / (len(classes) * np.maximum(counts, 1.0))
+    else:
+        _check_class_weight_keys(class_weight, classes)
+        cw = np.asarray([float(class_weight.get(c, 1.0)) for c in classes.tolist()])
+    return cw[np.searchsorted(classes, yv)].astype(np.float32)
 
 
 @contextlib.contextmanager

@@ -128,7 +128,7 @@ def test_port_and_chip_smoke_import_none_of_jax_reference_or_sklearn_ast():
     scanned = {str(f.relative_to(REPO)) for f in files}
     for module in ("ops/logistic.py", "solvers/families.py", "solvers/regularizers.py",
                    "solvers/lbfgs_core.py", "solvers/algorithms.py", "linear_model/glm.py",
-                   "linear_model/utils.py", "convert.py"):
+                   "linear_model/utils.py", "convert.py", "ops/multiclass.py", "entry.py"):
         assert f"dask_ml_tpu_torch/{module}" in scanned, module
     found = []
     for path in files:
@@ -158,6 +158,13 @@ def test_port_imports_none_of_jax_reference_or_sklearn_at_run_time():
         "assert km.predict(x).shape == (64,)\n"
         "lr = p.LogisticRegression(max_iter=2).fit(x, x[:, 0] > 0)\n"
         "assert lr.predict(x).shape == (64,)\n"
+        "y3 = np.argmax(x, axis=1)\n"
+        "for mc in ('ovr', 'multinomial'):\n"
+        "    m3 = p.LogisticRegression(max_iter=2, multi_class=mc).fit(x, y3)\n"
+        "    assert m3.predict_proba(x).shape == (64, 3)\n"
+        "from dask_ml_tpu_torch.entry import entry\n"
+        "fn, args = entry()\n"
+        "assert fn(*args).shape == (256,)\n"
         "bad = [m for m in set(sys.modules) - before"
         " if m in ('jax', 'dask_ml_tpu', 'sklearn')"
         " or m.startswith(('jax.', 'dask_ml_tpu.', 'sklearn.'))]\n"

@@ -1,0 +1,53 @@
+"""The port's entry points (``dask_ml_tpu_torch/entry.py``) against the
+repository's ``__graft_entry__.py``, on the CPU: ``entry()``'s forward on
+its example arguments within 1e-6 of the reference's, and
+``dryrun_multichip`` at 8 logical shards."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as ref_entry
+from dask_ml_tpu_torch.core import mesh
+from dask_ml_tpu_torch.entry import dryrun_multichip, entry
+
+
+@pytest.fixture(autouse=True)
+def _cpu():
+    mesh.set_device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    mesh.set_device(None)
+    torch.set_num_threads(threads)
+
+
+def test_entry_forward_matches_reference():
+    fn, args = entry()
+    ref_fn, ref_args = ref_entry.entry()
+    for a, r in zip(args, ref_args):
+        assert a.dtype == torch.float32 and a.device.type == "cpu"
+        np.testing.assert_array_equal(a.numpy(), np.asarray(r))
+    out = fn(*args)
+    assert tuple(out.shape) == (256,)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_fn(*ref_args)), rtol=0, atol=1e-6)
+
+
+def test_entry_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    mesh.set_device(None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="set_device"):
+        entry()
+
+
+def test_dryrun_multichip_runs_its_sections(capsys, monkeypatch):
+    monkeypatch.delenv("DASK_ML_TPU_TORCH_PACK", raising=False)
+    ran = dryrun_multichip(8, device="cpu")
+    assert ran == ["binary ADMM", "KMeans init=random", "packed OvR ADMM",
+                   "multinomial lbfgs", "class_weight balanced"]
+    out = capsys.readouterr().out
+    assert "dryrun_multichip(8) on cpu" in out and "packed OvR ADMM" in out
+    assert "DASK_ML_TPU_TORCH_PACK" not in os.environ
+    assert mesh.get_n_shards() == 1  # the shard count was scoped to the dryrun

@@ -1,5 +1,5 @@
-"""The Lloyd kernels and K2 (the logistic loss and gradient) against their
-plain versions, on a card.
+"""The Lloyd kernels, K2 (the logistic loss and gradient) and K2-OvR and
+K2-MN (the multi-class losses) against their plain versions, on a card.
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip without a
 card and ``nvcc``.  They import neither JAX nor the reference, so on a
@@ -12,7 +12,8 @@ plain reduce taken in float64, since float32 atomics carry an error of
 that size themselves), and d² to 1e-5 of ‖x‖²+‖c‖²; a label may differ
 only where the two smallest d² are that close.  K2's f and g agree with
 the plain version to 1e-5 of their Σ|terms| (float64), the scale of the
-float32 rounding of either summation order.
+float32 rounding of either summation order; so do K2-OvR's and K2-MN's
+against their plain versions taken in float64.
 """
 
 import shutil
@@ -20,7 +21,7 @@ import shutil
 import pytest
 import torch
 
-from dask_ml_tpu_torch.ops import logistic, lloyd
+from dask_ml_tpu_torch.ops import logistic, lloyd, multiclass
 from dask_ml_tpu_torch.ops.scatter import bucket_sum
 
 TOL = 1e-5
@@ -269,3 +270,81 @@ def test_logistic_wrappers_count_their_launches(cuda):
     logistic.logistic_value_and_grad_ref(x, y, mask, beta)
     assert (logistic.logistic_value_and_grad.launches,
             logistic.logistic_value.launches) == (before[0] + 1, before[1] + 1)
+
+
+# --------------------------------------------------------- K2-OvR, K2-MN
+
+def _multiclass_inputs(mode, P, m, d, K, seed, device):
+    """x, targets, fractional mask, beta, lanes; the last shard holds only
+    pad rows when P > 1."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(P, m, d, generator=gen, device=device)
+    mask = torch.rand(P, m, generator=gen, device=device)
+    mask[torch.rand(P, m, generator=gen, device=device) < 0.1] = 0.0
+    if P > 1:
+        x[-1] = 0.0
+        mask[-1] = 0.0
+    if mode == "ovr":
+        y = (torch.rand(K, P, m, generator=gen, device=device) < 0.4).float()
+        beta = torch.randn(K * P, d, generator=gen, device=device) / d ** 0.5
+        return x, y, mask, beta, K * P
+    y = torch.randint(0, K, (P, m), generator=gen, device=device).float()
+    beta = torch.randn(P, d * K, generator=gen, device=device) / d ** 0.5
+    return x, y, mask, beta, P
+
+
+def _multiclass_magnitudes(mode, x, y, mask, beta):
+    """Σ|terms| of f and of each g element, in float64."""
+    x, y, mask, beta = x.double(), y.double(), mask.double(), beta.double()
+    P, m, d = x.shape
+    if mode == "ovr":
+        K = y.shape[0]
+        eta = torch.einsum("pmd,kpd->kpm", x, beta.view(K, P, d))
+        sp = torch.logaddexp(torch.zeros_like(eta), eta)
+        f_mag = (mask * (sp.abs() + (y * eta).abs())).sum(2).reshape(K * P)
+        w = (mask * (torch.sigmoid(eta) - y)).abs()
+        return f_mag, torch.einsum("kpm,pmd->kpd", w, x.abs()).reshape(K * P, d)
+    K = beta.shape[1] // d
+    eta = torch.einsum("pmd,pdk->pmk", x, beta.view(P, d, K))
+    onehot = torch.nn.functional.one_hot(y.long(), K).double()
+    f_mag = (mask * (torch.logsumexp(eta, 2).abs() + (eta * onehot).sum(2).abs())).sum(1)
+    w = (mask[:, :, None] * (torch.softmax(eta, 2) - onehot)).abs()
+    return f_mag, torch.einsum("pmd,pmk->pdk", x.abs(), w).reshape(P, d * K)
+
+
+_MC = {"ovr": (multiclass.logistic_ovr_value_and_grad, multiclass.logistic_ovr_value,
+               multiclass.logistic_ovr_value_and_grad_ref),
+       "mn": (multiclass.multinomial_value_and_grad, multiclass.multinomial_value,
+              multiclass.multinomial_value_and_grad_ref)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ovr", "mn"])
+@pytest.mark.parametrize("P,m,d,K", [(1, 1001, 3, 2), (8, 1375, 29, 4), (8, 4097, 130, 3),
+                                     (3, 777, 1, 16), (2, 300, 29, 100), (2, 300, 2000, 4)])
+def test_multiclass_matches_plain_version(cuda, mode, P, m, d, K):
+    vg, v, ref = _MC[mode]
+    x, y, mask, beta, lanes = _multiclass_inputs(mode, P, m, d, K, P * m + d + K, cuda)
+    for active in (None, torch.arange(lanes, device=cuda) % 3 != 1):
+        f, g = vg(x, y, mask, beta, active)
+        fv = v(x, y, mask, beta, active)
+        again = vg(x, y, mask, beta, active)
+        torch.cuda.synchronize()
+        on = torch.ones(lanes, dtype=torch.bool, device=cuda) if active is None else active
+        assert not bool(f[~on].any()) and not bool(g[~on].any()) and not bool(fv[~on].any())
+        assert torch.equal(f, fv)  # both variants compute f the same way
+        assert torch.equal(f, again[0]) and torch.equal(g, again[1])
+        rf, rg = ref(x.double(), y.double(), mask.double(), beta.double())
+        f_mag, g_mag = _multiclass_magnitudes(mode, x, y, mask, beta)
+        assert bool(((f.double() - rf).abs()[on] <= TOL * f_mag[on] + 1e-6).all())
+        assert bool(((g.double() - rg).abs()[on] <= TOL * g_mag[on] + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_multiclass_wrappers_count_their_launches(cuda):
+    for mode, (vg, v, ref) in _MC.items():
+        x, y, mask, beta, _ = _multiclass_inputs(mode, 2, 100, 5, 3, 1, cuda)
+        before = (vg.launches, v.launches, ref.calls)
+        vg(x, y, mask, beta)
+        v(x, y, mask, beta)
+        assert (vg.launches, v.launches, ref.calls) == (before[0] + 1, before[1] + 1, before[2])
