@@ -63,11 +63,14 @@ Phases, in order; any failure exits non-zero:
    Prints each fit's time, ``n_iter_``, launches, host syncs, peak memory
    and, from one more profiled fit each, the idle share.  Then bench.py's
    packed-vs-sequential fixed-work A/B (1M x 28, K=4 and K=16, ``lbfgs``,
-   λ=1, 20 iterations, tol 0) with every lane's executed iterations; both
-   kernels at the phase-7 shapes (and K2-OvR at the A/B's K=16 shape) held
-   against their plain versions and timed beside their bounds, their plain
-   versions and informational comparisons; and ``dryrun_multichip(8)`` on
-   the card.  Then the ``kernels`` line, the card line and the result.
+   λ=1, 20 iterations, tol 0) with every lane's executed iterations and
+   K2-OvR's launches in the K=16 packed run; a multinomial ``lbfgs`` fit at
+   the A/B's width with K=16 (K2-MN's launches there); both kernels at the
+   phase-7 shapes and at the A/B's (1, 1M, 28), K=16 held against their
+   plain versions and timed beside their bounds, their plain versions and
+   (K=4) informational comparisons, with each call's launch plan; and
+   ``dryrun_multichip(8)`` on the card.  Then the ``kernels`` line, the
+   card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -110,10 +113,17 @@ HIGGS_SHARDS = 8
 ADMM_ROUNDS = 10
 ADMM_INNER = 30
 ADMM_RTOL = 1e-3  # the fit through the kernel against the fit through the plain version
-# K2-OvR and K2-MN in phase 3, (P, m, d, K): K in {2, 3, 4, 16, 100} and d in
-# {1, 29, 130, 2000}; the last two take the wide path (row_kernel)
+# K2-OvR and K2-MN in phase 3, (P, m, d, K): K in {1, 2, 3, 4, 5, 16, 100} and d
+# in {1, 28, 29, 130, 300, 600, 2000}; m = 1001, 1002, 1003 put the shard
+# bases and the target rows off 16-byte boundaries (K2-OvR then stages them
+# by cp.async, the aligned ones by bulk copies), m = 37 is less than a tile,
+# d = 600 at K = 16 has more gradient columns than a block has threads
+# (K2-OvR adds them to the block's record once a tile), and d = 2000 takes
+# the wide path (row_kernel)
 MULTICLASS_SHAPES = ((1, 1001, 29, 2), (8, 1375, 29, 4), (8, 4097, 130, 3), (3, 777, 1, 16),
-                     (2, 3001, 29, 100), (2, 300, 2000, 4), (2, 300, 2000, 100))
+                     (2, 3001, 29, 100), (2, 300, 2000, 4), (2, 300, 2000, 100),
+                     (3, 1001, 29, 4), (2, 1002, 28, 16), (4, 1003, 29, 5), (2, 37, 29, 3),
+                     (3, 1000, 29, 1), (2, 1000, 29, 16), (2, 301, 300, 5), (2, 301, 600, 16))
 # phase 7: classes of the softmax stand-in, and bench.py's packed A/B
 MC_CLASSES = 4
 AB_ROWS = 1_000_000
@@ -794,7 +804,8 @@ def profiled_admm_fit(torch, algorithms, X, y, card, make=None, label="phase 6: 
         return
     busy = sum(ms for ms, _ in per_name.values())
     k2 = [(ms, count) for name, (ms, count) in per_name.items()
-          if any(k in name for k in ("tiled_kernel", "row_kernel", "finalize_kernel"))]
+          if any(k in name for k in ("tiled_kernel", "ovr_kernel", "mn_kernel", "row_kernel",
+                                     "finalize_kernel"))]
     k2_ms, k2_launches = sum(ms for ms, _ in k2), sum(c for _, c in k2)
     for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  device {ms:12.3f} ms {count:7d}x  {name[:110]}")
@@ -1114,24 +1125,32 @@ def plain_multiclass_fit(torch, multiclass, X, y, est, multi_class):
         raise AssertionError(f"β differs from the plain-version fit by {diff / scale:.3e}·‖β‖∞")
 
 
-def packed_ab(torch, multiclass, algorithms, device, card):
+def ab_data(torch, device):
+    """Bench.py's packed A/B data (``bench.py:1812-1900``), generated on
+    the card: X (n, 28) standard normal, W (16, 28), and the learnable
+    targets Y = (X·Wᵀ > 0) as (16, n)."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    X = torch.randn(AB_ROWS, HIGGS_D, generator=gen, device=device)
+    Wall = torch.randn(max(AB_CLASSES), HIGGS_D, generator=gen, device=device)
+    Yall = (X @ Wall.T > 0).float().T.contiguous()
+    return X, Wall, Yall
+
+
+def packed_ab(torch, multiclass, X, Yall, card):
     """Phase 7: bench.py's ``packed_ovr_fixedwork_{n}x{d}_K{K}`` A/B
     (``bench.py:1812-1900``): learnable targets (X·Wᵀ > 0), ``lbfgs`` with
     λ = 1, 20 iterations, tol 0, backtracking; the packed arm (K lanes of
     one solve through K2-OvR) against the sequential one (K solves through
-    K2), each timed as the median of 3 runs after a warm-up."""
+    K2), each timed as the median of 3 runs after a warm-up.  Returns the
+    K2-OvR launches of each K's first packed run."""
     import os
 
     from dask_ml_tpu_torch.core import shard_rows
     from dask_ml_tpu_torch.solvers import packed_solve
 
-    gen = torch.Generator(device=device).manual_seed(5)
-    X = torch.randn(AB_ROWS, HIGGS_D, generator=gen, device=device)
-    Wall = torch.randn(max(AB_CLASSES), HIGGS_D, generator=gen, device=device)
-    Yall = (X @ Wall.T > 0).float().T.contiguous()
     sX = shard_rows(X, n_shards=1)
     prev = os.environ.get("DASK_ML_TPU_TORCH_PACK")
-    out = {}
+    launches = {}
     try:
         for K in AB_CLASSES:
             Y = Yall[:K].contiguous()
@@ -1145,7 +1164,11 @@ def packed_ab(torch, multiclass, algorithms, device, card):
                     torch.cuda.synchronize()
                     return nit
 
+                vg, v = multiclass.logistic_ovr_value_and_grad, multiclass.logistic_ovr_value
+                vg.launches = v.launches = 0
                 iters[arm] = run().tolist()
+                if arm == "packed":
+                    launches[K] = {vg.__name__: vg.launches, v.__name__: v.launches}
                 runs = []
                 for _ in range(3):
                     t0 = time.perf_counter()
@@ -1159,13 +1182,43 @@ def packed_ab(torch, multiclass, algorithms, device, card):
                 f"{times['sequential'] / times['packed']:.3f}x; executed iterations packed "
                 f"{iters['packed']}, sequential {iters['sequential']}; work_matched "
                 f"{str(matched).lower()} [{card}]")
-            out[K] = times
+            if launches[K]["logistic_ovr_value_and_grad"] < 1:
+                raise AssertionError(f"the packed arm at K={K} did not launch K2-OvR")
     finally:
         if prev is None:
             os.environ.pop("DASK_ML_TPU_TORCH_PACK", None)
         else:
             os.environ["DASK_ML_TPU_TORCH_PACK"] = prev
-    return out
+    return launches
+
+
+def ab_multinomial_fit(torch, multiclass, X, Wall, device, card):
+    """Phase 7: K2-MN driven at the A/B's width and K=16: a multinomial
+    ``lbfgs`` fit (no intercept, so the kernel sees (1, n, 28)) of the
+    16-class labels argmax_k(X·W_kᵀ), 20 iterations.  Returns the labels
+    and K2-MN's launches in that fit."""
+    from dask_ml_tpu_torch import LogisticRegression
+    from dask_ml_tpu_torch.core import use_device
+
+    K = max(AB_CLASSES)
+    y = torch.argmax(X @ Wall.T, dim=1).float()
+    vg, v = multiclass.multinomial_value_and_grad, multiclass.multinomial_value
+    vg.launches = v.launches = 0
+    t0 = time.perf_counter()
+    with use_device(device, n_shards=1):
+        est = LogisticRegression(solver="lbfgs", multi_class="multinomial", fit_intercept=False,
+                                 max_iter=AB_ITERS, tol=0.0).fit(X, y)
+    torch.cuda.synchronize()
+    launches = {vg.__name__: vg.launches, v.__name__: v.launches}
+    acc = est.score(X, y)
+    log(f"phase 7: multinomial lbfgs fit {AB_ROWS}x{HIGGS_D} K={K}: "
+        f"{time.perf_counter() - t0:.3f} s on the host clock, n_iter_ {est.n_iter_.tolist()}, "
+        f"train accuracy {acc:.6f}, launches {launches} [{card}]")
+    if launches[vg.__name__] < 1:
+        raise AssertionError(f"the K={K} multinomial fit did not launch K2-MN")
+    if not bool(torch.isfinite(est.coef_).all()):
+        raise AssertionError(f"the K={K} multinomial fit's coef_ is not finite")
+    return y, launches
 
 
 def multiclass_table(torch, multiclass, logistic, Xi, y_idx, launches, card):
@@ -1174,8 +1227,7 @@ def multiclass_table(torch, multiclass, logistic, Xi, y_idx, launches, card):
     (CUDA events, 20 launches) beside their plain versions and bounds.
     Informational comparisons (no single PyTorch call computes either
     kernel, so ``library_ms`` is null): for K2-OvR, K launches of K2 and
-    the ``torch.bmm`` pair; for K2-MN, ``bmm`` + ``log_softmax`` + ``bmm``.
-    K2-OvR is also held and timed at bench.py's K=16 A/B shape."""
+    the ``torch.bmm`` pair; for K2-MN, ``bmm`` + ``log_softmax`` + ``bmm``."""
     P, K = HIGGS_SHARDS, MC_CLASSES
     n, d = Xi.data.shape
     m = n // P
@@ -1223,29 +1275,68 @@ def multiclass_table(torch, multiclass, logistic, Xi, y_idx, launches, card):
         nbytes = n * d * 4 + targets + n * 4 + B.numel() * 4 * (2 if grad else 1) + lanes * 4
         flops = (4 if grad else 2) * n * d * K
         b_ms, b_by = bound_ms(nbytes, flops)
+        plan = plan_words(multiclass, x, 0 if mode == "ovr" else 1, K)
         log(f"{name} at {what}: {ms:.4f} ms, {n / ms * 1e3:.4g} rows/s, "
             f"{nbytes / ms / 1e6:.1f} GB/s, {b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP"
-            + (f"; informational: {info}" if info else "") + f") [{card}]")
+            f"bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; "
+            f"plan {plan}" + (f"; informational: {info}" if info else "") + f") [{card}]")
         out.append({"name": name, "route": "cuda",
                     "source": "dask_ml_tpu_torch/csrc/multiclass.cu", "replaces": replaces,
                     "launches": launches[name], "max_abs_err": err[name],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": None})
     del Y3, wv
-    # K2-OvR at bench.py's K=16 A/B shape: one shard of 1M rows, 28 wide
-    Kb = max(AB_CLASSES)
-    xb = Xi.data.view(-1)[:AB_ROWS * HIGGS_D].view(1, AB_ROWS, HIGGS_D)
-    mb = torch.ones(1, AB_ROWS, device=dev)
-    Yb = (torch.rand(Kb, 1, AB_ROWS, generator=gen, device=dev) < 0.5).float()
-    Bb = torch.randn(Kb, HIGGS_D, generator=gen, device=dev) / HIGGS_D ** 0.5
-    wb = f"(1, {AB_ROWS}, {HIGGS_D}) K={Kb}"
-    hold_multiclass(torch, multiclass, "ovr", xb, Yb, mb, Bb, wb)
-    ms = time_ms(torch, lambda: multiclass.logistic_ovr_value_and_grad(xb, Yb, mb, Bb), 20)
-    nbytes = AB_ROWS * (HIGGS_D + Kb + 1) * 4 + 2 * Bb.numel() * 4 + Kb * 4
-    b_ms, b_by = bound_ms(nbytes, 4 * AB_ROWS * HIGGS_D * Kb)
-    log(f"logistic_ovr_value_and_grad at {wb}: {ms:.4f} ms, {b_ms / ms:.1%} of the bound "
-        f"(bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.4f} GB) [{card}]")
+    return out
+
+
+def plan_words(multiclass, x, mode, K):
+    """The C plan of a K2-OvR (mode 0) or K2-MN (1) call on x: path, rows a
+    tile, gradient row groups, blocks, shared bytes, record floats,
+    scratch floats, and (OvR) class chunks a block or (MN) loss groups."""
+    P, m, d = x.shape
+    return list(multiclass._plan(multiclass._load(), x.device, mode, P, m, d, K))
+
+
+def ab_table(torch, multiclass, X, Yall, y16, launches, card):
+    """Phase 7: K2-OvR and K2-MN at bench.py's A/B shape, one shard of
+    (1M, 28) with K=16 and every row unmasked: each held against its plain
+    version, then its value-and-grad variant timed (CUDA events, 20
+    launches) beside its plain version and its bound.  ``launches`` are
+    the counts from the K=16 packed A/B run (K2-OvR) and the K=16
+    multinomial fit (K2-MN)."""
+    K = max(AB_CLASSES)
+    n, d = X.shape
+    dev = X.device
+    x3 = X.view(1, n, d)
+    mask = torch.ones(1, n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B_ovr = torch.randn(K, d, generator=gen, device=dev) / d ** 0.5
+    B_mn = torch.randn(1, d * K, generator=gen, device=dev) / d ** 0.5
+    y2 = y16.view(1, n)
+    what = f"(1, {n}, {d}) K={K}"
+    out = []
+    for name, mode, yv, B, nbytes, replaces in (
+            ("logistic_ovr_value_and_grad", "ovr", Yall, B_ovr, n * (d + K + 1) * 4,
+             "dask_ml_tpu/solvers/families.py:34"),
+            ("multinomial_value_and_grad", "mn", y2, B_mn, n * (d + 2) * 4,
+             "dask_ml_tpu/solvers/families.py:85")):
+        err, _ = hold_multiclass(torch, multiclass, mode, x3, yv, mask, B, what)
+        fn = getattr(multiclass, name)
+        ref = multiclass_wrappers(multiclass, mode)[2]
+        ms = time_ms(torch, lambda: fn(x3, yv, mask, B), 20)
+        plain_ms = time_ms(torch, lambda: ref(x3, yv, mask, B), 3)
+        nbytes += 2 * B.numel() * 4 + B.shape[0] * 4
+        flops = 4 * n * d * K
+        b_ms, b_by = bound_ms(nbytes, flops)
+        plan = plan_words(multiclass, x3, 0 if mode == "ovr" else 1, K)
+        log(f"{name} at {what}: {ms:.4f} ms, {b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; "
+            f"plan {plan}) [{card}]")
+        out.append({"name": f"{name}_K{K}", "route": "cuda",
+                    "source": "dask_ml_tpu_torch/csrc/multiclass.cu", "replaces": replaces,
+                    "launches": launches[name], "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None})
     return out
 
 
@@ -1276,7 +1367,13 @@ def multiclass_phase(torch, multiclass, logistic, algorithms, device, card):
         out = multiclass_table(torch, multiclass, logistic, Xi, y, launches, card)
     del Xi, y
     torch.cuda.synchronize()
-    packed_ab(torch, multiclass, algorithms, device, card)
+    Xab, Wab, Yab = ab_data(torch, device)
+    ab_launches = packed_ab(torch, multiclass, Xab, Yab, card)
+    y16, mn_launches = ab_multinomial_fit(torch, multiclass, Xab, Wab, device, card)
+    out += ab_table(torch, multiclass, Xab, Yab.view(-1, 1, AB_ROWS), y16,
+                    {**ab_launches[max(AB_CLASSES)], **mn_launches}, card)
+    del Xab, Yab, y16
+    torch.cuda.synchronize()
     ran = dryrun_multichip(HIGGS_SHARDS)
     log(f"phase 7: dryrun_multichip({HIGGS_SHARDS}) on the card ran {len(ran)} sections")
     return out

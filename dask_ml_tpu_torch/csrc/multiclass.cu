@@ -20,42 +20,92 @@
 // with y (P, m) holding class indices as floats (truncated to int; an index
 // outside [0, K) picks no class, as jax.nn.one_hot does).
 //
-// Bound on an H100: like K2, one evaluation must read x once (n*d*4
-// bytes) plus the targets and the mask (OvR: n*(K + 1)*4, MN: n*8), and
-// does 4*n*d*K flops (K dots and K axpys per row).  At the packed fit's
-// shape (P = 8, m = 1.375M, d = 29, K = 4) that is 1.496 GB, 0.447 ms at
-// 3.35 TB/s, against 5.1 GFLOP, 0.076 ms at 67 TFLOP/s: memory-bound.
-// Through K2 each class would read x again (K launches, 5.456 GB).  The
-// design:
-//   - One read of x for all K classes.  A block stages a tile of R whole
-//     rows in shared memory with K2's 16-byte cp.async copies (no row
-//     alignment needed), the next tile in flight while this one is used,
-//     and applies all K columns of beta to it.  beta and the (row, class)
-//     tables are staged with the classes padded to a multiple of 4, so
-//     that 4 classes are one 16-byte shared-memory load (the tables' row
-//     stride an odd number of float4s, against bank conflicts).
-//   - Forward: S = 256/R threads a row; KC = 4 classes at a time, each a
-//     fmaf chain in a register over the features j = s, s+S, ..., sharing
-//     each staged x value, joined by a fixed xor-shuffle tree, into a
-//     (row, class) table in shared memory.
-//   - Row terms from that table: per (row, class) for OvR; per row for MN
-//     (max, sum of exps, logsumexp, then the softmax weights).
-//   - Gradient: each thread owns a (row group, feature) pair and runs KC
-//     classes at a time in registers over its rows of the tile, one read
-//     of x[r, j] for the KC of them, adding them once a tile to the pair's
-//     shared-memory totals.  Loss: each thread owns a (row group, class)
-//     pair (MN: a row group), with as many groups as fill the block; the
-//     value-only variant runs it alone, the same way, so f has the same
-//     bits with and without the gradient.
-//   - Deterministic: per-block records summed in block order by
-//     finalize_kernel; no float atomics.  Inactive lanes (OvR: a class of
-//     a shard; MN: a shard) are not read and their f, g not written, and a
-//     lane's sums never depend on which other lanes are active.
-//   - Past what one staged tile holds beside beta, the (row, class) tables
-//     and the slots (large d*K), row_kernel takes over: a block a row at a
-//     time, a warp a class's dot, the gradient accumulated in the block's
-//     record in global memory.
-// Row indices are 64-bit.
+// Bound on an H100: one evaluation must read x once (n*d*4 bytes) plus the
+// targets and the mask (OvR: n*(K + 1)*4, MN: n*8), and does 4*n*d*K flops
+// (K dots and K axpys a row).  At the packed fit's shape (P = 8,
+// m = 1.375M, d = 29, K = 4) that is 1.496 GB, 0.447 ms at 3.35 TB/s,
+// against 5.1 GFLOP, 0.076 ms at 67 TFLOP/s; at bench.py's packed A/B
+// shape (P = 1, m = 1M, d = 28, K = 16) 0.180 GB, 0.054 ms, against
+// 1.8 GFLOP, 0.027 ms.  Both are memory-bound, K=16 by only 2x.
+//
+// K2-OvR (ovr_kernel).  What held the first design back, counted from its
+// code: the K target runs and the mask of each tile were plain global
+// loads inside the tile loop (K*R + R a tile: 5 a thread at K=4, R=256;
+// 8 at K=16, R=128), each paying the DRAM latency that only x's cp.async
+// hid; the logits, targets, weights and losses made round trips through
+// (row, class) tables in shared memory, with a separate loss pass; four
+// __syncthreads a tile.  Its value-only variant reached half the bound.
+// The design now:
+//   1. Every input of a tile is copied asynchronously, in a ring of
+//      STAGES = 3 tiles, up to two in flight while one is used.  A tile is
+//      its R*d floats of x, its target runs Y[k, p, r0:r0+R] and its mask
+//      run; each run whose source and length are whole 16-byte units is
+//      one TMA bulk copy (cp.async.bulk, issued by thread 0), the others go
+//      by the threads' 16-byte cp.async (copy_tile: no alignment needed).
+//      Both complete on the stage's mbarrier: thread 0 arrives with the
+//      bulk bytes expected, every thread through
+//      cp.async.mbarrier.arrive.noinc once its own copies have landed.  The
+//      tile loop holds no synchronous global load.  R comes from
+//      OVR_BUDGET, so that two blocks fit a SM: R = 256 at d = 29, K = 4
+//      (111 KB), R = 128 at d = 28, K = 16 (90 KB).
+//   2. Row terms in registers.  A block takes at most 16 classes (NCT
+//      float4 chunks; more classes take more blocks along grid z, each
+//      reading x again).  The S = 256/R threads of a row split the chunks
+//      (SC ways, the same across a warp) and then the features (SF ways,
+//      joined by an xor-shuffle tree); a row's logits stay in the
+//      registers of the thread that computed them, logistic_terms runs
+//      there, each lane's loss is summed in registers across the block's
+//      tiles, and only the weights mask*(sigmoid - Y) go to shared memory,
+//      once, as float4s.
+//   3. One __syncthreads a tile, between the forward and the gradient; it
+//      is also the stage hand-off: after it no thread reads the previous
+//      tile's stage or the weights two tiles back (double-buffered), so the
+//      next copy is issued into it.  A gradient thread owns a row group and
+//      F features (4 interleaved, 1 at 16 classes a block) for all the
+//      block's classes, in registers across tiles (past d = 256*F a
+//      feature a thread, added to the block's record once a tile).
+//   What bounds it now, counted (no counters run on the card) and borne
+//   out by variants with the forward or the copies taken out: a 16-byte
+//   shared-memory load costs four wavefronts (one shared-memory cycle
+//   each) even when every lane reads the same address, so the broadcasts
+//   of beta (forward) and of the weights (gradient), not the FMAs, bound
+//   the compute.  A 256-row tile at K=4, d=29 (8 warps): forward 29 x
+//   loads (1 wavefront) and 29 beta float4s (4) a warp, 1,160; targets,
+//   mask and weight stores 72; gradient (F = 4, W = 8 threads a group,
+//   G = 32 groups, whose warps' rows are 8 apart so that the x loads miss
+//   each other's banks) 64 warp-rows of one weight float4 and four x
+//   loads, 512: ~1,740 wavefronts, ~0.32 ms over the 326 tiles a SM takes
+//   (value only ~1,200, ~0.22 ms), under the 0.447 ms byte bound, but
+//   overlapped with the copies only in part: the copies decide at K=4.
+//   A 128-row tile at K=16, d=28: forward 28 x loads (4-way conflict at
+//   an even d) and 56 beta float4s a warp, ~2,700; gradient 112
+//   warp-rows of four weight float4s and one x load, ~1,900: ~4,700
+//   wavefronts, ~0.16 ms over 59 tiles a SM, above the 0.134 ms that 40%
+//   of the bound asks; the copy ring, 18 runs a tile, is slow there too.
+//   4. Tensor cores (mma.sync TF32 with a 3-pass hi/lo split, x and the
+//      weights read once as fragments) are not used here.  At K=4 the
+//      kernel reaches 70% of its bound without them; at K=16 they would
+//      remove most of the wavefronts above, but not the copy ring's cost,
+//      which needs larger tiles first (ROADMAP, Queue 2).
+//
+// K2-MN (tiled_kernel, unchanged from its first design): a block stages R
+// whole rows with 16-byte cp.async, double-buffered; beta and the (row,
+// class) tables keep the classes padded to float4s (the tables' row
+// stride an odd number of float4s, against bank conflicts).  Forward:
+// S = 256/R threads a row, KC = 4 classes at a time in registers, joined
+// by an xor-shuffle tree into the (row, class) table; a thread a row for
+// the softmax terms; the gradient a (row group, feature) owner with KC
+// classes in registers a tile, added to shared-memory totals; the loss
+// its own row groups in both variants.
+//
+// Both: deterministic (per-block records summed in block order by
+// finalize_kernel; no float atomics); f has the same bits with and
+// without the gradient; inactive lanes (OvR: a class of a shard; MN: a
+// shard) are not read and their f, g not written, and a lane's sums never
+// depend on which other lanes are active.  Past what a block's shared
+// memory holds (large d, or d*K for MN), row_kernel takes over: a block a
+// row at a time, a warp a class's dot, the gradient accumulated in the
+// block's record in global memory.  Row indices are 64-bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,31 +116,36 @@ namespace {
 constexpr int T = 256;                     // threads per block
 constexpr int NW = T / 32;                 // warps per block
 constexpr int MIN_R = 8;                   // fewest rows a tile (S = 32)
-constexpr int KC = 4;                      // classes a pass of register accumulators
-constexpr long long SMEM_BUDGET = 100 << 10;  // staged bytes a block: two blocks a SM
+constexpr int KC = 4;                      // classes a float4 chunk
+constexpr int STAGES = 3;                  // OvR: tiles in the copy ring
+constexpr long long SMEM_BUDGET = 100 << 10;  // MN: staged bytes a block
+constexpr long long OVR_BUDGET = 112 << 10;   // OvR: dynamic bytes a block, two blocks a SM
 constexpr long long SCRATCH_CAP = 1LL << 26;  // floats of block records
 
 enum { OVR = 0, MN = 1 };
 
 struct Plan {
-  long long path;      // 0: tiled_kernel, 1: row_kernel
+  long long path;      // 0: ovr_kernel / tiled_kernel, 1: row_kernel
   long long R;         // rows a tile
   long long G;         // row groups of the gradient
-  long long blocks;    // blocks a shard
+  long long blocks;    // blocks a shard (OvR: a shard and class group)
   long long smem;      // dynamic shared memory, bytes
   long long rec;       // floats of a block record: K * (d + 1)
   long long scratch;   // floats of scratch: P * blocks * rec
-  long long GL;        // row groups of the loss
+  long long aux;       // OvR: float4 class chunks a block (NCT); MN: row groups of the loss
 };
 static_assert(sizeof(Plan) == 8 * sizeof(long long), "Plan is 8 int64s");
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(a), "l"(src) : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(smem_addr(dst)), "l"(src)
+               : "memory");
 }
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(a), "l"(src) : "memory");
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(smem_addr(dst)), "l"(src)
+               : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -100,9 +155,53 @@ __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// an arrival that also expects `bytes` more from bulk copies
+__device__ __forceinline__ void mbar_arrive_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// an arrival made once all this thread's cp.async copies so far have landed
+__device__ __forceinline__ void mbar_arrive_cp_async(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(smem_addr(bar))
+               : "memory");
+}
+// waits for the phase of the given parity to complete
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+// orders this thread's earlier shared-memory accesses before later bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
 // Floats that src lies past a 16-byte boundary.
 __device__ __forceinline__ int misalign(const float* src) {
   return (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+}
+
+// Whether cnt floats from src are whole 16-byte units: a bulk copy.
+__device__ __forceinline__ bool bulk_ok(const float* src, int cnt) {
+  return ((reinterpret_cast<uintptr_t>(src) & 15) | (uintptr_t)(cnt & 3)) == 0;
 }
 
 // cnt contiguous floats from src into buf + misalign(src) (K2's staging).
@@ -179,18 +278,361 @@ __host__ __device__ __forceinline__ int row_stride(int K) {
   return (s / KC) % 2 ? s : s + KC;
 }
 
+// Row groups: of the gradient, so that (group, feature) pairs fill a
+// block, and of the MN loss.
+__host__ __device__ __forceinline__ int row_groups(int cols, int R) {
+  const int g = T / cols;
+  return g < 1 ? 1 : (g > R ? R : g);
+}
+
+// ------------------------------------------------------------- K2-OvR
+
+// Float4 class chunks a block of ovr_kernel takes for K classes.
+__host__ __device__ __forceinline__ int ovr_chunks(int K) {
+  const int nc = (K + KC - 1) / KC;
+  return nc <= 1 ? 1 : (nc <= 2 ? 2 : 4);
+}
+
+// Features a gradient thread of ovr_kernel takes (interleaved, W = ceil(d/F)
+// apart), so that one float4 of weights feeds F*4 FMAs (one at 16 classes a
+// block, where the F*16 accumulators would spill).
+__host__ __device__ constexpr int ovr_grad_feats(int nct) { return nct == 4 ? 1 : 4; }
+
+// Floats of one stage of the ring: x (R*d + 4), then KY target runs and
+// the mask run (R + 4 each; the 4 spare floats take a copy_tile offset).
+__host__ __device__ __forceinline__ long long ovr_stage_floats(int R, int d, int KY) {
+  return (long long)R * d + 4 + (KY + 1LL) * (R + 4);
+}
+
+// Floats of the ring, which after the tile loop holds the gradient's
+// (G, KB, d) group totals.
+__host__ __device__ __forceinline__ long long ovr_ring_floats(int R, int d, int KY, int G, int KB) {
+  const long long ring = STAGES * ovr_stage_floats(R, d, KY), gred = (long long)G * KB * d;
+  return ring > gred ? ring : gred;
+}
+
+// Floats of ovr_kernel's dynamic shared memory: the ring, beta (d, KB) and
+// two (R, KS) weight tables.
+long long ovr_floats(int R, int d, int K, int G) {
+  const int KB = KC * ovr_chunks(K), KY = K < KB ? K : KB;
+  return ovr_ring_floats(R, d, KY, G, KB) + (long long)d * KB + 2LL * R * row_stride(KB);
+}
+
+// Copies tile rows [r0, r0 + rows) of shard p into the stage at buf,
+// completing on bar: x's rows (nx floats from xt), the target runs of the
+// classes in `on` (from yt, class c at yt + c*ystride) and the mask run
+// (from mt).  A run whose source and length are whole 16-byte units is one
+// bulk copy issued by thread 0; the others are the threads' cp.async.
+// Thread 0 arrives expecting the bulk bytes, every thread once its
+// cp.async copies have landed: T + 1 arrivals a phase.
+__device__ __forceinline__ void stage_tile(float* buf, unsigned long long* bar, const float* xt,
+                                           int nx, const float* yt, long long ystride,
+                                           const float* mt, int rows, int R, int KY, int yoff,
+                                           unsigned on) {
+  float* ybuf = buf + yoff;
+  float* mbuf = ybuf + KY * (R + 4);
+  const bool x_bulk = bulk_ok(xt, nx), m_bulk = bulk_ok(mt, rows);
+  if (threadIdx.x == 0) {
+    unsigned bytes = (x_bulk ? 4u * nx : 0u) + (m_bulk ? 4u * rows : 0u);
+    for (int c = 0; c < KY; ++c)
+      if ((on >> c & 1) && bulk_ok(yt + c * ystride, rows)) bytes += 4u * rows;
+    fence_proxy_async();
+    mbar_arrive_tx(bar, bytes);
+    if (x_bulk) bulk_copy(buf, xt, 4u * nx, bar);
+    for (int c = 0; c < KY; ++c)
+      if ((on >> c & 1) && bulk_ok(yt + c * ystride, rows))
+        bulk_copy(ybuf + c * (R + 4), yt + c * ystride, 4u * rows, bar);
+    if (m_bulk) bulk_copy(mbuf, mt, 4u * rows, bar);
+  }
+  if (!x_bulk) copy_tile(buf, xt, nx);
+  for (int c = 0; c < KY; ++c)
+    if ((on >> c & 1) && !bulk_ok(yt + c * ystride, rows))
+      copy_tile(ybuf + c * (R + 4), yt + c * ystride, rows);
+  if (!m_bulk) copy_tile(mbuf, mt, rows);
+  mbar_arrive_cp_async(bar);
+}
+
+// The forward of one row: acc[i][c] += x_r . beta[:, i*cstride + c] over
+// the features j = sf, sf + step, ... (bs: beta_s at the thread's first
+// chunk; STEP: the stride when known at compile time, else step).
+template <int KB, int NCH, int STEP>
+__device__ __forceinline__ void row_dots(float (&acc)[NCH][KC], const float* xr, const float* bs,
+                                         int cstride, int d, int sf, int step) {
+  if (STEP) step = STEP;
+#pragma unroll 4
+  for (int j = sf; j < d; j += step) {
+    const float xv = xr[j];
+    const float* bj = bs + j * KB;
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      const float4 b = *reinterpret_cast<const float4*>(bj + i * cstride);
+      acc[i][0] = fmaf(xv, b.x, acc[i][0]);
+      acc[i][1] = fmaf(xv, b.y, acc[i][1]);
+      acc[i][2] = fmaf(xv, b.z, acc[i][2]);
+      acc[i][3] = fmaf(xv, b.w, acc[i][3]);
+    }
+  }
+}
+
+// Grid (blocks, P, class groups).  Block (b, p, z) takes classes
+// [z*KB, z*KB + KB) of shard p (KB = 4*NCT), over the shard's row tiles b,
+// b + blocks, ..., and writes their parts of its record
+// bpart[(p*blocks + b)*K*(d + 1)]: for class k, (GRAD) g at k*(d+1) + j
+// and f at k*(d+1) + d.  In the forward the S = 256/R threads of a row
+// split the NCT chunks SC = NCT/NCH ways (NCH chunks a thread) and then
+// the features SF = S/SC ways.
+template <int NCT, int NCH, bool GRAD>
+__global__ void __launch_bounds__(T, 2) ovr_kernel(
+    const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ mask,
+    const float* __restrict__ beta, const unsigned char* __restrict__ active, long long P,
+    long long m, int d, int K, int R, int G, float* __restrict__ bpart) {
+  constexpr int KB = KC * NCT, SC = NCT / NCH, PER_SC = T / SC;
+  const int p = blockIdx.y, kbase = blockIdx.z * KB, nk = min(K - kbase, KB);
+  unsigned on = 0;  // bit c: class kbase + c is computed
+  for (int c = 0; c < nk; ++c)
+    if (active[(long long)(kbase + c) * P + p]) on |= 1u << c;
+  if (on == 0) return;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) unsigned long long bar[STAGES];
+  __shared__ float lred[KB * NW];  // (class, warp) loss sums
+  constexpr int F = ovr_grad_feats(NCT);
+  const int C = d + 1, KS = row_stride(KB), KY = min(K, KB), yoff = R * d + 4;
+  const int stage_floats = (int)ovr_stage_floats(R, d, KY);
+  float* beta_s = smem + (int)ovr_ring_floats(R, d, KY, G, KB);  // (d, KB)
+  float* w_s = beta_s + d * KB;  // 2 x (R, KS): the weights of tile i in half i % 2
+  // gradient: thread q*W + f (q < G) owns group q's features f, f + W, ...
+  // (F of them) across all tiles; past W > T a thread a feature, per tile
+  const int W = (d + F - 1) / F, q_own = threadIdx.x / W, f_own = threadIdx.x - q_own * W;
+  const bool single = W <= T;
+
+  // forward: thread (sc, r_own, sf) takes row r_own's chunks sc, sc + SC,
+  // ... and its features sf, sf + SF, ...; sc is the same across a warp
+  const int SF = T / R / SC, sc = threadIdx.x / PER_SC, rem = threadIdx.x - sc * PER_SC;
+  const int r_own = rem / SF, sf = rem - r_own * SF;
+
+  for (int e = threadIdx.x; e < d * KB; e += T) {
+    const int j = e / KB, c = e - j * KB;
+    beta_s[e] = (on >> c & 1) ? beta[((long long)(kbase + c) * P + p) * d + j] : 0.f;
+  }
+  for (int e = threadIdx.x; e < KB * NW; e += T) lred[e] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(bar + s, T + 1);
+    mbar_init_fence();
+  }
+  float* rec = bpart + ((long long)p * gridDim.x + blockIdx.x) * ((long long)K * C);
+  if (GRAD && !single)
+    for (int e = threadIdx.x; e < nk * d; e += T) {
+      const int c = e / d, j = e - c * d;
+      if (on >> c & 1) rec[(long long)(kbase + c) * C + j] = 0.f;
+    }
+  __syncthreads();
+
+  const float* xl = x + (long long)p * m * d;
+  const float* ml = mask + (long long)p * m;
+  const long long ystride = P * m;
+  const float* yl = y + ((long long)kbase * P + p) * m;
+  const long long ntiles = (m + R - 1) / R, step = gridDim.x, t0 = blockIdx.x;
+  for (int i = 0; i < STAGES - 1; ++i) {
+    const long long t = t0 + i * step;
+    if (t < ntiles) {
+      const int rows = (int)min((long long)R, m - t * R);
+      stage_tile(smem + i * stage_floats, bar + i, xl + t * R * d, rows * d, yl + t * R, ystride,
+                 ml + t * R, rows, R, KY, yoff, on);
+    }
+  }
+  // where a tile's rows sit in its stage: R*d and R are multiples of 4, so
+  // each run's offset from its 16-byte boundary is the same in every tile
+  const int x_at = misalign(xl), m_at = yoff + KY * (R + 4) + misalign(ml);
+  const int y_mis = misalign(yl), ys_mis = (int)(ystride & 3);
+  const float* bs = beta_s + sc * KC;
+
+  // group q's first row: where 4 divides G, the groups of a warp (four at
+  // W = 8) start G/4 rows apart, so that their x loads fall in distinct
+  // banks (G = 32 at d = 29: 8 rows, 232 floats)
+  const int q_row = G % 4 ? q_own : (q_own & 3) * (G >> 2) + (q_own >> 2);
+  int x_off[F];  // feature f_own + i*W, or f_own itself past d (not kept)
+#pragma unroll
+  for (int i = 0; i < F; ++i) x_off[i] = f_own + i * W < d ? i * W : 0;
+
+  float lsum[NCH][KC], gsum[F][NCT][KC];
+#pragma unroll
+  for (int i = 0; i < NCH; ++i)
+#pragma unroll
+    for (int c = 0; c < KC; ++c) lsum[i][c] = 0.f;
+#pragma unroll
+  for (int i = 0; i < F; ++i)
+#pragma unroll
+    for (int ch = 0; ch < NCT; ++ch)
+#pragma unroll
+      for (int c = 0; c < KC; ++c) gsum[i][ch][c] = 0.f;
+
+  int s = 0, i = 0;
+  unsigned parity = 0;
+  for (long long t = t0; t < ntiles; t += step, ++i) {
+    const int rows = (int)min((long long)R, m - t * R);
+    const float* buf = smem + s * stage_floats;
+    const float* xs = buf + x_at;
+    float* wt = w_s + (i & 1) * R * KS;
+    mbar_wait(bar + s, parity);
+
+    // forward: the row's logits in registers (an off class has zero beta)
+    float acc[NCH][KC];
+#pragma unroll
+    for (int u = 0; u < NCH; ++u)
+#pragma unroll
+      for (int c = 0; c < KC; ++c) acc[u][c] = 0.f;
+    if (r_own < rows) {
+      if (SF == 1)
+        row_dots<KB, NCH, 1>(acc, xs + r_own * d, bs, SC * KC, d, 0, 1);
+      else
+        row_dots<KB, NCH, 0>(acc, xs + r_own * d, bs, SC * KC, d, sf, SF);
+    }
+    if (SF > 1) {
+#pragma unroll
+      for (int u = 0; u < NCH; ++u)
+#pragma unroll
+        for (int c = 0; c < KC; ++c)
+          for (int o = 1; o < SF; o <<= 1)
+            acc[u][c] += __shfl_xor_sync(0xffffffffu, acc[u][c], o);
+    }
+    // row terms where the logits are; the loss stays in registers
+    if (sf == 0 && r_own < rows) {
+      const float mv = buf[m_at + r_own];
+#pragma unroll
+      for (int u = 0; u < NCH; ++u) {
+        const int k0 = (sc + u * SC) * KC;
+        float w[KC];
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          const int k = k0 + c;
+          const bool kon = on >> k & 1;
+          const float yv = buf[yoff + k * (R + 4) + ((y_mis + k * ys_mis) & 3) + r_own];
+          const RowTerms rt = logistic_terms(acc[u][c], yv, mv);
+          lsum[u][c] += kon ? rt.loss : 0.f;
+          w[c] = kon ? rt.w : 0.f;
+        }
+        if (GRAD)
+          *reinterpret_cast<float4*>(wt + r_own * KS + k0) = make_float4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    __syncthreads();  // the weights are in; the previous tile's stage is free
+
+    const long long tn = t + (STAGES - 1) * step;
+    if (tn < ntiles) {
+      const int sn = s == 0 ? STAGES - 1 : s - 1, rn = (int)min((long long)R, m - tn * R);
+      stage_tile(smem + sn * stage_floats, bar + sn, xl + tn * R * d, rn * d, yl + tn * R,
+                 ystride, ml + tn * R, rn, R, KY, yoff, on);
+    }
+
+    // gradient: group q over rows q_row, q_row + G, ..., F features and
+    // all the block's classes a thread
+    if (GRAD && single && q_own < G) {
+      const float* xq = xs + q_row * d + f_own;
+      const float* wq = wt + q_row * KS;
+      const int n = rows > q_row ? (rows - q_row + G - 1) / G : 0, xstep = G * d, wstep = G * KS;
+#pragma unroll 1
+      for (int u = 0; u < n; ++u) {
+        const float* xr = xq + u * xstep;
+        float xv[F];
+#pragma unroll
+        for (int i = 0; i < F; ++i) xv[i] = xr[x_off[i]];
+#pragma unroll
+        for (int ch = 0; ch < NCT; ++ch) {
+          const float4 w = *reinterpret_cast<const float4*>(wq + u * wstep + ch * KC);
+#pragma unroll
+          for (int i = 0; i < F; ++i) {
+            gsum[i][ch][0] = fmaf(w.x, xv[i], gsum[i][ch][0]);
+            gsum[i][ch][1] = fmaf(w.y, xv[i], gsum[i][ch][1]);
+            gsum[i][ch][2] = fmaf(w.z, xv[i], gsum[i][ch][2]);
+            gsum[i][ch][3] = fmaf(w.w, xv[i], gsum[i][ch][3]);
+          }
+        }
+      }
+    } else if (GRAD && !single) {
+      for (int j = threadIdx.x; j < d; j += T) {
+        float a[NCT][KC];
+#pragma unroll
+        for (int ch = 0; ch < NCT; ++ch)
+#pragma unroll
+          for (int c = 0; c < KC; ++c) a[ch][c] = 0.f;
+        for (int r = 0; r < rows; ++r) {
+          const float xv = xs[r * d + j];
+#pragma unroll
+          for (int ch = 0; ch < NCT; ++ch) {
+            const float4 w = *reinterpret_cast<const float4*>(wt + r * KS + ch * KC);
+            a[ch][0] = fmaf(w.x, xv, a[ch][0]);
+            a[ch][1] = fmaf(w.y, xv, a[ch][1]);
+            a[ch][2] = fmaf(w.z, xv, a[ch][2]);
+            a[ch][3] = fmaf(w.w, xv, a[ch][3]);
+          }
+        }
+#pragma unroll
+        for (int ch = 0; ch < NCT; ++ch)
+#pragma unroll
+          for (int c = 0; c < KC; ++c)
+            if (on >> (ch * KC + c) & 1) rec[(long long)(kbase + ch * KC + c) * C + j] += a[ch][c];
+      }
+    }
+    if (++s == STAGES) {
+      s = 0;
+      parity ^= 1;
+    }
+  }
+
+  // the loss: a fixed shuffle tree a warp (its lanes hold the same
+  // classes), then the warps in order, the others' zeros between (the
+  // same in both variants, so f has the same bits)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < NCH; ++u)
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      float v = lsum[u][c];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) lred[((sc + u * SC) * KC + c) * NW + warp] = v;
+    }
+  float* gred = smem;  // (G, KB, d), over the ring
+  if (GRAD && single) {
+    __syncthreads();  // every thread is past its last tile: the ring is free
+    if (q_own < G) {
+#pragma unroll
+      for (int i = 0; i < F; ++i) {
+        if (f_own + i * W >= d) continue;
+#pragma unroll
+        for (int ch = 0; ch < NCT; ++ch)
+#pragma unroll
+          for (int c = 0; c < KC; ++c)
+            gred[(q_own * KB + ch * KC + c) * d + f_own + i * W] = gsum[i][ch][c];
+      }
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < nk; c += T) {
+    if (!(on >> c & 1)) continue;
+    float sum = 0.f;
+    for (int w = 0; w < NW; ++w) sum += lred[c * NW + w];
+    rec[(long long)(kbase + c) * C + d] = sum;
+  }
+  if (GRAD && single)
+    for (int e = threadIdx.x; e < nk * d; e += T) {
+      const int c = e / d, j = e - c * d;
+      if (!(on >> c & 1)) continue;
+      float sum = 0.f;
+      for (int q = 0; q < G; ++q) sum += gred[(q * KB + c) * d + j];
+      rec[(long long)(kbase + c) * C + j] = sum;
+    }
+}
+
+// --------------------------------------------------------------- K2-MN
+
+// K2-MN runs the MN instance of the first class-batched kernel, kept as it
+// was (its OvR branches are not instantiated: K2-OvR runs ovr_kernel).
 // Floats of tiled_kernel's dynamic shared memory, in the order laid out.
 long long staged_floats(int mode, int d, int K, int R, int G, int GL) {
   const long long KL = mode == OVR ? K : 1, KP = padded(K), KS = row_stride(K);
   return 2LL * (R * (long long)d + 4) + d * KP + 2LL * R * KS + R + (long long)G * K * d +
          GL * KL + K;
-}
-
-// Row groups: of the gradient, so that (group, feature) pairs fill a
-// block, and of the loss, so that (group, loss column) pairs do.
-int row_groups(int cols, int R) {
-  const int g = T / cols;
-  return g < 1 ? 1 : (g > R ? R : g);
 }
 
 // Grid (blocks, P).  Block b of shard p takes the shard's row tiles b,
@@ -484,61 +926,107 @@ cudaError_t occupancy(Kern kern, int dev, size_t smem, int* per_sm) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, T, smem);
 }
 
-template <int MODE>
-cudaError_t plan_mode(int dev, long long m, int d, int K, Plan* p, long long* units,
-                      int* per_sm) {
-  int R = 0, G = 1, GL = 1;
+// The fewer blocks a SM of the two variants of a kernel.
+template <typename KernGrad, typename KernValue>
+cudaError_t occupancy2(KernGrad kg, KernValue kv, int dev, size_t smem, int* per_sm) {
+  int ps_grad = 0, ps_value = 0;
+  cudaError_t err = occupancy(kg, dev, smem, &ps_grad);
+  if (err != cudaSuccess) return err;
+  if ((err = occupancy(kv, dev, smem, &ps_value)) != cudaSuccess) return err;
+  *per_sm = ps_grad < ps_value ? ps_grad : ps_value;
+  return cudaSuccess;
+}
+
+// The tiled path's rows a tile, the largest power of two from T down to
+// MIN_R whose shared memory fits the mode's budget (0: none does), and
+// its gradient row groups.
+int tile_rows(int mode, int d, int K, int* G) {
+  const int f = mode == OVR ? ovr_grad_feats(ovr_chunks(K)) : 1;
   for (int r = T; r >= MIN_R; r >>= 1) {
-    const int g = row_groups(d, r), gl = row_groups(MODE == OVR ? K : 1, r);
-    if (4 * staged_floats(MODE, d, K, r, g, gl) <= SMEM_BUDGET) {
-      R = r;
-      G = g;
-      GL = gl;
-      break;
+    const int g = row_groups((d + f - 1) / f, r);
+    const long long bytes = mode == OVR ? 4 * ovr_floats(r, d, K, g)
+                                        : 4 * staged_floats(MN, d, K, r, g, row_groups(1, r));
+    if (bytes <= (mode == OVR ? OVR_BUDGET : SMEM_BUDGET)) {
+      *G = g;
+      return r;
     }
   }
+  return 0;
+}
+
+typedef void (*OvrKern)(const float*, const float*, const float*, const float*,
+                        const unsigned char*, long long, long long, int, int, int, int, float*);
+
+// The ovr_kernel instance for nct chunks a block and R rows a tile: the
+// 256/R threads of a row split the chunks min(256/R, nct) ways.
+template <bool GRAD>
+OvrKern ovr_instance(int nct, int R) {
+  const int sc = T / R < nct ? T / R : nct, nch = nct / sc;
+  if (nct == 1) return ovr_kernel<1, 1, GRAD>;
+  if (nct == 2) return nch == 1 ? ovr_kernel<2, 1, GRAD> : ovr_kernel<2, 2, GRAD>;
+  return nch == 1 ? ovr_kernel<4, 1, GRAD> : (nch == 2 ? ovr_kernel<4, 2, GRAD> : ovr_kernel<4, 4, GRAD>);
+}
+
+cudaError_t plan_mode(int mode, int dev, long long m, int d, int K, Plan* p, long long* units,
+                      int* per_sm) {
+  int G = 1;
+  const int R = tile_rows(mode, d, K, &G);
   cudaError_t err;
+  p->G = G;
   if (R > 0) {
-    const size_t smem = 4 * (size_t)staged_floats(MODE, d, K, R, G, GL);
-    int ps_grad = 0, ps_value = 0;
-    if ((err = occupancy(tiled_kernel<MODE, true>, dev, smem, &ps_grad)) != cudaSuccess) return err;
-    if ((err = occupancy(tiled_kernel<MODE, false>, dev, smem, &ps_value)) != cudaSuccess) return err;
-    *per_sm = ps_grad < ps_value ? ps_grad : ps_value;
     p->path = 0;
     p->R = R;
-    p->G = G;
-    p->GL = GL;
-    p->smem = (long long)smem;
+    if (mode == OVR) {
+      const int nct = ovr_chunks(K);
+      p->aux = nct;
+      p->smem = 4 * ovr_floats(R, d, K, G);
+      err = occupancy2(ovr_instance<true>(nct, R), ovr_instance<false>(nct, R), dev,
+                       (size_t)p->smem, per_sm);
+    } else {
+      p->aux = row_groups(1, R);
+      p->smem = 4 * staged_floats(MN, d, K, R, G, (int)p->aux);
+      err = occupancy2(tiled_kernel<MN, true>, tiled_kernel<MN, false>, dev, (size_t)p->smem,
+                       per_sm);
+    }
     *units = (m + R - 1) / R;
   } else {
-    const size_t smem = 3 * sizeof(float) * (size_t)K;
-    int ps_grad = 0, ps_value = 0;
-    if ((err = occupancy(row_kernel<MODE, true>, dev, smem, &ps_grad)) != cudaSuccess) return err;
-    if ((err = occupancy(row_kernel<MODE, false>, dev, smem, &ps_value)) != cudaSuccess) return err;
-    *per_sm = ps_grad < ps_value ? ps_grad : ps_value;
     p->path = 1;
     p->R = 1;
-    p->G = 1;
-    p->GL = 1;
-    p->smem = (long long)smem;
+    p->aux = 1;
+    p->smem = 3 * sizeof(float) * (long long)K;
+    const size_t smem = (size_t)p->smem;
+    err = mode == OVR ? occupancy2(row_kernel<OVR, true>, row_kernel<OVR, false>, dev, smem, per_sm)
+                      : occupancy2(row_kernel<MN, true>, row_kernel<MN, false>, dev, smem, per_sm);
     *units = m;
   }
-  return cudaSuccess;
+  return err;
+}
+
+// Class groups along grid z: ovr_kernel's blocks take 4*aux classes each.
+int class_groups(int mode, const Plan& p, int K) {
+  if (mode != OVR || p.path != 0) return 1;
+  const int chunks = (K + KC - 1) / KC;
+  return (chunks + (int)p.aux - 1) / (int)p.aux;
 }
 
 template <int MODE>
 void launch(const Plan& p, const float* x, const float* y, const float* mask, const float* beta,
             const unsigned char* act, long long P, long long m, int d, int K, int grad,
             float* bpart, cudaStream_t s) {
-  const dim3 grid((unsigned)p.blocks, (unsigned)P);
+  const dim3 grid((unsigned)p.blocks, (unsigned)P, (unsigned)class_groups(MODE, p, K));
   const size_t smem = (size_t)p.smem;
-  if (p.path == 0) {
+  if (p.path == 0 && MODE == OVR) {
+    const OvrKern kern = grad ? ovr_instance<true>((int)p.aux, (int)p.R)
+                              : ovr_instance<false>((int)p.aux, (int)p.R);
+    kern<<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, (int)p.R, (int)p.G, bpart);
+  } else if (p.path == 0) {
+    const int R = (int)p.R, G = (int)p.G, GL = (int)p.aux;
     if (grad)
-      tiled_kernel<MODE, true><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, (int)p.R,
-                                                     (int)p.G, (int)p.GL, bpart);
+      tiled_kernel<MN, true><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, R, G, GL,
+                                                   bpart);
     else
-      tiled_kernel<MODE, false><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, (int)p.R,
-                                                      (int)p.G, (int)p.GL, bpart);
+      tiled_kernel<MN, false><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, R, G, GL,
+                                                    bpart);
   } else {
     if (grad)
       row_kernel<MODE, true><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, bpart);
@@ -568,14 +1056,13 @@ int multiclass_plan(int mode, long long P, long long m, int d, int K, void* plan
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   long long units = 1;
-  err = mode == OVR ? plan_mode<OVR>(dev, m, d, K, p, &units, &per_sm)
-                    : plan_mode<MN>(dev, m, d, K, p, &units, &per_sm);
+  err = plan_mode(mode, dev, m, d, K, p, &units, &per_sm);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) per_sm = 1;
   p->rec = (long long)K * (d + 1);
-  // one wave over all shards, split evenly between them, and records
-  // that fit the scratch cap
-  long long blocks = (long long)sms * per_sm / P;
+  // one wave over all shards and class groups, split evenly between them,
+  // and records that fit the scratch cap
+  long long blocks = (long long)sms * per_sm / (P * class_groups(mode, *p, K));
   const long long cap = SCRATCH_CAP / (P * p->rec);
   if (blocks > cap) blocks = cap;
   if (blocks > units) blocks = units;

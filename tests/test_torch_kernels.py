@@ -320,8 +320,14 @@ _MC = {"ovr": (multiclass.logistic_ovr_value_and_grad, multiclass.logistic_ovr_v
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["ovr", "mn"])
-@pytest.mark.parametrize("P,m,d,K", [(1, 1001, 3, 2), (8, 1375, 29, 4), (8, 4097, 130, 3),
-                                     (3, 777, 1, 16), (2, 300, 29, 100), (2, 300, 2000, 4)])
+@pytest.mark.parametrize("P,m,d,K", [
+    (1, 1001, 3, 2), (8, 1375, 29, 4), (8, 4097, 130, 3), (3, 777, 1, 16), (2, 300, 29, 100),
+    (2, 300, 2000, 4),
+    # shard bases and target rows off 16-byte boundaries (m = 1, 2, 3 mod 4),
+    # fewer rows than a tile, K = 1, 5 and 16, more gradient columns than
+    # threads (d = 600 at K = 16)
+    (3, 1001, 29, 4), (2, 1002, 28, 16), (4, 1003, 29, 5), (2, 37, 29, 3), (3, 1000, 29, 1),
+    (2, 1000, 29, 16), (2, 301, 300, 5), (2, 301, 600, 16)])
 def test_multiclass_matches_plain_version(cuda, mode, P, m, d, K):
     vg, v, ref = _MC[mode]
     x, y, mask, beta, lanes = _multiclass_inputs(mode, P, m, d, K, P * m + d + K, cuda)

@@ -59,8 +59,10 @@ def _masked(rng, P, m):
 
 # ------------------------------------------------------------------ K2-OvR
 
-@pytest.mark.parametrize("P,m,d,K", [(1, 1001, 3, 2), (8, 137, 13, 4), (3, 77, 1, 3),
-                                     (2, 50, 130, 16)])
+@pytest.mark.parametrize("P,m,d,K", [
+    (1, 1001, 3, 2), (8, 137, 13, 4), (3, 77, 1, 3), (2, 50, 130, 16),
+    # the kernel's staging edges: m = 1, 2, 3 mod 4 with P > 1, K = 1, 5, 16
+    (3, 101, 29, 4), (2, 102, 28, 16), (4, 103, 29, 5), (2, 37, 29, 1), (2, 60, 29, 16)])
 def test_ovr_plain_version_matches_reference_class_by_class(P, m, d, K):
     rng = np.random.RandomState(P * m + d + K)
     x = rng.standard_normal((P, m, d)).astype(np.float32)
