@@ -19,7 +19,10 @@ Phases, in order; any failure exits non-zero:
    a single valid slot; it computes only the valid slots.  K2 (both
    variants) at (P, m, d) in ``LOGISTIC_SHAPES``, with fractional masks, a
    last lane of only pad rows and, once more, with lane 1 inactive (its
-   outputs must keep their bits); plus a bitwise repeat.
+   outputs must keep their bits); plus a bitwise repeat.  K2-OvR and K2-MN
+   (both variants) likewise at ``MULTICLASS_SHAPES``, and K2-MN at
+   ``MN_EDGE_SHAPES`` with labels outside [0, K), mask-0 rows and logits
+   near ±80.
 4. The main path at BASELINE ``configs[1]``: make_blobs 100M x 50 float32
    with 8 centres, generated on the card from a seed;
    ``KMeans(n_clusters=8, random_state=0).fit(X)`` (k-means|| init), then
@@ -68,8 +71,10 @@ Phases, in order; any failure exits non-zero:
    the A/B's width with K=16 (K2-MN's launches there); both kernels at the
    phase-7 shapes and at the A/B's (1, 1M, 28), K=16 held against their
    plain versions and timed beside their bounds, their plain versions and
-   (K=4) informational comparisons, with each call's launch plan; and
-   ``dryrun_multichip(8)`` on the card.  Then the ``kernels`` line, the
+   (K=4) informational comparisons, with each call's launch plan (K2-MN in
+   both variants at both shapes, with the MN kernel's and finalize's own
+   device time from a short profiler window beside the CUDA-event time);
+   and ``dryrun_multichip(8)`` on the card.  Then the ``kernels`` line, the
    card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
@@ -119,11 +124,20 @@ ADMM_RTOL = 1e-3  # the fit through the kernel against the fit through the plain
 # by cp.async, the aligned ones by bulk copies), m = 37 is less than a tile,
 # d = 600 at K = 16 has more gradient columns than a block has threads
 # (K2-OvR adds them to the block's record once a tile), and d = 2000 takes
-# the wide path (row_kernel)
+# the wide path (row_kernel).  K2-MN's tensor-core path (d <= 32, K <= 16):
+# K = 8 and 9 (one whole n-tile of 8 classes, and one class past it), d = 1..7
+# mod 8 at the main path's m (the padded features of the last k-step), and m
+# below 16 rows and below a tile; d = 130 and K = 100 take its tiled path
 MULTICLASS_SHAPES = ((1, 1001, 29, 2), (8, 1375, 29, 4), (8, 4097, 130, 3), (3, 777, 1, 16),
                      (2, 3001, 29, 100), (2, 300, 2000, 4), (2, 300, 2000, 100),
                      (3, 1001, 29, 4), (2, 1002, 28, 16), (4, 1003, 29, 5), (2, 37, 29, 3),
-                     (3, 1000, 29, 1), (2, 1000, 29, 16), (2, 301, 300, 5), (2, 301, 600, 16))
+                     (3, 1000, 29, 1), (2, 1000, 29, 16), (2, 301, 300, 5), (2, 301, 600, 16),
+                     (2, 1001, 29, 8), (2, 1001, 29, 9), (2, 1375000, 25, 4),
+                     (2, 1375000, 26, 4), (2, 1375000, 27, 4), (2, 1375000, 28, 4),
+                     (2, 1375000, 29, 4), (2, 1375000, 30, 4), (2, 1375000, 31, 4),
+                     (3, 5, 29, 4), (2, 13, 28, 16), (2, 200, 28, 16))
+# K2-MN in phase 3 with labels outside [0, K), mask-0 rows and |η| up to ~80
+MN_EDGE_SHAPES = ((2, 3001, 29, 4), (2, 1003, 28, 16), (3, 777, 29, 9))
 # phase 7: classes of the softmax stand-in, and bench.py's packed A/B
 MC_CLASSES = 4
 AB_ROWS = 1_000_000
@@ -907,7 +921,9 @@ def multiclass_magnitudes(torch, mode, x, y, mask, beta):
         else:
             K = beta.shape[1] // d
             eta = xp @ beta[p].double().view(d, K)
-            onehot = torch.nn.functional.one_hot(y[p].long().clamp(0, K - 1), K).double()
+            c = y[p].long()  # truncation; a label outside [0, K) picks no class
+            onehot = torch.nn.functional.one_hot(c.clamp(0, K - 1), K).double()
+            onehot *= ((c >= 0) & (c < K))[:, None]
             f_mag.append((mp * (torch.logsumexp(eta, 1).abs()
                                 + (eta * onehot).sum(1).abs())).sum().reshape(1))
             w = (mp[:, None] * (torch.softmax(eta, 1) - onehot)).abs()
@@ -1000,6 +1016,23 @@ def compare_multiclass(torch, multiclass, device):
                 err[vg.__name__] = max(err[vg.__name__], e_vg)
                 err[v.__name__] = max(err[v.__name__], e_v)
             del x, y, mask, beta
+    vg, v = multiclass.multinomial_value_and_grad, multiclass.multinomial_value
+    for P, m, d, K in MN_EDGE_SHAPES:
+        x, y, mask, beta, lanes = multiclass_inputs(torch, "mn", P, m, d, K, P * m + d, device)
+        y[:, ::7] = -1.0  # no class
+        y[:, 3::7] = float(K)  # no class
+        y[:, 5::7] = 2.7  # class 2
+        beta *= 80.0 / 3.0  # η = x·β with a standard deviation near 27
+        top = float(torch.einsum("pmd,pdk->pmk", x, beta.view(P, d, K)).abs().max())
+        act = torch.ones(lanes, dtype=torch.bool, device=device)
+        act[1] = False
+        for a in (None, act):
+            what = (f"P={P} m={m} d={d} K={K} labels -1, K, 2.7, max |η| {top:.1f}"
+                    + ("" if a is None else " lane 1 inactive"))
+            e_vg, e_v = hold_multiclass(torch, multiclass, "mn", x, y, mask, beta, what, a)
+            err[vg.__name__] = max(err[vg.__name__], e_vg)
+            err[v.__name__] = max(err[v.__name__], e_v)
+        del x, y, mask, beta
     return err
 
 
@@ -1270,6 +1303,10 @@ def multiclass_table(torch, multiclass, logistic, Xi, y_idx, launches, card):
         fn = getattr(multiclass, name)
         ref = multiclass_wrappers(multiclass, mode)[2]
         ms = time_ms(torch, lambda: fn(x, yv, m2, B), 20)
+        own = ""
+        if mode == "mn":
+            kernel_ms = mn_device_ms(torch, lambda: fn(x, yv, m2, B), 20)
+            own = f"; kernel and finalize {fmt_ms(kernel_ms)}"
         plain_ms = time_ms(torch, lambda: ref(x, yv, m2, B, None, grad), 3)
         targets = yv.numel() * 4
         nbytes = n * d * 4 + targets + n * 4 + B.numel() * 4 * (2 if grad else 1) + lanes * 4
@@ -1279,7 +1316,7 @@ def multiclass_table(torch, multiclass, logistic, Xi, y_idx, launches, card):
         log(f"{name} at {what}: {ms:.4f} ms, {n / ms * 1e3:.4g} rows/s, "
             f"{nbytes / ms / 1e6:.1f} GB/s, {b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; "
-            f"plan {plan}" + (f"; informational: {info}" if info else "") + f") [{card}]")
+            f"plan {plan}{own}" + (f"; informational: {info}" if info else "") + f") [{card}]")
         out.append({"name": name, "route": "cuda",
                     "source": "dask_ml_tpu_torch/csrc/multiclass.cu", "replaces": replaces,
                     "launches": launches[name], "max_abs_err": err[name],
@@ -1289,10 +1326,42 @@ def multiclass_table(torch, multiclass, logistic, Xi, y_idx, launches, card):
     return out
 
 
+def mn_device_ms(torch, fn, reps):
+    """K2-MN's own device time a call: the MN kernel's mean duration plus
+    finalize_kernel's, over the launches a ``torch.profiler`` window of
+    ``reps`` calls recorded (a window may drop events, so each mean is over
+    the launches it holds).  The CUDA-event time of a call also holds the
+    wrapper's host cost where that is longer.  None when the profiler
+    records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and any(
+                k in e.name for k in ("mn_kernel", "tiled_kernel", "row_kernel", "finalize_kernel")):
+            per_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not per_name:
+        return None
+    return sum(sum(us) / len(us) for us in per_name.values()) / 1e3
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def plan_words(multiclass, x, mode, K):
     """The C plan of a K2-OvR (mode 0) or K2-MN (1) call on x: path, rows a
-    tile, gradient row groups, blocks, shared bytes, record floats,
-    scratch floats, and (OvR) class chunks a block or (MN) loss groups."""
+    tile, gradient row groups (K2-MN's tensor-core path, path 2: its ring's
+    stages), blocks, shared bytes, record floats, scratch floats, and (OvR)
+    class chunks a block or (MN) loss groups (path 2: n-tiles of 8
+    classes)."""
     P, m, d = x.shape
     return list(multiclass._plan(multiclass._load(), x.device, mode, P, m, d, K))
 
@@ -1300,10 +1369,11 @@ def plan_words(multiclass, x, mode, K):
 def ab_table(torch, multiclass, X, Yall, y16, launches, card):
     """Phase 7: K2-OvR and K2-MN at bench.py's A/B shape, one shard of
     (1M, 28) with K=16 and every row unmasked: each held against its plain
-    version, then its value-and-grad variant timed (CUDA events, 20
-    launches) beside its plain version and its bound.  ``launches`` are
-    the counts from the K=16 packed A/B run (K2-OvR) and the K=16
-    multinomial fit (K2-MN)."""
+    version, then timed (CUDA events, 20 launches) beside its plain
+    version and its bound: K2-OvR's value-and-grad variant, both of
+    K2-MN's (with their own device time from the profiler beside).
+    ``launches`` are the counts from the K=16 packed A/B run (K2-OvR) and
+    the K=16 multinomial fit (K2-MN)."""
     K = max(AB_CLASSES)
     n, d = X.shape
     dev = X.device
@@ -1315,26 +1385,36 @@ def ab_table(torch, multiclass, X, Yall, y16, launches, card):
     y2 = y16.view(1, n)
     what = f"(1, {n}, {d}) K={K}"
     out = []
-    for name, mode, yv, B, nbytes, replaces in (
-            ("logistic_ovr_value_and_grad", "ovr", Yall, B_ovr, n * (d + K + 1) * 4,
+    err = {}
+    err["logistic_ovr_value_and_grad"], _ = hold_multiclass(torch, multiclass, "ovr", x3, Yall,
+                                                            mask, B_ovr, what)
+    err["multinomial_value_and_grad"], err["multinomial_value"] = hold_multiclass(
+        torch, multiclass, "mn", x3, y2, mask, B_mn, what)
+    for name, mode, grad, yv, B, nbytes, replaces in (
+            ("logistic_ovr_value_and_grad", "ovr", True, Yall, B_ovr, n * (d + K + 1) * 4,
              "dask_ml_tpu/solvers/families.py:34"),
-            ("multinomial_value_and_grad", "mn", y2, B_mn, n * (d + 2) * 4,
+            ("multinomial_value_and_grad", "mn", True, y2, B_mn, n * (d + 2) * 4,
+             "dask_ml_tpu/solvers/families.py:85"),
+            ("multinomial_value", "mn", False, y2, B_mn, n * (d + 2) * 4,
              "dask_ml_tpu/solvers/families.py:85")):
-        err, _ = hold_multiclass(torch, multiclass, mode, x3, yv, mask, B, what)
         fn = getattr(multiclass, name)
         ref = multiclass_wrappers(multiclass, mode)[2]
         ms = time_ms(torch, lambda: fn(x3, yv, mask, B), 20)
-        plain_ms = time_ms(torch, lambda: ref(x3, yv, mask, B), 3)
-        nbytes += 2 * B.numel() * 4 + B.shape[0] * 4
-        flops = 4 * n * d * K
+        own = ""
+        if mode == "mn":
+            kernel_ms = mn_device_ms(torch, lambda: fn(x3, yv, mask, B), 20)
+            own = f"; kernel and finalize {fmt_ms(kernel_ms)}"
+        plain_ms = time_ms(torch, lambda: ref(x3, yv, mask, B, None, grad), 3)
+        nbytes += (2 if grad else 1) * B.numel() * 4 + B.shape[0] * 4
+        flops = (4 if grad else 2) * n * d * K
         b_ms, b_by = bound_ms(nbytes, flops)
         plan = plan_words(multiclass, x3, 0 if mode == "ovr" else 1, K)
         log(f"{name} at {what}: {ms:.4f} ms, {b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} "
             f"ms, bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; "
-            f"plan {plan}) [{card}]")
+            f"plan {plan}{own}) [{card}]")
         out.append({"name": f"{name}_K{K}", "route": "cuda",
                     "source": "dask_ml_tpu_torch/csrc/multiclass.cu", "replaces": replaces,
-                    "launches": launches[name], "max_abs_err": err,
+                    "launches": launches[name], "max_abs_err": err[name],
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": None})
     return out

@@ -88,24 +88,82 @@
 //      remove most of the wavefronts above, but not the copy ring's cost,
 //      which needs larger tiles first (ROADMAP, Queue 2).
 //
-// K2-MN (tiled_kernel, unchanged from its first design): a block stages R
-// whole rows with 16-byte cp.async, double-buffered; beta and the (row,
-// class) tables keep the classes padded to float4s (the tables' row
-// stride an odd number of float4s, against bank conflicts).  Forward:
-// S = 256/R threads a row, KC = 4 classes at a time in registers, joined
-// by an xor-shuffle tree into the (row, class) table; a thread a row for
-// the softmax terms; the gradient a (row group, feature) owner with KC
-// classes in registers a tile, added to shared-memory totals; the loss
-// its own row groups in both variants.
+// K2-MN (mn_kernel).  The bound at the multinomial fit's (8, 1.375M, 29),
+// K=4: 1.364 GB, 0.407 ms; at (1, 1M, 28), K=16: 0.120 GB, 0.0358 ms
+// (1.8 GFLOP, 0.027 ms at 67 TFLOP/s).  What held the first design
+// (tiled_kernel) back, counted from its code: the labels and the mask were
+// plain global loads in the tile loop, x only double-buffered; four
+// __syncthreads a tile, the logits, weights and losses making round trips
+// through shared (row, class) tables and a softmax pass of one thread a row
+// (2K expf a row, in both variants); and shared-memory wavefronts, not FMAs,
+// bounded its compute: a beta float4 per feature per 4 classes in the
+// forward, a weight float4 and an x value per row per 4 classes in the
+// gradient, ~5,000 wavefronts a 128-row tile at K=16 (~0.16 ms over the 59
+// tiles a SM takes) and ~2,500 a 256-row tile at K=4 (~0.45 ms over 326).
+// It ran at 52% (value and gradient) and 66% (value) of the bound at K=4,
+// 14% at K=16.  The design now:
+//   1. Every input of a tile is copied asynchronously by stage_tile, as in
+//      K2-OvR: the tile's R*d floats of x, its R labels and its R mask
+//      values, each one TMA bulk copy where whole 16-byte units, else
+//      cp.async, into a ring of S stages on an mbarrier each.  R = 256 (two
+//      16-row groups a warp) and S = 3 where three such stages fit 112 KB
+//      (two blocks a SM), else R = 128; S as many as fit, up to 8.  One
+//      __syncthreads a tile, after its last read, hands its stage back: the
+//      tile S ahead is copied into it at once.
+//   2. Both class products run on the tensor cores: mma.sync m16n8k8 TF32
+//      with a 3-pass split (lo*hi + hi*lo + hi*hi, float32 sums), a warp a
+//      16-row group.  Forward eta (16 x 8*NN) = x (16 x 8*NKS) . B: B's hi
+//      and lo fragments stay in registers for the whole block (4*NKS*NN:
+//      16 at d = 29, K = 4; 32 at d = 28, K = 16), so beta is never
+//      broadcast; x's A fragments are 32-bit shared loads (lane (g, t) reads
+//      row g, feature t: 32 distinct banks at d = 28, two lanes a bank at
+//      d = 29).  The three passes go to three accumulators, so that no
+//      product waits on the one before (on an H100, multiclass_variants.py:
+//      value-and-grad at K=4 0.564 ms against 0.595-0.603 ms with one).  Gradient G (16*NMT x 8*NN) += x^T . W (16
+//      rows): each tile's product starts from zero and is added to G's
+//      registers on the CUDA cores (where the warps wait for the tile's
+//      barrier anyway), since the tensor cores round their float32 sums
+//      toward zero; summed on them over a warp's ~5,200 rows of the fit's
+//      shape, that bias put the intercept's gradient 2.1e-5 of its Σ|terms|
+//      off.  (Added a group at a time, it measured slower at K=4.)
+//   3. Softmax terms in registers: the m16n8 accumulator puts a row's
+//      classes on the four lanes of a quad, so its max and its sum of exps
+//      are two xor-shuffles each; one __expf a class, reused for the weights
+//      mask*(e/sum - onehot); the loss mask*(lse - eta_y) is added on the
+//      lane that holds class y (lane t = 0 where y picks none), in registers,
+//      the same way in both variants.  The weights pass from the accumulator
+//      layout to the B operand's through a warp-private (16, SW) slab with
+//      __syncwarp only.  Padded classes (half the n-tile at K=4) get no max,
+//      no exp and weight 0; features past d read zeros in the forward and
+//      land in rows of G that are never written out; a tile's rows past its
+//      last are zeros with mask 0.
+//   The split's error: hi = TF32(v) keeps 11 significant bits, lo = v - hi
+//   is exact in float32 and read truncated to TF32 (under 2^-21 |v| lost),
+//   and lo*lo (under 2^-22 |a||b|) is dropped: each product is within ~2^-20
+//   of its value, far inside TOL = 1e-5 of Σ|terms|; one TF32 pass (2^-11)
+//   would not hold it (tests/test_torch_multiclass.py checks both).
+//   What bounds it now: the copy ring.  With the compute taken out it runs
+//   at 0.450 ms at K=4 (90% of the bound) and 0.046 ms at K=16 on an H100
+//   (multiclass_variants.py, variant `ring`).  The compute, counted a 16-row
+//   group at K=4, d=29: 32 x loads (~80 wavefronts with the bank
+//   conflicts above) and 24 MMAs, ~0.25 ms of shared memory over the
+//   5,208 groups a SM takes, overlaps the copies only in part, since a
+//   stage is held from its copy's issue to the end of its compute; the
+//   value-only variant (16 loads, 12 MMAs) pays ~0.035 ms over the ring,
+//   the gradient ~0.115 ms.  Past d = MN_MAX_D = 32 or K = MN_MAX_K = 16 (B's
+//   fragments past 32 registers, a row's logits past 4 a lane) tiled_kernel,
+//   the first design, takes over.
 //
 // Both: deterministic (per-block records summed in block order by
-// finalize_kernel; no float atomics); f has the same bits with and
+// finalize_kernel (OvR) or in a fixed lane order and shuffle tree by
+// mn_finalize_kernel (MN); no float atomics); f has the same bits with and
 // without the gradient; inactive lanes (OvR: a class of a shard; MN: a
 // shard) are not read and their f, g not written, and a lane's sums never
 // depend on which other lanes are active.  Past what a block's shared
-// memory holds (large d, or d*K for MN), row_kernel takes over: a block a
-// row at a time, a warp a class's dot, the gradient accumulated in the
-// block's record in global memory.  Row indices are 64-bit.
+// memory holds (large d, or d*K for MN's tiled_kernel), row_kernel takes
+// over: a block a row at a time, a warp a class's dot, the gradient
+// accumulated in the block's record in global memory.  Row indices are
+// 64-bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -118,21 +176,26 @@ constexpr int NW = T / 32;                 // warps per block
 constexpr int MIN_R = 8;                   // fewest rows a tile (S = 32)
 constexpr int KC = 4;                      // classes a float4 chunk
 constexpr int STAGES = 3;                  // OvR: tiles in the copy ring
-constexpr long long SMEM_BUDGET = 100 << 10;  // MN: staged bytes a block
+constexpr int MN_MAX_D = 32;               // MN: most features, and
+constexpr int MN_MAX_K = 16;               // classes, that mn_kernel holds in registers
+constexpr int MN_MAX_STAGES = 8;           // MN: most tiles in mn_kernel's ring
+constexpr long long MN_BUDGET = 112 << 10;    // MN: dynamic bytes of mn_kernel, two blocks a SM
+constexpr long long SMEM_BUDGET = 100 << 10;  // MN past mn_kernel: staged bytes a block
 constexpr long long OVR_BUDGET = 112 << 10;   // OvR: dynamic bytes a block, two blocks a SM
 constexpr long long SCRATCH_CAP = 1LL << 26;  // floats of block records
 
 enum { OVR = 0, MN = 1 };
 
 struct Plan {
-  long long path;      // 0: ovr_kernel / tiled_kernel, 1: row_kernel
+  long long path;      // 0: ovr_kernel / tiled_kernel, 1: row_kernel, 2: mn_kernel
   long long R;         // rows a tile
-  long long G;         // row groups of the gradient
+  long long G;         // row groups of the gradient (mn_kernel: tiles in its ring)
   long long blocks;    // blocks a shard (OvR: a shard and class group)
   long long smem;      // dynamic shared memory, bytes
   long long rec;       // floats of a block record: K * (d + 1)
   long long scratch;   // floats of scratch: P * blocks * rec
   long long aux;       // OvR: float4 class chunks a block (NCT); MN: row groups of the loss
+                       // (tiled_kernel) or n-tiles of 8 classes (mn_kernel)
 };
 static_assert(sizeof(Plan) == 8 * sizeof(long long), "Plan is 8 int64s");
 
@@ -626,52 +689,421 @@ __global__ void __launch_bounds__(T, 2) ovr_kernel(
 
 // --------------------------------------------------------------- K2-MN
 
-// K2-MN runs the MN instance of the first class-batched kernel, kept as it
-// was (its OvR branches are not instantiated: K2-OvR runs ovr_kernel).
-// Floats of tiled_kernel's dynamic shared memory, in the order laid out.
-long long staged_floats(int mode, int d, int K, int R, int G, int GL) {
-  const long long KL = mode == OVR ? K : 1, KP = padded(K), KS = row_stride(K);
-  return 2LL * (R * (long long)d + 4) + d * KP + 2LL * R * KS + R + (long long)G * K * d +
-         GL * KL + K;
+// v rounded to TF32 (round to nearest, ties away from zero), in a 32-bit
+// register as the tensor cores read it
+__device__ __forceinline__ unsigned to_tf32(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo: hi is v rounded to TF32, lo = v - hi exactly (float32),
+// which the tensor cores read truncated to TF32 (its low 13 bits dropped)
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  hi = to_tf32(v);
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// c += a*b, one m16n8k8 TF32 product with float32 sums
+__device__ __forceinline__ void mma8(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                     unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 3-pass split product c += a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, the
+// small terms first (a_lo*b_lo, below 2^-22 |a||b|, is left out).
+__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4], const unsigned (&bh)[2],
+                                     const unsigned (&bl)[2]) {
+  mma8(c, al, bh[0], bh[1]);
+  mma8(c, ah, bl[0], bl[1]);
+  mma8(c, ah, bh[0], bh[1]);
+}
+
+// The row stride of a warp's (16, SW) weight slab: an odd number of 8-float
+// runs, so that both its float2 stores (a row a quad) and its fragment
+// loads (8 classes of 4 rows) fall on 32 distinct banks.
+__host__ __device__ constexpr int mn_slab_stride(int nn) { return nn % 2 ? 8 * nn : 8 * nn + 8; }
+
+// Floats of mn_kernel's dynamic shared memory: the ring of S tiles (R*d + 4
+// floats of x, then the label and the mask run, R + 4 each), then a (16, SW)
+// weight slab a warp.  After the tile loop the ring holds the warps'
+// (NW, d, K) gradient totals.
+long long mn_floats(int R, int d, int nn, int S) {
+  return S * ovr_stage_floats(R, d, 1) + (long long)NW * 16 * mn_slab_stride(nn);
+}
+
+// The per-lane constants of a warp's 16-row groups (g = lane / 4, t = lane % 4).
+template <int NKS>
+struct MnLane {
+  static constexpr int NMT = (NKS + 1) / 2;  // 16-feature tiles of the gradient
+  int xa;          // forward: row g, feature t
+  int lo, hi;      // forward's last k-step: features 8*(NKS-1) + t (+ 4),
+                   // clamped below d, less t
+  bool lo_ok, hi_ok;
+  int gx[NMT][2];  // gradient: features 16*mt + g (+ 8), clamped below d
+};
+
+// One 16-row group of mn_kernel, a warp: the forward eta = x.B on the tensor
+// cores, the softmax terms in the registers of the quads that hold each row's
+// logits, and (GRAD) G += x^T.W.  x (16, d) rows of the stage at xg, their
+// labels at lab and mask at msk; FULL: all 16 rows are in the tile, else the
+// rows from nrows on are taken as zeros with mask 0.
+template <int NKS, int NN, bool GRAD, bool FULL>
+__device__ __forceinline__ void mn_group(const float* xg, const float* lab, const float* msk,
+                                         int d, int K, int nrows, const MnLane<NKS>& L,
+                                         const unsigned (&bh)[NKS][NN][2],
+                                         const unsigned (&bl)[NKS][NN][2], float* slab,
+                                         float (&G)[MnLane<NKS>::NMT][NN][4], float& lsum) {
+  constexpr int NMT = MnLane<NKS>::NMT, SW = mn_slab_stride(NN);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool va = FULL || g < nrows, vb = FULL || g + 8 < nrows;
+
+  // forward: A = rows (g, g + 8) x features (t, t + 4) of each k-step; the
+  // three passes in three accumulators, so that no product waits on another
+  float acc[NN][4], acc_hl[NN][4], acc_lh[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = acc_hl[n][c] = acc_lh[n][c] = 0.f;
+  const float* xa = xg + L.xa;
+  const float* xb = xa + 8 * d;
+#pragma unroll
+  for (int s = 0; s < NKS; ++s) {
+    float v[4];
+    if (s < NKS - 1) {
+      v[0] = xa[8 * s];
+      v[1] = xb[8 * s];
+      v[2] = xa[8 * s + 4];
+      v[3] = xb[8 * s + 4];
+    } else {  // past d: zeros (beta's rows there are zeros too)
+      v[0] = L.lo_ok ? xa[L.lo] : 0.f;
+      v[1] = L.lo_ok ? xb[L.lo] : 0.f;
+      v[2] = L.hi_ok ? xa[L.hi] : 0.f;
+      v[3] = L.hi_ok ? xb[L.hi] : 0.f;
+    }
+    if (!FULL) {
+      v[0] = va ? v[0] : 0.f;
+      v[2] = va ? v[2] : 0.f;
+      v[1] = vb ? v[1] : 0.f;
+      v[3] = vb ? v[3] : 0.f;
+    }
+    unsigned ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[i], al[i]);
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      mma8(acc_lh[n], al, bh[s][n][0], bh[s][n][1]);
+      mma8(acc_hl[n], ah, bl[s][n][0], bl[s][n][1]);
+      mma8(acc[n], ah, bh[s][n][0], bh[s][n][1]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] += acc_lh[n][c] + acc_hl[n][c];
+
+  // softmax terms: acc[n][2r + c] is row g + 8r's logit of class 8n + 2t + c;
+  // a row's classes lie on the four lanes of its quad
+  float w[NN][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float yv = lab[g + 8 * r];
+    const float mv = (r ? vb : va) ? msk[g + 8 * r] : 0.f;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (8 * n + 2 * t + c < K) mx = fmaxf(mx, acc[n][2 * r + c]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float e[NN][2], sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        e[n][c] = 8 * n + 2 * t + c < K ? __expf(acc[n][2 * r + c] - mx) : 0.f;
+        sum += e[n][c];
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float lse = mx + __logf(sum);
+    const int cy = class_index(yv, K);
+    // the row's loss mask*(lse - eta_y) on the lane that holds class y
+    // (lane t = 0 where y picks no class)
+    bool own = cy < 0 && t == 0;
+    float picked = 0.f;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (8 * n + 2 * t + c == cy) {
+          picked = acc[n][2 * r + c];
+          own = true;
+        }
+    if (own) lsum = fmaf(mv, lse - picked, lsum);
+    if (GRAD) {
+      const float inv = __frcp_rn(sum);
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int k = 8 * n + 2 * t + c;
+          w[n][2 * r + c] = k < K ? mv * (e[n][c] * inv - (k == cy ? 1.f : 0.f)) : 0.f;
+        }
+    }
+  }
+  if (!GRAD) return;
+
+  // the weights from the accumulator layout to the B operand's, through
+  // the warp's slab: B (8 rows, 8 classes) of k-step ks holds rows
+  // 8*ks + t and 8*ks + t + 4 of class 8n + g
+  __syncwarp();  // the previous group's slab loads are done
+#pragma unroll
+  for (int n = 0; n < NN; ++n) {
+    *reinterpret_cast<float2*>(slab + g * SW + 8 * n + 2 * t) = make_float2(w[n][0], w[n][1]);
+    *reinterpret_cast<float2*>(slab + (g + 8) * SW + 8 * n + 2 * t) =
+        make_float2(w[n][2], w[n][3]);
+  }
+  __syncwarp();
+  unsigned wh[2][NN][2], wl[2][NN][2];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        split_tf32(slab[(8 * ks + t + 4 * i) * SW + 8 * n + g], wh[ks][n][i], wl[ks][n][i]);
+
+  // gradient: A = x^T, features (g, g + 8) of each 16-feature tile x rows
+  // (t, t + 4) of each k-step; features past d land in G's rows past d,
+  // which are never written out
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    const int r0 = 8 * ks + t;
+    const float* x0 = xg + r0 * d;
+    const float* x1 = x0 + 4 * d;
+    const bool v0 = FULL || r0 < nrows, v1 = FULL || r0 + 4 < nrows;
+#pragma unroll
+    for (int mt = 0; mt < NMT; ++mt) {
+      float v[4] = {x0[L.gx[mt][0]], x0[L.gx[mt][1]], x1[L.gx[mt][0]], x1[L.gx[mt][1]]};
+      if (!FULL) {
+        v[0] = v0 ? v[0] : 0.f;
+        v[1] = v0 ? v[1] : 0.f;
+        v[2] = v1 ? v[2] : 0.f;
+        v[3] = v1 ? v[3] : 0.f;
+      }
+      unsigned ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[i], al[i]);
+#pragma unroll
+      for (int n = 0; n < NN; ++n) mma3(G[mt][n], ah, al, wh[ks][n], wl[ks][n]);
+    }
+  }
 }
 
 // Grid (blocks, P).  Block b of shard p takes the shard's row tiles b,
-// b + blocks, ... and writes its record bpart[(p*blocks + b)*K*(d + 1)]:
-// for each class k, (GRAD) its g at k*(d+1) + j and its f at k*(d+1) + d
-// (MN: the lane's f at d).  The classes go KC at a time through register
-// accumulators, which share each staged x value between them.
-template <int MODE, bool GRAD>
+// b + blocks, ... (R rows each, 16 a group, group q of a tile to warp
+// q % NW) through a ring of S stages, and writes its record
+// bpart[(p*blocks + b)*K*(d + 1)]: (GRAD) g of class k at k*(d+1) + j, f
+// at d.  NKS = ceil(d/8) k-steps of the forward, NN = ceil(K/8) n-tiles of
+// 8 classes.
+template <int NKS, int NN, bool GRAD>
+__global__ void __launch_bounds__(T, 2) mn_kernel(
+    const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ mask,
+    const float* __restrict__ beta, const unsigned char* __restrict__ active, long long P,
+    long long m, int d, int K, int R, int S, float* __restrict__ bpart) {
+  constexpr int NMT = MnLane<NKS>::NMT, SW = mn_slab_stride(NN);
+  const int p = blockIdx.y;
+  if (!active[p]) return;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) unsigned long long bar[MN_MAX_STAGES];
+  __shared__ float lred[NW];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int C = d + 1, yoff = R * d + 4, stage_floats = (int)ovr_stage_floats(R, d, 1);
+  float* slab = smem + S * stage_floats + warp * 16 * SW;
+
+  // B = beta[p] as (d, K): its B fragments, split, in registers for the
+  // whole block (zeros past d and past K)
+  unsigned bh[NKS][NN][2], bl[NKS][NN][2];
+  const float* bp = beta + (long long)p * d * K;
+#pragma unroll
+  for (int s = 0; s < NKS; ++s)
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int j = 8 * s + t + 4 * i, k = 8 * n + g;
+        split_tf32(j < d && k < K ? bp[j * K + k] : 0.f, bh[s][n][i], bl[s][n][i]);
+      }
+  MnLane<NKS> L;
+  L.xa = g * d + t;
+  L.lo = min(8 * (NKS - 1) + t, d - 1) - t;
+  L.hi = min(8 * (NKS - 1) + t + 4, d - 1) - t;
+  L.lo_ok = 8 * (NKS - 1) + t < d;
+  L.hi_ok = 8 * (NKS - 1) + t + 4 < d;
+#pragma unroll
+  for (int mt = 0; mt < NMT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) L.gx[mt][i] = min(16 * mt + g + 8 * i, d - 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(bar + s, T + 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const float* xl = x + (long long)p * m * d;
+  const float* yl = y + (long long)p * m;
+  const float* ml = mask + (long long)p * m;
+  const long long ntiles = (m + R - 1) / R, step = gridDim.x, t0 = blockIdx.x;
+  for (int i = 0; i < S; ++i) {
+    const long long tt = t0 + i * step;
+    if (tt < ntiles) {
+      const int rows = (int)min((long long)R, m - tt * R);
+      stage_tile(smem + i * stage_floats, bar + i, xl + tt * R * d, rows * d, yl + tt * R, 0,
+                 ml + tt * R, rows, R, 1, yoff, 1u);
+    }
+  }
+  // where a tile's runs sit in its stage: R*d and R are multiples of 4, so
+  // each run's offset from its 16-byte boundary is the same in every tile
+  const int x_at = misalign(xl), y_at = yoff + misalign(yl), m_at = yoff + R + 4 + misalign(ml);
+  const int groups = R / 16;
+
+  // the gradient: each tile's product on the tensor cores starts from zero
+  // (Gt) and is added to G on the CUDA cores, since the tensor cores round
+  // their float32 sums toward zero, a bias that would build up over a
+  // block's rows
+  float G[NMT][NN][4], Gt[NMT][NN][4], lsum = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < NMT; ++mt)
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) G[mt][n][c] = 0.f;
+
+  int s = 0;
+  unsigned parity = 0;
+  for (long long tt = t0; tt < ntiles; tt += step) {
+    const int rows = (int)min((long long)R, m - tt * R);
+    const float* buf = smem + s * stage_floats;
+    mbar_wait(bar + s, parity);
+#pragma unroll
+    for (int mt = 0; mt < NMT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) Gt[mt][n][c] = 0.f;
+#pragma unroll 1
+    for (int q = warp; q < groups; q += NW) {
+      const int r0 = 16 * q;
+      if (r0 >= rows) break;
+      const float *xg = buf + x_at + r0 * d, *lab = buf + y_at + r0, *msk = buf + m_at + r0;
+      if (r0 + 16 <= rows)
+        mn_group<NKS, NN, GRAD, true>(xg, lab, msk, d, K, 16, L, bh, bl, slab, Gt, lsum);
+      else
+        mn_group<NKS, NN, GRAD, false>(xg, lab, msk, d, K, rows - r0, L, bh, bl, slab, Gt, lsum);
+    }
+#pragma unroll
+    for (int mt = 0; mt < NMT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) G[mt][n][c] += Gt[mt][n][c];
+    __syncthreads();  // no warp reads this stage any more: the next copy goes into it
+    const long long tn = tt + S * step;
+    if (tn < ntiles) {
+      const int rn = (int)min((long long)R, m - tn * R);
+      stage_tile(smem + s * stage_floats, bar + s, xl + tn * R * d, rn * d, yl + tn * R, 0,
+                 ml + tn * R, rn, R, 1, yoff, 1u);
+    }
+    if (++s == S) {
+      s = 0;
+      parity ^= 1;
+    }
+  }
+
+  // the loss: a fixed shuffle tree a warp, then the warps in order (the
+  // same in both variants, so f has the same bits)
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
+  if (lane == 0) lred[warp] = lsum;
+  float* rec = bpart + ((long long)p * gridDim.x + blockIdx.x) * ((long long)K * C);
+  float* gred = smem;  // (NW, d, K), over the ring: every tile's copy has landed
+  if (GRAD) {
+#pragma unroll
+    for (int mt = 0; mt < NMT; ++mt)
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = 16 * mt + g + 8 * (c >> 1), k = 8 * n + 2 * t + (c & 1);
+          if (j < d && k < K) gred[(warp * d + j) * K + k] = G[mt][n][c];
+        }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = 0.f;
+    for (int w = 0; w < NW; ++w) sum += lred[w];
+    rec[d] = sum;
+  }
+  if (GRAD)
+    for (int e = threadIdx.x; e < d * K; e += T) {
+      const int j = e / K, k = e - j * K;
+      float sum = 0.f;
+      for (int w = 0; w < NW; ++w) sum += gred[(w * d + j) * K + k];
+      rec[k * C + j] = sum;
+    }
+}
+
+// Past mn_kernel's registers (d > MN_MAX_D or K > MN_MAX_K): the first
+// design.  A block stages R whole rows with 16-byte cp.async,
+// double-buffered; beta and the (row, class) tables keep the classes padded
+// to float4s (the tables' row stride an odd number of float4s).
+// Floats of its dynamic shared memory, in the order laid out.
+long long staged_floats(int d, int K, int R, int G, int GL) {
+  return 2LL * (R * (long long)d + 4) + d * (long long)padded(K) + 2LL * R * row_stride(K) + R +
+         (long long)G * K * d + GL;
+}
+
+// Grid (blocks, P).  Block b of shard p takes the shard's row tiles b,
+// b + blocks, ... and writes its record as mn_kernel does.  Forward: S =
+// 256/R threads a row, KC classes at a time in registers, joined by an
+// xor-shuffle tree into the (row, class) table; a thread a row for the
+// softmax terms; the gradient a (row group, feature) owner with KC classes
+// in registers a tile, added to shared-memory totals; the loss its own row
+// groups in both variants.
+template <bool GRAD>
 __global__ void __launch_bounds__(T) tiled_kernel(
     const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ mask,
     const float* __restrict__ beta, const unsigned char* __restrict__ active, long long P,
     long long m, int d, int K, int R, int G, int GL, float* __restrict__ bpart) {
   const int p = blockIdx.y;
-  if (!shard_on<MODE>(active, P, p, K)) return;
+  if (!active[p]) return;
   extern __shared__ __align__(16) float smem[];
-  const int C = d + 1, KL = MODE == OVR ? K : 1, KP = padded(K), KS = row_stride(K);
+  const int C = d + 1, KP = padded(K), KS = row_stride(K);
   const int tile_floats = R * d + 4;
-  // beta_s and the (row, class) tables keep KP and KS floats a feature or
-  // row, so that KC classes are one 16-byte load (every offset here is a
-  // multiple of 4 floats)
+  // every offset here is a multiple of 4 floats
   float* beta_s = smem + 2 * tile_floats;  // (d, KP)
   float* w_s = beta_s + d * KP;            // (R, KS): the logits, then the weights
-  float* ly_s = w_s + R * KS;              // (R, KS) OvR, (R,) MN: targets, then losses
+  float* ly_s = w_s + R * KS;              // (R,): the labels, then the losses
   float* m_s = ly_s + R * KS;              // R
   float* gacc = m_s + R;                   // (G, K, d) gradient totals
-  float* lacc = gacc + G * K * d;          // (GL, KL) loss totals
-  float* on_s = lacc + GL * KL;            // K: 1 where the class is computed
+  float* lacc = gacc + G * K * d;          // (GL,) loss totals
 
   const int S = T / R, r_own = threadIdx.x / S, s_own = threadIdx.x - r_own * S;
-  for (int k = threadIdx.x; k < K; k += T) on_s[k] = class_on<MODE>(active, P, p, k) ? 1.f : 0.f;
   for (int e = threadIdx.x; e < KP * d; e += T) {
-    const int k = MODE == OVR ? e / d : e % KP;
-    const int j = MODE == OVR ? e - k * d : e / KP;
-    const bool on = k < K && class_on<MODE>(active, P, p, k);
-    beta_s[j * KP + k] = on ? beta[beta_at<MODE>(P, p, d, K, k, j)] : 0.f;
+    const int k = e % KP, j = e / KP;
+    beta_s[j * KP + k] = k < K ? beta[((long long)p * d + j) * K + k] : 0.f;
   }
   if (GRAD)
     for (int e = threadIdx.x; e < G * K * d; e += T) gacc[e] = 0.f;
-  for (int e = threadIdx.x; e < GL * KL; e += T) lacc[e] = 0.f;
+  for (int e = threadIdx.x; e < GL; e += T) lacc[e] = 0.f;
   __syncthreads();
 
   const float* xl = x + (long long)p * m * d;
@@ -691,21 +1123,13 @@ __global__ void __launch_bounds__(T) tiled_kernel(
     cp_async_commit();
     const long long r0 = t * R;
     const int rows = (int)min((long long)R, m - r0);
-    if (MODE == OVR) {
-      for (int e = threadIdx.x; e < K * R; e += T) {
-        const int k = e / R, r = e - k * R;
-        if (r < rows && on_s[k] != 0.f) ly_s[r * KS + k] = y[((long long)k * P + p) * m + r0 + r];
-      }
-    } else {
-      for (int r = threadIdx.x; r < rows; r += T) ly_s[r] = y[(long long)p * m + r0 + r];
-    }
+    for (int r = threadIdx.x; r < rows; r += T) ly_s[r] = y[(long long)p * m + r0 + r];
     for (int r = threadIdx.x; r < rows; r += T) m_s[r] = ml[r0 + r];
     cp_async_wait_prior();
     __syncthreads();
     const float* xs = smem + cur * tile_floats + misalign(xl + r0 * d);
 
-    // forward: the (row, class) logits, S threads a row, KC classes at a
-    // time (a class that is off has zero beta and is not used)
+    // forward: the (row, class) logits, S threads a row, KC classes at a time
     for (int k0 = 0; k0 < K; k0 += KC) {
       float acc[KC];
 #pragma unroll
@@ -733,19 +1157,9 @@ __global__ void __launch_bounds__(T) tiled_kernel(
     }
     __syncthreads();
 
-    // row terms: loss and weight of each (row, class)
-    if (MODE == OVR) {
-      for (int e = threadIdx.x; e < rows * K; e += T) {
-        const int r = e / K, k = e - r * K, i = r * KS + k;
-        if (on_s[k] == 0.f) continue;
-        const RowTerms rt = logistic_terms(w_s[i], ly_s[i], m_s[r]);
-        ly_s[i] = rt.loss;
-        w_s[i] = rt.w;
-      }
-    } else {
-      for (int r = threadIdx.x; r < rows; r += T)
-        ly_s[r] = softmax_terms(w_s + r * KS, K, ly_s[r], m_s[r]);
-    }
+    // row terms: the row's loss and weights
+    for (int r = threadIdx.x; r < rows; r += T)
+      ly_s[r] = softmax_terms(w_s + r * KS, K, ly_s[r], m_s[r]);
     __syncthreads();
 
     // gradient: thread (group q, feature j) over rows q, q + G, ..., KC
@@ -772,14 +1186,12 @@ __global__ void __launch_bounds__(T) tiled_kernel(
         }
       }
     }
-    // loss: thread (group q, loss column) over rows q, q + GL, ...; the
-    // same in both variants, so f has the same bits
-    for (int e = threadIdx.x; e < GL * KL; e += T) {
-      const int q = e / KL, k = e - q * KL;
-      if (on_s[k] == 0.f) continue;
+    // loss: thread q over rows q, q + GL, ...; the same in both variants,
+    // so f has the same bits
+    for (int q = threadIdx.x; q < GL; q += T) {
       float acc = 0.f;
-      for (int r = q; r < rows; r += GL) acc += ly_s[MODE == OVR ? r * KS + k : r];
-      lacc[e] += acc;
+      for (int r = q; r < rows; r += GL) acc += ly_s[r];
+      lacc[q] += acc;
     }
     __syncthreads();  // this tile's buffer and tables are free for the next tile
   }
@@ -793,10 +1205,10 @@ __global__ void __launch_bounds__(T) tiled_kernel(
       rec[k * C + j] = s;
     }
   }
-  for (int k = threadIdx.x; k < KL; k += T) {
+  if (threadIdx.x == 0) {
     float s = 0.f;
-    for (int q = 0; q < GL; ++q) s += lacc[q * KL + k];
-    rec[k * C + d] = s;
+    for (int q = 0; q < GL; ++q) s += lacc[q];
+    rec[d] = s;
   }
 }
 
@@ -885,9 +1297,33 @@ __global__ void __launch_bounds__(T) row_kernel(
   }
 }
 
-// For each active lane: f and (grad) g summed over the shard's block
-// records, in block order.  Grid (ceil(K*(d+1)/256), P).
-template <int MODE>
+// K2-MN: for each active shard, f and (grad) g summed over the shard's
+// block records, a warp an element: lane l takes records l, l + 32, ... in
+// order, then a fixed xor-shuffle tree.  Grid (ceil(K*(d+1)/NW), P).
+__global__ void __launch_bounds__(T) mn_finalize_kernel(const float* __restrict__ bpart,
+                                                        const unsigned char* __restrict__ active,
+                                                        int blocks, int d, int K, int grad,
+                                                        float* __restrict__ f,
+                                                        float* __restrict__ g) {
+  const int p = blockIdx.y, C = d + 1, e = blockIdx.x * NW + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, k = e / C, j = e - k * C;
+  if (e >= K * C || !active[p] || (j == d ? k > 0 : !grad)) return;  // warp-uniform
+  const long long rec = (long long)K * C;
+  const float* shard = bpart + (long long)p * blocks * rec + e;
+  float s = 0.f;
+  for (int b = lane; b < blocks; b += 32) s += shard[b * rec];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) {
+    if (j == d)
+      f[p] = s;
+    else
+      g[((long long)p * d + j) * K + k] = s;
+  }
+}
+
+// K2-OvR: for each active lane, f and (grad) g summed over the shard's
+// block records, in block order.  Grid (ceil(K*(d+1)/256), P).
 __global__ void finalize_kernel(const float* __restrict__ bpart,
                                 const unsigned char* __restrict__ active, long long P, int blocks,
                                 int d, int K, int grad, float* __restrict__ f,
@@ -897,15 +1333,15 @@ __global__ void finalize_kernel(const float* __restrict__ bpart,
   const float* shard = bpart + (long long)p * blocks * rec;
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < K * C; e += gridDim.x * blockDim.x) {
     const int k = e / C, j = e - k * C;
-    const long long l = MODE == OVR ? (long long)k * P + p : p;
+    const long long l = (long long)k * P + p;
     if (!active[l]) continue;
-    if (j == d ? (MODE == MN && k > 0) : !grad) continue;
+    if (j != d && !grad) continue;
     float s = 0.f;
     for (int b = 0; b < blocks; ++b) s += shard[(long long)b * rec + e];
     if (j == d)
       f[l] = s;
     else
-      g[MODE == OVR ? l * d + j : ((long long)p * d + j) * K + k] = s;
+      g[l * d + j] = s;
   }
 }
 
@@ -945,7 +1381,7 @@ int tile_rows(int mode, int d, int K, int* G) {
   for (int r = T; r >= MIN_R; r >>= 1) {
     const int g = row_groups((d + f - 1) / f, r);
     const long long bytes = mode == OVR ? 4 * ovr_floats(r, d, K, g)
-                                        : 4 * staged_floats(MN, d, K, r, g, row_groups(1, r));
+                                        : 4 * staged_floats(d, K, r, g, row_groups(1, r));
     if (bytes <= (mode == OVR ? OVR_BUDGET : SMEM_BUDGET)) {
       *G = g;
       return r;
@@ -967,11 +1403,43 @@ OvrKern ovr_instance(int nct, int R) {
   return nch == 1 ? ovr_kernel<4, 1, GRAD> : (nch == 2 ? ovr_kernel<4, 2, GRAD> : ovr_kernel<4, 4, GRAD>);
 }
 
+typedef void (*MnKern)(const float*, const float*, const float*, const float*,
+                       const unsigned char*, long long, long long, int, int, int, int, float*);
+
+// The mn_kernel instance for d features and K classes (d <= MN_MAX_D,
+// K <= MN_MAX_K): ceil(d/8) k-steps, ceil(K/8) n-tiles.
+template <bool GRAD>
+MnKern mn_instance(int d, int K) {
+  static const MnKern one[4] = {mn_kernel<1, 1, GRAD>, mn_kernel<2, 1, GRAD>,
+                                mn_kernel<3, 1, GRAD>, mn_kernel<4, 1, GRAD>};
+  static const MnKern two[4] = {mn_kernel<1, 2, GRAD>, mn_kernel<2, 2, GRAD>,
+                                mn_kernel<3, 2, GRAD>, mn_kernel<4, 2, GRAD>};
+  return (K + 7) / 8 == 1 ? one[(d + 7) / 8 - 1] : two[(d + 7) / 8 - 1];
+}
+
 cudaError_t plan_mode(int mode, int dev, long long m, int d, int K, Plan* p, long long* units,
                       int* per_sm) {
+  cudaError_t err;
+  if (mode == MN && d <= MN_MAX_D && K <= MN_MAX_K) {
+    // 256-row tiles (two groups a warp) where three of them fit the budget,
+    // else 128; as many stages as fit
+    const int nn = (K + 7) / 8;
+    const long long slab = 4LL * NW * 16 * mn_slab_stride(nn);
+    int R = 2 * 16 * NW;
+    if ((MN_BUDGET - slab) / (4 * ovr_stage_floats(R, d, 1)) < 3) R /= 2;
+    const long long S = (MN_BUDGET - slab) / (4 * ovr_stage_floats(R, d, 1));
+    p->path = 2;
+    p->R = R;
+    p->G = S < MN_MAX_STAGES ? S : MN_MAX_STAGES;
+    p->aux = nn;
+    p->smem = 4 * mn_floats(R, d, nn, (int)p->G);
+    err = occupancy2(mn_instance<true>(d, K), mn_instance<false>(d, K), dev, (size_t)p->smem,
+                     per_sm);
+    *units = (m + R - 1) / R;
+    return err;
+  }
   int G = 1;
   const int R = tile_rows(mode, d, K, &G);
-  cudaError_t err;
   p->G = G;
   if (R > 0) {
     p->path = 0;
@@ -984,9 +1452,8 @@ cudaError_t plan_mode(int mode, int dev, long long m, int d, int K, Plan* p, lon
                        (size_t)p->smem, per_sm);
     } else {
       p->aux = row_groups(1, R);
-      p->smem = 4 * staged_floats(MN, d, K, R, G, (int)p->aux);
-      err = occupancy2(tiled_kernel<MN, true>, tiled_kernel<MN, false>, dev, (size_t)p->smem,
-                       per_sm);
+      p->smem = 4 * staged_floats(d, K, R, G, (int)p->aux);
+      err = occupancy2(tiled_kernel<true>, tiled_kernel<false>, dev, (size_t)p->smem, per_sm);
     }
     *units = (m + R - 1) / R;
   } else {
@@ -1019,14 +1486,15 @@ void launch(const Plan& p, const float* x, const float* y, const float* mask, co
     const OvrKern kern = grad ? ovr_instance<true>((int)p.aux, (int)p.R)
                               : ovr_instance<false>((int)p.aux, (int)p.R);
     kern<<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, (int)p.R, (int)p.G, bpart);
+  } else if (p.path == 2) {
+    const MnKern kern = grad ? mn_instance<true>(d, K) : mn_instance<false>(d, K);
+    kern<<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, (int)p.R, (int)p.G, bpart);
   } else if (p.path == 0) {
     const int R = (int)p.R, G = (int)p.G, GL = (int)p.aux;
     if (grad)
-      tiled_kernel<MN, true><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, R, G, GL,
-                                                   bpart);
+      tiled_kernel<true><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, R, G, GL, bpart);
     else
-      tiled_kernel<MN, false><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, R, G, GL,
-                                                    bpart);
+      tiled_kernel<false><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, R, G, GL, bpart);
   } else {
     if (grad)
       row_kernel<MODE, true><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, bpart);
@@ -1096,11 +1564,11 @@ int multiclass_value_and_grad(int mode, const void* x, const void* y, const void
   const int cols = K * (d + 1);
   const dim3 fgrid((unsigned)((cols + 255) / 256), (unsigned)P);
   if (mode == OVR)
-    finalize_kernel<OVR><<<fgrid, 256, 0, s>>>(bpart, act, P, (int)p.blocks, d, K, grad,
-                                               (float*)f, (float*)g);
+    finalize_kernel<<<fgrid, 256, 0, s>>>(bpart, act, P, (int)p.blocks, d, K, grad, (float*)f,
+                                          (float*)g);
   else
-    finalize_kernel<MN><<<fgrid, 256, 0, s>>>(bpart, act, P, (int)p.blocks, d, K, grad,
-                                              (float*)f, (float*)g);
+    mn_finalize_kernel<<<dim3((unsigned)((cols + NW - 1) / NW), (unsigned)P), T, 0, s>>>(
+        bpart, act, (int)p.blocks, d, K, grad, (float*)f, (float*)g);
   return (int)cudaGetLastError();
 }
 

@@ -306,7 +306,9 @@ def _multiclass_magnitudes(mode, x, y, mask, beta):
         return f_mag, torch.einsum("kpm,pmd->kpd", w, x.abs()).reshape(K * P, d)
     K = beta.shape[1] // d
     eta = torch.einsum("pmd,pdk->pmk", x, beta.view(P, d, K))
-    onehot = torch.nn.functional.one_hot(y.long(), K).double()
+    c = y.long()  # truncation; a label outside [0, K) picks no class
+    onehot = torch.nn.functional.one_hot(c.clamp(0, K - 1), K).double()
+    onehot *= ((c >= 0) & (c < K))[..., None]
     f_mag = (mask * (torch.logsumexp(eta, 2).abs() + (eta * onehot).sum(2).abs())).sum(1)
     w = (mask[:, :, None] * (torch.softmax(eta, 2) - onehot)).abs()
     return f_mag, torch.einsum("pmd,pmk->pdk", x.abs(), w).reshape(P, d * K)
@@ -327,23 +329,68 @@ _MC = {"ovr": (multiclass.logistic_ovr_value_and_grad, multiclass.logistic_ovr_v
     # fewer rows than a tile, K = 1, 5 and 16, more gradient columns than
     # threads (d = 600 at K = 16)
     (3, 1001, 29, 4), (2, 1002, 28, 16), (4, 1003, 29, 5), (2, 37, 29, 3), (3, 1000, 29, 1),
-    (2, 1000, 29, 16), (2, 301, 300, 5), (2, 301, 600, 16)])
+    (2, 1000, 29, 16), (2, 301, 300, 5), (2, 301, 600, 16),
+    # K2-MN's tensor-core path: one whole n-tile of 8 classes and one class
+    # past it, d = 1..7 mod 8 at the main path's m (the padded features of
+    # the last k-step), and m below 16 rows and below a tile
+    (2, 1001, 29, 8), (2, 1001, 29, 9), (2, 1375000, 25, 4), (2, 1375000, 26, 4),
+    (2, 1375000, 27, 4), (2, 1375000, 28, 4), (2, 1375000, 29, 4), (2, 1375000, 30, 4),
+    (2, 1375000, 31, 4), (3, 5, 29, 4), (2, 13, 28, 16), (2, 200, 28, 16)])
 def test_multiclass_matches_plain_version(cuda, mode, P, m, d, K):
     vg, v, ref = _MC[mode]
     x, y, mask, beta, lanes = _multiclass_inputs(mode, P, m, d, K, P * m + d + K, cuda)
     for active in (None, torch.arange(lanes, device=cuda) % 3 != 1):
-        f, g = vg(x, y, mask, beta, active)
-        fv = v(x, y, mask, beta, active)
-        again = vg(x, y, mask, beta, active)
-        torch.cuda.synchronize()
-        on = torch.ones(lanes, dtype=torch.bool, device=cuda) if active is None else active
-        assert not bool(f[~on].any()) and not bool(g[~on].any()) and not bool(fv[~on].any())
-        assert torch.equal(f, fv)  # both variants compute f the same way
-        assert torch.equal(f, again[0]) and torch.equal(g, again[1])
-        rf, rg = ref(x.double(), y.double(), mask.double(), beta.double())
-        f_mag, g_mag = _multiclass_magnitudes(mode, x, y, mask, beta)
-        assert bool(((f.double() - rf).abs()[on] <= TOL * f_mag[on] + 1e-6).all())
-        assert bool(((g.double() - rg).abs()[on] <= TOL * g_mag[on] + 1e-6).all())
+        _hold_multiclass(mode, x, y, mask, beta, lanes, active, cuda)
+
+
+def _hold_multiclass(mode, x, y, mask, beta, lanes, active, device):
+    """Both variants against the float64 plain version within TOL of
+    Σ|terms|; the same f from both, the same bits again, inactive lanes
+    unwritten."""
+    vg, v, ref = _MC[mode]
+    f, g = vg(x, y, mask, beta, active)
+    fv = v(x, y, mask, beta, active)
+    again = vg(x, y, mask, beta, active)
+    torch.cuda.synchronize()
+    on = torch.ones(lanes, dtype=torch.bool, device=device) if active is None else active
+    assert not bool(f[~on].any()) and not bool(g[~on].any()) and not bool(fv[~on].any())
+    assert torch.equal(f, fv)  # both variants compute f the same way
+    assert torch.equal(f, again[0]) and torch.equal(g, again[1])
+    rf, rg = ref(x.double(), y.double(), mask.double(), beta.double())
+    f_mag, g_mag = _multiclass_magnitudes(mode, x, y, mask, beta)
+    assert bool(((f.double() - rf).abs()[on] <= TOL * f_mag[on] + 1e-6).all())
+    assert bool(((g.double() - rg).abs()[on] <= TOL * g_mag[on] + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,m,d,K", [(2, 3001, 29, 4), (2, 1003, 28, 16), (3, 777, 29, 9)])
+def test_multinomial_labels_masks_and_large_logits(cuda, P, m, d, K):
+    """K2-MN with labels outside [0, K) (-1 and K pick no class, 2.7
+    truncates to 2), rows with mask 0 and logits of |η| up to ~80, where an
+    unshifted exp would overflow float32."""
+    x, y, mask, beta, lanes = _multiclass_inputs("mn", P, m, d, K, P * m + d, cuda)
+    y[:, ::7] = -1.0
+    y[:, 3::7] = float(K)
+    y[:, 5::7] = 2.7
+    beta *= 80.0 / 3.0  # η = x·β has a standard deviation near 27
+    assert float((torch.einsum("pmd,pdk->pmk", x, beta.view(P, d, K))).abs().max()) > 80.0
+    for active in (None, torch.arange(lanes, device=cuda) != 1):
+        _hold_multiclass("mn", x, y, mask, beta, lanes, active, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,m,d,K", [(8, 1375000, 29, 4), (1, 1000000, 28, 16)])
+def test_multinomial_intercept_column_at_the_fit_shapes(cuda, P, m, d, K):
+    """K2-MN at the multinomial fits' shapes with a column of ones (the
+    intercept) and every row unmasked: that column's gradient is the sum of
+    the weights themselves, a large share of its Σ|terms|, so a sum whose
+    rounding leans one way over a block's rows shows there first.  Class 0
+    takes 70% of the rows, so that its weights mostly share a sign."""
+    x, y, mask, beta, lanes = _multiclass_inputs("mn", P, m, d, K, d * K, cuda)
+    x[:, :, -1] = 1.0
+    mask.fill_(1.0)
+    y[torch.rand(P, m, device=cuda) < 0.7] = 0.0
+    _hold_multiclass("mn", x, y, mask, beta, lanes, None, cuda)
 
 
 @pytest.mark.cuda

@@ -108,7 +108,11 @@ def test_ovr_inactive_lanes_are_zero_and_the_active_ones_unchanged():
 # ------------------------------------------------------------------- K2-MN
 
 @pytest.mark.parametrize("P,m,d,K", [(1, 1001, 3, 3), (8, 137, 13, 4), (3, 77, 1, 2),
-                                     (2, 50, 30, 16)])
+                                     (2, 50, 30, 16),
+                                     # the widths of the kernel's tensor-core path: one
+                                     # n-tile of 8 classes, one class past it, two n-tiles
+                                     (2, 77, 28, 8), (2, 77, 29, 8), (2, 77, 28, 9),
+                                     (2, 77, 29, 9), (2, 77, 28, 16), (2, 77, 29, 16)])
 def test_multinomial_plain_version_matches_reference(P, m, d, K):
     rng = np.random.RandomState(P * m + d + K)
     x = rng.standard_normal((P, m, d)).astype(np.float32)
@@ -264,3 +268,82 @@ def test_lbfgs_minimize_leaves_inactive_lanes_alone():
     assert torch.equal(x[~active], x0[~active]) and not bool(st.k[~active].any())
     both, _ = lbfgs_minimize(fun, x0, max_iter=10, tol=1e-6)
     assert torch.equal(x[active], both[active])
+
+
+# --------------------------------------------- K2-MN's 3-pass TF32 products
+
+TOL = 1e-5  # the card tests' tolerance: 1e-5 of each element's Σ|terms|
+
+
+def _tf32(a):
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: the mantissa
+    to 10 bits, to nearest with ties away from zero."""
+    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _truncated(a):
+    """float32 as the tensor cores read a TF32 operand: the low 13 bits
+    dropped."""
+    return (a.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tensor_core_product(a, b, passes):
+    """a @ b of float32 operands as K2-MN's tensor cores take it: each
+    operand split into hi = TF32(v) and lo = v - hi (read truncated), the
+    products exact (float64 here); 3 passes sum lo·hi + hi·lo + hi·hi, 1
+    pass hi·hi alone."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah.double() @ bh.double()
+    if passes == 3:
+        al, bl = _truncated(a - ah), _truncated(b - bh)
+        out = out + al.double() @ bh.double() + ah.double() @ bl.double()
+    return out
+
+
+def _multinomial_by_tensor_cores(x, y, mask, beta, passes):
+    """η, f and g of one shard with both class products (η = x·B and
+    g = xᵀ·W, W the float32 weights) taken as the kernel takes them."""
+    d = x.shape[1]
+    K = beta.shape[0] // d
+    eta = _tensor_core_product(x, beta.view(d, K), passes)
+    onehot = torch.nn.functional.one_hot(y.long(), K).double()
+    m = mask.double()
+    f = torch.sum(m * (torch.logsumexp(eta, 1) - torch.sum(eta * onehot, 1)))
+    w = (m[:, None] * (torch.softmax(eta, 1) - onehot)).float()
+    return eta, f, _tensor_core_product(x.T.contiguous(), w, passes).reshape(-1)
+
+
+@pytest.mark.parametrize("d,K", [(29, 4), (28, 16)])
+def test_multinomial_three_pass_split_holds_the_tolerance(d, K):
+    """The kernel's hi/lo split of both class products holds η, f and g to
+    TOL of their Σ|terms| against float64, at phase 7's magnitudes (x and
+    the softmax stand-in's W standard normal, the intercept column at
+    d = 29), where a single TF32 pass (about 11 bits) misses that bound."""
+    rng = np.random.RandomState(d * K)
+    m = 256
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    if d == 29:
+        x[:, -1] = 1.0
+    beta = rng.standard_normal(d * K).astype(np.float32)
+    y = rng.randint(0, K, size=m).astype(np.float32)
+    mask = _masked(rng, 1, m)[0]
+    x, y, mask, beta = (torch.from_numpy(a) for a in (x, y, mask, beta))
+    xd, md = x.double(), mask.double()
+    eta = xd @ beta.double().view(d, K)
+    eta_mag = xd.abs() @ beta.double().abs().view(d, K)
+    rf, rg = multiclass.multinomial_value_and_grad_ref(xd[None], y[None].double(), md[None],
+                                                       beta.double()[None])
+    onehot = torch.nn.functional.one_hot(y.long(), K).double()
+    f_mag = torch.sum(md * (torch.logsumexp(eta, 1).abs() + torch.sum(eta * onehot, 1).abs()))
+    w = md[:, None] * (torch.softmax(eta, 1) - onehot)
+    g_mag = (xd.abs().T @ w.abs()).reshape(-1)
+
+    def worst(passes):
+        e, f, g = _multinomial_by_tensor_cores(x, y, mask, beta, passes)
+        return (float(((e - eta).abs() / eta_mag).max()), float((f - rf[0]).abs() / f_mag),
+                float(((g - rg[0]).abs() / g_mag).max()))
+
+    three, one = worst(3), worst(1)
+    assert max(three) <= TOL, three
+    assert one[0] > TOL and one[2] > TOL, one
+
