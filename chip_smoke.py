@@ -74,8 +74,30 @@ Phases, in order; any failure exits non-zero:
    (K=4) informational comparisons, with each call's launch plan (K2-MN in
    both variants at both shapes, with the MN kernel's and finalize's own
    device time from a short profiler window beside the CUDA-event time);
-   and ``dryrun_multichip(8)`` on the card.  Then the ``kernels`` line, the
-   card line and the result.
+   and ``dryrun_multichip(8)`` on the card.
+8. K2's other families (Normal, Poisson) and its bf16 variants.  8a: the
+   variants of ``GLM_VARIANTS`` (Normal and Poisson in float32 and bf16,
+   Logistic in bf16) against their plain versions at ``GLM_SHAPES`` (bf16
+   lane bases off 16-byte boundaries, fewer rows than a tile, d = 1, 130
+   and 2000), lane 1 inactive, masks weighted in [0, 3], Poisson at |η| up
+   to 80.  8c, full-width fits at the HIGGS width (11M x 28, 8 shards,
+   nothing cut): the phase-6 estimator on the HIGGS stand-in in bf16
+   (accuracy within 1e-3 of phase 6's float32 fit, cosine to w >= 0.999);
+   ``LogisticRegression`` by ``gradient_descent`` (20 iterations),
+   ``proximal_grad`` with L1 (20) and ``newton`` (5) on the float32
+   stand-in (accuracy >= 0.98 of phase 6's); ``LinearRegression("admm")``
+   on a Normal stand-in (X, w ~ N(0, 1), y = Xw + N(0, 1); cosine to w >=
+   0.9999) and ``PoissonRegression("lbfgs")`` on a Poisson stand-in (X ~
+   N(0, 1), w ~ N(0, 0.1²), y ~ Poisson(exp(Xw)); cosine >= 0.999), each in
+   float32 and bf16.  Each fit prints its host time, ``n_iter_``, launches
+   by wrapper, host syncs and peak memory, and runs again through the
+   plain versions (equal ``n_iter_``, ‖Δβ‖∞ <= 1e-3·‖β‖∞); one fit of each
+   family is profiled for its idle share.  8b: each variant at the main
+   path's shape (8, 1.375M, 29) held against its plain version, then timed
+   (CUDA events over 20 launches) beside its plain version (3 runs), its
+   bound by bytes and the ``torch.bmm`` pair (informational), with K2
+   float32 logistic timed again there as the control.  Then the
+   ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -143,6 +165,18 @@ MC_CLASSES = 4
 AB_ROWS = 1_000_000
 AB_CLASSES = (4, 16)
 AB_ITERS = 20
+# phase 8: K2's other families and its bf16 variants, (family, x dtype)
+GLM_VARIANTS = (("normal", "float32"), ("normal", "bfloat16"), ("poisson", "float32"),
+                ("poisson", "bfloat16"), ("logistic", "bfloat16"))
+# (P, m, d) of 8a: m = 1001, 1002, 1003 put bf16 lane bases (58-byte rows at
+# d = 29) off 16-byte boundaries, m = 37 is less than a tile, d = 1 and 130
+# change the rows a tile, d = 2000 takes row_kernel; lane 1 inactive
+GLM_SHAPES = ((3, 1001, 29), (3, 1002, 29), (3, 1003, 29), (2, 37, 29), (3, 777, 1),
+              (2, 4097, 130), (2, 300, 2000))
+GLM_ETA_MAX = 80.0  # Poisson's largest |η| in 8a: exp stays finite in float32
+GLM_WRAPPERS = ("logistic_value_and_grad", "logistic_value", "normal_value_and_grad",
+                "normal_value", "poisson_value_and_grad", "poisson_value")
+SOLVER_ITERS = {"gradient_descent": 20, "proximal_grad": 20, "newton": 5}
 
 
 def log(msg: str) -> None:
@@ -158,7 +192,8 @@ def card_line() -> str:
 
 def ptxas_lines(report):
     """Each kernel's registers and spills from ``nvcc -Xptxas -v``, named
-    by its kernel and tile (``assign_kernel<8,8,16,...>``)."""
+    by its kernel and tile (``assign_kernel<8,8,16,...>``), K2's by its
+    family and element type (``tiled_kernel<Poisson,bf16,1>``)."""
     name, out = "?", []
     for line in report.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -166,6 +201,9 @@ def ptxas_lines(report):
             mangled = m.group(1)
             kern = re.search(r"\d([a-z_]+_kernel)", mangled)
             tile = re.findall(r"L[bi](\d+)E", mangled)
+            family = re.search(r"\d(Logistic|Normal|Poisson)E", mangled)  # K2's functor
+            if family:
+                tile = [family.group(1), "bf16" if "nv_bfloat16" in mangled else "f32"] + tile
             name = (kern.group(1) if kern else mangled) + (f"<{','.join(tile)}>" if tile else "")
         elif "registers" in line or "spill" in line:
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
@@ -1458,6 +1496,356 @@ def multiclass_phase(torch, multiclass, logistic, algorithms, device, card):
     log(f"phase 7: dryrun_multichip({HIGGS_SHARDS}) on the card ran {len(ran)} sections")
     return out
 
+
+# ------------------------------------------------------------------ phase 8
+
+
+def glm_inputs(torch, family, P, m, d, seed, device, dtype):
+    """x (float32 or bf16), y fitting the family (0/1, real, counts), a
+    weighted mask in [0, 3] with zeros, β (Poisson: scaled to |η| up to
+    GLM_ETA_MAX), and ``active`` with lane 1 off."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(P, m, d, generator=gen, device=device).to(dtype)
+    beta = torch.randn(P, d, generator=gen, device=device) / d ** 0.5
+    if family == "logistic":
+        y = (torch.rand(P, m, generator=gen, device=device) < 0.4).float()
+    elif family == "normal":
+        y = 3.0 * torch.randn(P, m, generator=gen, device=device)
+    else:
+        y = torch.poisson(torch.full((P, m), 2.0, device=device), generator=gen)
+        eta = torch.einsum("pmd,pd->pm", x.float(), beta)
+        beta = beta * (GLM_ETA_MAX / eta.abs().amax(dim=1, keepdim=True))
+    mask = 3.0 * torch.rand(P, m, generator=gen, device=device)
+    mask[torch.rand(P, m, generator=gen, device=device) < 0.1] = 0.0
+    active = torch.ones(P, dtype=torch.bool, device=device)
+    active[1] = False
+    return x, y, mask, beta, active
+
+
+def glm_magnitudes(torch, family, x, y, mask, beta):
+    """Σ|terms| of f and of each g element in float64, lane by lane, with
+    each row's η rounding carried through the loss: a row adds |ℓ'(η)|·s
+    to f's and |w'(η)|·s·|x| to g's, s = Σ_j |x_j β_j| (the scale of the
+    float32 rounding of η's dot in any order).  At Poisson's |η| ~ 80 one
+    row's exp(η) is most of the sum, so that rounding, times exp'(η) =
+    exp(η), is what the two summation orders differ by."""
+    f_mag, g_mag = [], []
+    for p in range(x.shape[0]):
+        xp, yp, mp = x[p].double(), y[p].double(), mask[p].double()
+        eta = xp @ beta[p].double()
+        spread = xp.abs() @ beta[p].double().abs()
+        if family == "logistic":
+            sig = torch.sigmoid(eta)
+            f_terms = torch.logaddexp(torch.zeros_like(eta), eta).abs() + (yp * eta).abs()
+            w, dloss, dw = sig - yp, sig - yp, sig * (1.0 - sig)
+        elif family == "normal":
+            f_terms, w = 0.5 * (yp - eta) ** 2, eta - yp
+            dloss, dw = eta - yp, torch.ones_like(eta)
+        else:
+            mu = torch.exp(eta)
+            f_terms, w, dloss, dw = mu + (yp * eta).abs(), mu - yp, mu - yp, mu
+        f_mag.append((mp * (f_terms + dloss.abs() * spread)).sum())
+        g_mag.append((mp * (w.abs() + dw * spread)) @ xp.abs())
+        del xp
+    return torch.stack(f_mag), torch.stack(g_mag)
+
+
+def glm_variant_name(family, dtype, grad):
+    name = f"{family}_value_and_grad" if grad else f"{family}_value"
+    return name + ("_bf16" if dtype == "bfloat16" else "")
+
+
+def hold_glm(torch, logistic, family, x, y, mask, beta, what, active=None):
+    """Both wrappers of a family against its plain version on the same
+    inputs, as ``hold_logistic`` does for K2 float32 logistic, within TOL
+    of ``glm_magnitudes``.  Returns the largest absolute differences
+    (value-and-grad, value)."""
+    P = x.shape[0]
+    vg, v = getattr(logistic, f"{family}_value_and_grad"), getattr(logistic, f"{family}_value")
+    f, g = vg(x, y, mask, beta, active)
+    fv = v(x, y, mask, beta, active)
+    again = vg(x, y, mask, beta, active)
+    torch.cuda.synchronize()
+    lanes = torch.ones(P, dtype=torch.bool, device=x.device) if active is None else active
+    if not (torch.equal(f[lanes], again[0][lanes]) and torch.equal(g[lanes], again[1][lanes])):
+        raise AssertionError(f"K2 {family} is not deterministic at {what}")
+    if not torch.equal(f[lanes], fv[lanes]):
+        raise AssertionError(f"the two K2 {family} variants give different f at {what}")
+    off = ~lanes
+    if bool(f[off].any()) or bool(fv[off].any()) or bool(g[off].any()):
+        raise AssertionError(f"K2 {family} wrote an inactive lane at {what}")
+    if not (bool(torch.isfinite(f[lanes]).all()) and bool(torch.isfinite(g[lanes]).all())):
+        raise AssertionError(f"K2 {family} gave a value that is not finite at {what}")
+    rf, rg = logistic.glm_value_and_grad_ref(family, x, y, mask, beta)
+    f_mag, g_mag = glm_magnitudes(torch, family, x, y, mask, beta)
+    df, dg = (f - rf).abs()[lanes], (g - rg).abs()[lanes]
+    if not bool((df.double() <= TOL * f_mag[lanes] + 1e-6).all()):
+        raise AssertionError(f"K2 {family} f differs from its plain version at {what}")
+    if not bool((dg.double() <= TOL * g_mag[lanes] + 1e-6).all()):
+        raise AssertionError(f"K2 {family} g differs from its plain version at {what}")
+    worst_f = float((df.double() / (f_mag[lanes] + 1e-30)).max())
+    worst_g = float((dg.double() / (g_mag[lanes] + 1e-30)).max())
+    log(f"  {family} {what}: f within {worst_f:.2e}, g within {worst_g:.2e} of Σ|terms| "
+        f"with η's rounding; deterministic; inactive lanes unwritten")
+    return float(torch.cat([df, dg.reshape(-1)]).max()), float(df.max())
+
+
+def compare_glm(torch, logistic, device):
+    """8a: each variant of GLM_VARIANTS at each shape of GLM_SHAPES with
+    lane 1 inactive.  Returns the largest absolute differences per entry of
+    the kernels line."""
+    log(f"phase 8a: K2's other families and bf16 variants vs their plain versions, rtol {TOL}")
+    err = {}
+    for family, dtype in GLM_VARIANTS:
+        for P, m, d in GLM_SHAPES:
+            x, y, mask, beta, active = glm_inputs(torch, family, P, m, d, P * m + d, device,
+                                                  getattr(torch, dtype))
+            what = f"{dtype} P={P} m={m} d={d} lane 1 inactive"
+            e_vg, e_v = hold_glm(torch, logistic, family, x, y, mask, beta, what, active)
+            for grad, e in ((True, e_vg), (False, e_v)):
+                name = glm_variant_name(family, dtype, grad)
+                err[name] = max(err.get(name, 0.0), e)
+    return err
+
+
+def glm_standin(torch, family, n, d, seed, device):
+    """8c's stand-ins at the HIGGS shape, generated on the card: Normal,
+    X and w standard normal, y = Xw + N(0, 1); Poisson, X standard normal,
+    w ~ N(0, 0.1²), y ~ Poisson(exp(Xw))."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn(n, d, generator=gen, device=device)
+    if family == "normal":
+        w = torch.randn(d, generator=gen, device=device)
+        y = X @ w + torch.randn(n, generator=gen, device=device)
+    else:
+        w = 0.1 * torch.randn(d, generator=gen, device=device)
+        y = torch.poisson(torch.exp(X @ w), generator=gen)
+    return X, y, w
+
+
+def reset_glm_counts(logistic, algorithms):
+    for name in GLM_WRAPPERS:
+        getattr(logistic, name).launches = 0
+    logistic.logistic_value_and_grad_ref.calls = 0
+    logistic.glm_value_and_grad_ref.calls = 0
+    algorithms.reset_dispatch_counts()
+
+
+class PlainK2:
+    """Every K2 wrapper replaced by its plain version (on the card, as a
+    check only) inside a ``with`` block."""
+
+    def __init__(self, logistic):
+        self.logistic = logistic
+        self.kernels = {name: getattr(logistic, name) for name in GLM_WRAPPERS}
+
+    def __enter__(self):
+        for name in GLM_WRAPPERS:
+            family, grad = name.split("_")[0], name.endswith("_grad")
+
+            def call(x, y, mask, beta, active=None, family=family, grad=grad):
+                out = self.logistic.glm_value_and_grad_ref(family, x, y, mask, beta, active, grad)
+                return out if grad else out[0]
+
+            setattr(self.logistic, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.kernels.items():
+            setattr(self.logistic, name, fn)
+
+
+def cosine(torch, a, b):
+    return float(torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=0))
+
+
+def glm_fit(torch, logistic, algorithms, label, make, X, y, family, card):
+    """8c: one fit through the port's estimator, every K2 launch and host
+    sync counted; both wrappers of ``family`` must have launched and no
+    plain version been called.  Returns (estimator, launches, host time)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_glm_counts(logistic, algorithms)
+    t0 = time.perf_counter()
+    est = make().fit(X, y)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    launches = {name: getattr(logistic, name).launches for name in GLM_WRAPPERS}
+    plain = logistic.logistic_value_and_grad_ref.calls + logistic.glm_value_and_grad_ref.calls
+    syncs = algorithms.HOST_SYNCS["syncs"]
+    data = X.data if hasattr(X, "data") else X
+    log(f"phase 8c: {label} {tuple(data.shape)} {data.dtype}: {t_fit:.3f} s on the host clock, "
+        f"n_iter_ {est.n_iter_.tolist()}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }, plain-version calls {plain}, "
+        f"host syncs {syncs}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"[{card}]")
+    for name in (f"{family}_value_and_grad", f"{family}_value"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched in the {label} fit")
+    if plain:
+        raise AssertionError(f"the {label} fit called a plain version {plain} times")
+    if not bool(torch.isfinite(est.betas_).all()) or est.betas_.dtype != torch.float32:
+        raise AssertionError(f"the {label} fit's coefficients are malformed")
+    return est, launches, t_fit
+
+
+def plain_glm_check(torch, logistic, label, make, X, y, est):
+    """8c: the same fit through the plain versions: equal n_iter_ and
+    ‖Δβ‖∞ ≤ ADMM_RTOL·‖β‖∞, the phase-6 rule."""
+    with PlainK2(logistic):
+        t0 = time.perf_counter()
+        other = make().fit(X, y)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+    diff = float((other.betas_ - est.betas_).abs().max())
+    scale = float(est.betas_.abs().max())
+    log(f"phase 8c: the {label} fit through the plain versions: {t_plain:.3f} s, n_iter_ "
+        f"{other.n_iter_.tolist()}; ‖Δβ‖∞ {diff:.3e} = {diff / scale:.3e}·‖β‖∞ (<= {ADMM_RTOL})")
+    if other.n_iter_.tolist() != est.n_iter_.tolist():
+        raise AssertionError(f"{label}: n_iter_ {est.n_iter_.tolist()} through the kernels, "
+                             f"{other.n_iter_.tolist()} through the plain versions")
+    if not diff <= ADMM_RTOL * scale:
+        raise AssertionError(f"{label}: β differs from the plain-version fit by "
+                             f"{diff / scale:.3e}·‖β‖∞")
+
+
+def logistic_solver_estimator(solver):
+    """8c's LogisticRegression by gradient_descent, proximal_grad (L1) or
+    newton at bench.py's C."""
+    from dask_ml_tpu_torch import LogisticRegression
+
+    return LogisticRegression(solver=solver, C=1e4, max_iter=SOLVER_ITERS[solver],
+                              penalty="l1" if solver == "proximal_grad" else "l2")
+
+
+def glm_table(torch, logistic, family, dtype, Xi, y, launches, card):
+    """8b: one variant at the main path's shape ((8, n/8, 29) lanes of Xi)
+    held against its plain version, then both wrappers timed (CUDA events
+    over 20 launches) beside the plain version (3 runs), the bound by
+    bytes and the library pair (a batched forward and transposed gemv,
+    informational).  Returns the variant's entries of the kernels line."""
+    P = HIGGS_SHARDS
+    n, d = Xi.data.shape
+    m = n // P
+    x3 = Xi.data.view(P, m, d)
+    y2 = y.reshape(P, m).contiguous()
+    m2 = Xi.mask.view(P, m)
+    gen = torch.Generator(device=Xi.data.device).manual_seed(3)
+    beta = torch.randn(P, d, generator=gen, device=Xi.data.device) / d ** 0.5
+    what = f"({P}, {m}, {d}) {dtype}"
+    log(f"phase 8b: K2 {family} vs its plain version at the main path's shape {what}")
+    err_vg, err_v = hold_glm(torch, logistic, family, x3, y2, m2, beta, what)
+    vg, v = getattr(logistic, f"{family}_value_and_grad"), getattr(logistic, f"{family}_value")
+    ms_vg = time_ms(torch, lambda: vg(x3, y2, m2, beta), 20)
+    ms_v = time_ms(torch, lambda: v(x3, y2, m2, beta), 20)
+    plain_vg = time_ms(torch, lambda: logistic.glm_value_and_grad_ref(family, x3, y2, m2, beta),
+                       3)
+    plain_v = time_ms(
+        torch, lambda: logistic.glm_value_and_grad_ref(family, x3, y2, m2, beta, grad=False), 3)
+    wv = torch.rand(P, m, 1, generator=gen, device=Xi.data.device).to(x3.dtype)
+    bv = beta[:, :, None].to(x3.dtype)
+    lib_ms = time_ms(torch, lambda: (torch.bmm(x3, bv), torch.bmm(x3.transpose(1, 2), wv)), 20)
+    esize = x3.element_size()
+    nbytes = n * d * esize + n * 8 + 2 * P * d * 4 + P * 4
+    out = []
+    for grad, ms, plain_ms, flops, err in ((True, ms_vg, plain_vg, 4 * n * d, err_vg),
+                                            (False, ms_v, plain_v, 2 * n * d, err_v)):
+        name = glm_variant_name(family, dtype, grad)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        log(f"{name} at {what}: {ms:.4f} ms, {n / ms * 1e3:.4g} rows/s, "
+            f"{nbytes / ms / 1e6:.1f} GB/s, {b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; "
+            f"library pair in {dtype}, informational: {lib_ms:.4f} ms) [{card}]")
+        out.append({"name": name, "route": "cuda",
+                    "source": "dask_ml_tpu_torch/csrc/logistic.cu",
+                    "replaces": {"logistic": "dask_ml_tpu/solvers/families.py:34",
+                                 "normal": "dask_ml_tpu/solvers/families.py:53",
+                                 "poisson": "dask_ml_tpu/solvers/families.py:111"}[family],
+                    "launches": launches[name], "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None})
+    return out
+
+
+def variant_launches(launches, family, dtype):
+    """The kernels line's launch counts of one variant, from the fit that
+    drove it."""
+    return {glm_variant_name(family, dtype, grad): launches[name]
+            for grad, name in ((True, f"{family}_value_and_grad"), (False, f"{family}_value"))}
+
+
+def glm_phase(torch, logistic, algorithms, device, card, acc6):
+    """Phase 8 end to end; returns the new variants' lines of the table."""
+    from dask_ml_tpu_torch import LinearRegression, PoissonRegression
+    from dask_ml_tpu_torch.core import shard_rows, use_device
+    from dask_ml_tpu_torch.linear_model.utils import add_intercept
+
+    log(f"phase 8a largest absolute differences: {compare_glm(torch, logistic, device)}")
+    out, launches = [], {}
+    X, y, w = higgs_standin(torch, HIGGS_ROWS, HIGGS_D, 0, device)
+    with use_device(device, n_shards=HIGGS_SHARDS):
+        # 8c: the phase-6 estimator on a bf16 X, then the new solvers (float32 X)
+        Xb = shard_rows(X, dtype=torch.bfloat16)
+        est, counts, _ = glm_fit(torch, logistic, algorithms, "LogisticRegression(admm) bf16",
+                                 admm_estimator, Xb, y, "logistic", card)
+        launches.update(variant_launches(counts, "logistic", "bfloat16"))
+        acc, cos = est.score(Xb, y), cosine(torch, est.coef_, w)
+        log(f"train accuracy {acc:.6f} (float32 fit of phase 6: {acc6:.6f}; >= it - 1e-3); "
+            f"cosine(coef_, w) {cos:.7f} (>= 0.999)")
+        if not (acc >= acc6 - 1e-3 and cos >= 0.999):
+            raise AssertionError(f"the bf16 logistic fit: accuracy {acc}, cosine {cos}")
+        plain_glm_check(torch, logistic, "LogisticRegression(admm) bf16", admm_estimator, Xb, y,
+                        est)
+        profiled_admm_fit(torch, algorithms, Xb, y, card,
+                          label="phase 8c: profiled LogisticRegression(admm) bf16 fit")
+        for solver in SOLVER_ITERS:
+            label = f"LogisticRegression({solver}, max_iter={SOLVER_ITERS[solver]})"
+
+            def make(solver=solver):
+                return logistic_solver_estimator(solver)
+
+            est, _, _ = glm_fit(torch, logistic, algorithms, label, make, X, y, "logistic", card)
+            acc, cos = est.score(X, y), cosine(torch, est.coef_, w)
+            log(f"train accuracy {acc:.6f} (>= 0.98 of phase 6's {acc6:.6f}); cosine(coef_, w) "
+                f"{cos:.7f}")
+            if not acc >= 0.98 * acc6:
+                raise AssertionError(f"{label}: accuracy {acc} < 0.98 * {acc6}")
+            plain_glm_check(torch, logistic, label, make, X, y, est)
+        Xi = add_intercept(shard_rows(X))
+        log("phase 8b: the control, K2 float32 logistic, at the same shape")
+        logistic_table(torch, logistic, Xi, y, {"logistic_value_and_grad": 0,
+                                                "logistic_value": 0}, card)
+        del Xi
+        Xib = add_intercept(Xb)
+        out += glm_table(torch, logistic, "logistic", "bfloat16", Xib, y, launches, card)
+        del X, Xb, Xib, y
+        torch.cuda.synchronize()
+        for family, make, min_cos in (
+                ("normal", lambda: LinearRegression(solver="admm"), 0.9999),
+                ("poisson", lambda: PoissonRegression(solver="lbfgs"), 0.999)):
+            X, y, w = glm_standin(torch, family, HIGGS_ROWS, HIGGS_D, 5, device)
+            for dtype in ("float32", "bfloat16"):
+                Xs = shard_rows(X, dtype=getattr(torch, dtype))
+                label = f"{type(make()).__name__}({make().solver}) {dtype}"
+                est, counts, _ = glm_fit(torch, logistic, algorithms, label, make, Xs, y, family,
+                                         card)
+                launches.update(variant_launches(counts, family, dtype))
+                cos = cosine(torch, est.coef_, w)
+                log(f"score {est.score(Xs, y):.7g}; cosine(coef_, w) {cos:.7f} (>= {min_cos})")
+                if not cos >= min_cos:
+                    raise AssertionError(f"{label}: cosine to w {cos} < {min_cos}")
+                plain_glm_check(torch, logistic, label, make, Xs, y, est)
+                if dtype == "float32":
+                    profiled_admm_fit(torch, algorithms, Xs, y, card, make=make,
+                                      label=f"phase 8c: profiled {label} fit")
+                out += glm_table(torch, logistic, family, dtype, add_intercept(Xs), y, launches,
+                                 card)
+                del Xs
+            del X, y
+            torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1517,6 +1905,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     with use_device(device, n_shards=HIGGS_SHARDS):
         est, k2_launches, _, _ = admm_main_path(torch, logistic, algorithms, X, y, w, card)
+        acc6 = est.score(X, y)
         plain_fit_check(torch, logistic, X, y, est)
         profiled_admm_fit(torch, algorithms, X, y, card)
         Xi = add_intercept(shard_rows(X))
@@ -1527,6 +1916,10 @@ def main() -> int:
 
     # 7. multi-class LogisticRegression: packed one-vs-rest and multinomial
     out += multiclass_phase(torch, multiclass, logistic, algorithms, device, card)
+
+    # 8. K2's other families and bf16 x: LinearRegression, PoissonRegression,
+    # a bf16 LogisticRegression and the new solvers
+    out += glm_phase(torch, logistic, algorithms, device, card, acc6)
 
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

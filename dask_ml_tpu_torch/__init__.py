@@ -7,9 +7,13 @@ run on CUDA unless the caller asks for the CPU (``core.set_device``).
 """
 
 from .cluster import KMeans
-from .convert import kmeans_from_reference, logistic_regression_from_reference
+from .convert import (
+    kmeans_from_reference, linear_regression_from_reference, logistic_regression_from_reference,
+    poisson_regression_from_reference)
 from .core import get_device, set_device, shard_rows
-from .linear_model import LogisticRegression
+from .linear_model import LinearRegression, LogisticRegression, PoissonRegression
 
-__all__ = ["KMeans", "LogisticRegression", "get_device", "kmeans_from_reference",
-           "logistic_regression_from_reference", "set_device", "shard_rows"]
+__all__ = ["KMeans", "LinearRegression", "LogisticRegression", "PoissonRegression",
+           "get_device", "kmeans_from_reference", "linear_regression_from_reference",
+           "logistic_regression_from_reference", "poisson_regression_from_reference",
+           "set_device", "shard_rows"]

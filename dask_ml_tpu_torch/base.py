@@ -92,6 +92,13 @@ class ClassifierMixin:
     _estimator_type = "classifier"
 
 
+class RegressorMixin:
+    """Marks a regressor, as scikit-learn's mixin does; each estimator
+    defines its own ``score``."""
+
+    _estimator_type = "regressor"
+
+
 class TransformerMixin:
     def fit_transform(self, X, y=None, **fit_params):
         return self.fit(X, y, **fit_params).transform(X)

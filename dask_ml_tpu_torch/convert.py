@@ -1,6 +1,7 @@
 """Weights carried across: a fitted reference estimator's attributes, as
-numpy arrays, into a fitted port estimator (``KMeans`` and
-``LogisticRegression``: binary, one-vs-rest and multinomial)."""
+numpy arrays, into a fitted port estimator (``KMeans``,
+``LogisticRegression``: binary, one-vs-rest and multinomial, and
+``LinearRegression`` and ``PoissonRegression``)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import torch
 
 from .cluster.k_means import KMeans
 from .core.mesh import get_device
-from .linear_model.glm import LogisticRegression
+from .linear_model.glm import LinearRegression, LogisticRegression, PoissonRegression
 
 
 def kmeans_from_reference(arrays, *, device=None, **params) -> KMeans:
@@ -89,3 +90,40 @@ def logistic_regression_from_reference(arrays, *, multinomial=None, device=None,
     est.n_iter_ = np.asarray(arrays["n_iter_"], dtype=np.int32).reshape(-1)
     est.n_features_in_ = d
     return est
+
+
+def _regression_from_reference(cls, arrays, device, params):
+    missing = {"coef_", "intercept_", "n_iter_"} - set(arrays)
+    if missing:
+        raise ValueError(f"missing fitted attributes: {sorted(missing)}")
+    coef = np.asarray(arrays["coef_"], dtype=np.float32)
+    if coef.ndim != 1:
+        raise ValueError(f"coef_ must be 1-D, got shape {coef.shape}")
+    intercept = float(np.asarray(arrays["intercept_"], dtype=np.float32))
+    params.setdefault("fit_intercept", True)
+    device = torch.device(device) if device is not None else get_device()
+    beta = np.append(coef, intercept) if params["fit_intercept"] else coef
+    est = cls(**params)
+    est.betas_ = torch.tensor(beta[None, :], device=device)
+    est.coef_ = est.betas_[0, : coef.shape[0]]
+    est.intercept_ = intercept if params["fit_intercept"] else 0.0
+    est.n_iter_ = np.asarray(arrays["n_iter_"], dtype=np.int32).reshape(-1)
+    est.n_features_in_ = coef.shape[0]
+    return est
+
+
+def linear_regression_from_reference(arrays, *, device=None, **params) -> LinearRegression:
+    """A fitted port ``LinearRegression`` from the reference's.
+
+    ``arrays`` maps ``coef_``, ``intercept_`` and ``n_iter_`` to numpy arrays
+    or scalars; ``params`` go to the constructor.  ``coef_`` and ``betas_``
+    land on ``device`` (default: the active device) as float32, so
+    ``predict`` and ``score`` compute what the reference's do.
+    """
+    return _regression_from_reference(LinearRegression, arrays, device, params)
+
+
+def poisson_regression_from_reference(arrays, *, device=None, **params) -> PoissonRegression:
+    """A fitted port ``PoissonRegression`` from the reference's, as
+    :func:`linear_regression_from_reference` does for ``LinearRegression``."""
+    return _regression_from_reference(PoissonRegression, arrays, device, params)

@@ -57,18 +57,19 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
     16 rows a shard, 8 features, seed 0.  Sections run, each checked:
 
     - the binary ADMM fit, ``max_iter=2``, ``inner_iter=5``;
+    - the ``lbfgs`` fit on a bfloat16 X (the reference's mixed precision),
+      whose ``coef_`` must be float32;
     - the KMeans fit, ``init="random"``, ``max_iter=2``;
     - the packed one-vs-rest ADMM fit on 3 classes (packed forced), each
       class held against an independent binary solve to atol 1e-4;
     - the multinomial ``lbfgs`` fit, ``max_iter=5``;
     - ``class_weight="balanced"`` with ``lbfgs``, ``max_iter=5``.
 
-    Not run yet, each waiting for its ROADMAP item: the bf16 ``lbfgs`` fit
-    ([port-admm] bf16 X), ring pairwise distances and MiniBatchKMeans
-    ([port-rest]), scanned minibatch SGD ([port-stream]), TSQR through PCA
-    ([port-tsqr]), the packed SGD cohort on a data × model mesh, Hyperband
-    and the packed C-grid ([port-search]), and the multi-process run
-    ([port-multi]).  Prints the sections it ran and returns their names.
+    Not run yet, each waiting for its ROADMAP item: ring pairwise
+    distances and MiniBatchKMeans ([port-rest]), scanned minibatch SGD
+    ([port-stream]), TSQR through PCA ([port-tsqr]), the packed SGD cohort
+    on a data × model mesh, Hyperband and the packed C-grid
+    ([port-search]), and the multi-process run ([port-multi]).  Prints the sections it ran and returns their names.
     """
     from .cluster import KMeans
     from .core.sharded import shard_rows
@@ -87,6 +88,11 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
         lr.fit(sX, sy)
         assert tuple(lr.coef_.shape) == (d,) and lr.n_iter_.shape == (1,)
         ran.append("binary ADMM")
+
+        sXb = shard_rows(X, dtype=torch.bfloat16)
+        lrb = LogisticRegression(solver="lbfgs").fit(sXb, sy)
+        assert lrb.coef_.dtype == torch.float32 and tuple(lrb.coef_.shape) == (d,)
+        ran.append("bf16 lbfgs")
 
         km = KMeans(n_clusters=3, init="random", random_state=0, max_iter=2).fit(sX)
         assert tuple(km.cluster_centers_.shape) == (3, d)

@@ -2,12 +2,14 @@
 
 An sklearn-style facade that maps ``C``/``penalty``/``solver`` onto the
 solver library (``lamduh = 1/C``, the reference's convention), adds the
-intercept column and exposes ``coef_``/``intercept_``.  The port has
-``LogisticRegression`` by ``admm`` or ``lbfgs``: binary, packed
-one-vs-rest, multinomial, with ``sample_weight`` and ``class_weight``;
-what it does not have yet raises ``NotImplementedError`` naming its
-ROADMAP item ([port-admm]): ``fit_checkpoint``, the other solvers, and
-``LinearRegression``/``PoissonRegression``.
+intercept column and exposes ``coef_``/``intercept_``: ``LogisticRegression``
+(binary, packed one-vs-rest, multinomial, with ``sample_weight`` and
+``class_weight``), ``LinearRegression`` and ``PoissonRegression``, by
+``admm``, ``lbfgs``, ``gradient_descent``, ``proximal_grad`` or
+``newton``.  A bfloat16 X stays bf16 through the binary-family fits (the
+reference's mixed precision: float32 parameters); what the port does not
+have yet raises ``NotImplementedError`` naming its ROADMAP item
+([port-admm]): ``fit_checkpoint`` and bf16 X for multi-class fits.
 """
 
 from __future__ import annotations
@@ -15,28 +17,35 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..base import ClassifierMixin, TorchEstimator
-from ..core.sharded import ShardedRows, as_sharded
+from ..base import ClassifierMixin, RegressorMixin, TorchEstimator
+from ..core.sharded import ShardedRows, as_sharded, unshard
+from ..metrics.pairwise import fp32_matmul
 from ..preprocessing.data import _ingest_float
-from ..solvers import Logistic, admm, get_regularizer, lbfgs, multinomial, packed_solve
+from ..solvers import (
+    Logistic, Normal, Poisson, admm, get_regularizer, gradient_descent, lbfgs, multinomial,
+    newton, packed_solve, proximal_grad)
 from ..utils import host_class_weight_rows, reweight_rows
 from .utils import add_intercept, binary_indicator
 
-_SOLVERS = {"admm": admm, "lbfgs": lbfgs}
-_NOT_PORTED_SOLVERS = ("newton", "gradient_descent", "proximal_grad")
+_SOLVERS = {
+    "admm": admm,
+    "lbfgs": lbfgs,
+    "newton": newton,
+    "gradient_descent": gradient_descent,
+    "proximal_grad": proximal_grad,
+}
 
 
 def _not_ported(what):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: [port-admm] {what})")
 
 
-def _ingest_f32(est, X) -> ShardedRows:
-    """check_array + shard as float32: integers and float64 are cast, half
-    precision raises (the reference's bf16 design path is not ported)."""
+def _ingest_x(est, X) -> ShardedRows:
+    """check_array + shard: a float32 or bfloat16 design stays as it is
+    (bf16 is the reference's mixed precision); integers, float64 and
+    float16 become float32 (K2 reads float32 or bf16)."""
     X = _ingest_float(est, X)
-    if X.data.dtype in (torch.float16, torch.bfloat16):
-        raise _not_ported(f"a {X.data.dtype} design matrix (bf16 X)")
-    if X.data.dtype != torch.float32:
+    if X.data.dtype not in (torch.float32, torch.bfloat16):
         X = ShardedRows(data=X.data.to(torch.float32), mask=X.mask, n_samples=X.n_samples)
     return X
 
@@ -69,13 +78,8 @@ class _GLM(TorchEstimator):
     def _solver_call_kwargs(self):
         """Solver kwargs: ``lamduh = 1/C``, and ``tol`` is ADMM's
         ``abstol`` and the other solvers' ``tol``."""
-        if self.solver in _NOT_PORTED_SOLVERS:
-            raise _not_ported(f"solver={self.solver!r}")
         if self.solver not in _SOLVERS:
-            raise ValueError(
-                f"Unknown solver {self.solver!r}; valid: "
-                f"{sorted(_SOLVERS) + sorted(_NOT_PORTED_SOLVERS)}"
-            )
+            raise ValueError(f"Unknown solver {self.solver!r}; valid: {sorted(_SOLVERS)}")
         kwargs = dict(
             regularizer=get_regularizer(self.penalty),
             lamduh=1.0 / self.C,
@@ -103,7 +107,40 @@ class _GLM(TorchEstimator):
         return prev
 
     def fit(self, X, y=None, sample_weight=None):
-        raise NotImplementedError
+        """One solve of ``self.family`` (the regressors' fit): the intercept
+        column, ``sample_weight`` folded into the mask, and a warm start
+        from the previous fit where its parameter shape matches."""
+        if self.fit_checkpoint is not None:
+            raise _not_ported("fit_checkpoint")
+        kwargs = self._solver_call_kwargs()  # validates the solver before any work
+        X = _ingest_x(self, X)
+        self.n_features_in_ = X.data.shape[1]
+        Xi = add_intercept(X) if self.fit_intercept else X
+        Xi = reweight_rows(Xi, sample_weight=sample_weight)
+        warm = None
+        if self.warm_start:
+            warm = self._warm_ok(getattr(self, "betas_", None), (1, Xi.data.shape[1]))
+        beta, n_it = _SOLVERS[self.solver](
+            Xi, y, return_n_iter=True, family=self.family,
+            beta0=None if warm is None else warm[0], **kwargs)
+        self.n_iter_ = np.asarray([n_it], dtype=np.int32)
+        if self.fit_intercept:
+            self.coef_ = beta[:-1]
+            self.intercept_ = float(beta[-1])
+        else:
+            self.coef_ = beta
+            self.intercept_ = 0.0
+        self.betas_ = beta[None, :]
+        return self
+
+    def _eta(self, X):
+        """(X, the linear predictor over its padded rows); a bf16 X is
+        widened to float32 for the product."""
+        X = _ingest_x(self, X)
+        coef = self.coef_.to(X.data.device)
+        with fp32_matmul():
+            eta = X.data.to(coef.dtype) @ coef + self.intercept_
+        return X, eta
 
 
 class LogisticRegression(ClassifierMixin, _GLM):
@@ -153,7 +190,7 @@ class LogisticRegression(ClassifierMixin, _GLM):
                 f"got {classes.tolist()}"
             )
         self.classes_ = classes
-        X = _ingest_f32(self, X)
+        X = _ingest_x(self, X)
         self.n_features_in_ = X.data.shape[1]
         Xi = add_intercept(X) if self.fit_intercept else X
         if self.class_weight is not None and yv is not None:
@@ -231,12 +268,13 @@ class LogisticRegression(ClassifierMixin, _GLM):
 
     def _etas(self, X):
         """(X, raw margins (padded n, K or 1))."""
-        X = _ingest_f32(self, X)
+        X = _ingest_x(self, X)
         betas = self.betas_.to(X.data.device)
+        x = X.data.to(betas.dtype)  # a bf16 X widened for the product
         if self.fit_intercept:
-            eta = X.data @ betas[:, :-1].T + betas[:, -1]
+            eta = x @ betas[:, :-1].T + betas[:, -1]
         else:
-            eta = X.data @ betas.T
+            eta = x @ betas.T
         return X, eta
 
     def _pred_index(self, eta):
@@ -298,15 +336,43 @@ class LogisticRegression(ClassifierMixin, _GLM):
         return float(np.average(hits, weights=np.asarray(sample_weight)))
 
 
-class LinearRegression(_GLM):
-    """Not ported yet: ``fit`` raises."""
+class LinearRegression(RegressorMixin, _GLM):
+    """Least squares (the ``Normal`` family) over the solver library;
+    ``score`` is R²."""
 
-    def fit(self, X, y=None, sample_weight=None):
-        raise _not_ported("LinearRegression")
+    family = Normal
+
+    def predict(self, X):
+        X, eta = self._eta(X)
+        return eta[: X.n_samples]
+
+    def score(self, X, y, sample_weight=None):
+        from ..metrics.regression import r2_score
+
+        return r2_score(y, self.predict(X), sample_weight=sample_weight)
 
 
-class PoissonRegression(_GLM):
-    """Not ported yet: ``fit`` raises."""
+class PoissonRegression(RegressorMixin, _GLM):
+    """Poisson regression (log link) over the solver library; ``score`` is
+    minus the deviance."""
 
-    def fit(self, X, y=None, sample_weight=None):
-        raise _not_ported("PoissonRegression")
+    family = Poisson
+
+    def predict(self, X):
+        X, eta = self._eta(X)
+        return torch.exp(eta)[: X.n_samples]
+
+    def get_deviance(self, X, y, sample_weight=None):
+        """2·Σ w·(y·log(y/μ) − (y − μ)), taken on the host as the
+        reference's is (``y·log(y/μ)`` is 0 where y is 0)."""
+        mu = unshard(self.predict(X))
+        yv = unshard(y) if isinstance(y, (torch.Tensor, ShardedRows)) else np.asarray(y)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            term = np.where(yv > 0, yv * np.log(yv / mu), 0.0)
+        dev = term - (yv - mu)
+        if sample_weight is not None:
+            dev = dev * np.asarray(sample_weight)
+        return 2 * np.sum(dev)
+
+    def score(self, X, y, sample_weight=None):
+        return -self.get_deviance(X, y, sample_weight=sample_weight)

@@ -1,5 +1,6 @@
 """Solver algorithms: the port of ``dask_ml_tpu/solvers/algorithms.py``
-(``admm`` and ``lbfgs``).
+(``admm``, ``lbfgs``, ``gradient_descent``, ``proximal_grad``, ``newton``
+and ``packed_solve``).
 
 The reference runs each solve as one XLA program: ADMM's per-shard local
 L-BFGS solves run inside ``shard_map``, one per device, joined by psums.
@@ -9,18 +10,24 @@ solves as the lanes of one batched L-BFGS (``lbfgs_core``) whose objective
 evaluations are K2 launches over all lanes at once; the psums become sums
 over the lane axis.  The consensus step, the Boyd residuals and the
 adaptive ρ step stay on the device as small tensors; the loop reads one
-flag per round on the host (``lbfgs_core.HOST_SYNCS``).
+flag per round on the host (``lbfgs_core.HOST_SYNCS``).  The single-lane
+solvers (``lbfgs``, ``gradient_descent``, ``proximal_grad``, ``newton``)
+take all rows as one shard and are batched over lanes the same way, each
+lane with its own step size and stopping flags.
 
 ``packed_solve`` runs K one-vs-rest problems over the same rows as K·P
-lanes of the same batched loops (K for ``lbfgs``), the reference's vmap
-over its whole-solve ``while_loop`` written out: their objective
-evaluations are K2-OvR launches, one read of x for all K classes, and the
-ADMM loop keeps K consensus vectors, one ρ, one residual pair and one
-round count a class, still reading one flag a loop step for all lanes.
+lanes of the same batched loops (K for the single-lane solvers), the
+reference's vmap over its whole-solve ``while_loop`` written out: their
+objective evaluations are K2-OvR launches, one read of x for all K
+classes, and the ADMM loop keeps K consensus vectors, one ρ, one residual
+pair and one round count a class, still reading one flag a loop step for
+all lanes.
 
-Not ported yet (ROADMAP: [port-admm]): ``gradient_descent``,
-``proximal_grad``, ``newton``, ``lambda_sweep``, ``grid_pack_strategy``,
-and bf16 design matrices.
+A bfloat16 design matrix stays bf16 (the reference's mixed precision): K2
+reads it as bf16, and β, y, every sum and ADMM's z, u and residuals are
+float32.  Not ported yet (ROADMAP: [port-admm]): ``lambda_sweep``,
+``grid_pack_strategy``, the ``probe_grid`` line search and bf16 X for
+multi-class fits.
 """
 
 from __future__ import annotations
@@ -32,21 +39,26 @@ import os
 import numpy as np
 import torch
 
-from ..core.mesh import get_n_shards
+from ..core.mesh import get_device, get_n_shards
 from ..core.sharded import ShardedRows, shard_rows
-from .families import Family, Logistic
-from .lbfgs_core import HOST_SYNCS, any_active, check_line_search, lbfgs_minimize
+from ..metrics.pairwise import fp32_matmul
+from .families import Family, Logistic, _no_bf16_multiclass
+from .lbfgs_core import (
+    HOST_SYNCS, any_active, check_line_search, lbfgs_minimize, run_line_search)
 from .regularizers import L2, get_regularizer
 
 logger = logging.getLogger(__name__)
 
 def _prep(X, y):
-    """Normalize inputs to (x, y, mask) padded float32 tensors on X's device.
+    """Normalize inputs to (x, y, mask) padded tensors on X's device: x
+    float32 or bfloat16, y and the mask float32.
 
-    A tensor stays where it is; float64 becomes float32 and integers are
-    cast, as the reference's host ingest does.  Half-precision design
-    matrices raise: the reference keeps bf16 X with float32 parameters, a
-    path the port does not have yet (ROADMAP: [port-admm] bf16 X)."""
+    A tensor stays where it is.  A bfloat16 design stays bf16 (the
+    reference keeps floating designs as they are, with float32
+    parameters); float64 becomes float32 and integers are cast, as the
+    reference's host ingest does, and float16 is widened to float32 (the
+    same numbers: the reference's products promote it to float32, and K2
+    reads float32 or bf16)."""
     if isinstance(X, ShardedRows):
         Xs = X
     elif isinstance(X, torch.Tensor):
@@ -54,11 +66,7 @@ def _prep(X, y):
     else:
         Xs = shard_rows(np.asarray(X, dtype=np.float32))
     x, mask = Xs.data, Xs.mask
-    if x.dtype in (torch.float16, torch.bfloat16):
-        raise NotImplementedError(
-            f"a {x.dtype} design matrix is not supported yet (ROADMAP: [port-admm] "
-            "bf16 X); pass float32")
-    if x.dtype != torch.float32:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         x = x.to(torch.float32)
     x = x.contiguous()
     if isinstance(y, ShardedRows):
@@ -74,7 +82,9 @@ def _prep(X, y):
 
 
 def _param_dtype(x):
-    """Accumulation/parameter dtype for a design matrix: float32."""
+    """Accumulation/parameter dtype for a design matrix: float32, for
+    float32 and bfloat16 designs alike (the reference's
+    ``promote_types(x.dtype, float32)``)."""
     return torch.float32
 
 
@@ -149,13 +159,29 @@ def line_search_strategy(requested: str = "auto") -> str:
 # ---------------------------------------------------------------- lbfgs --
 
 
+def _one_shard(x, yv, mask, lamduh, tol):
+    """All rows as one shard for the single-lane solvers: ``x3`` (1, n, d),
+    the targets (1, n) or, for L one-vs-rest problems, (L, 1, n), the mask
+    (1, n), and λ and tol as parameter-dtype scalars."""
+    x3, y2, m2 = _shards(x, yv, mask, 1)
+    dt, dev = _param_dtype(x), x.device
+    return (x3, y2, m2, torch.tensor(lamduh, dtype=dt, device=dev),
+            torch.tensor(tol, dtype=dt, device=dev))
+
+
+def _converged(f_prev, f_new, tol):
+    """The reference's relative-decrease stop; ``f_prev`` starts at inf,
+    which never counts as converged."""
+    return torch.isfinite(f_prev) & (
+        torch.abs(f_prev - f_new) <= tol * torch.clamp(torch.abs(f_prev), min=1.0))
+
+
 def _lbfgs_run(x, yv, mask, B0, lamduh, max_iter, tol, *, family, reg, line_search):
     """The reference's ``_lbfgs_run`` over all rows as one shard, for the
     lanes of ``B0`` (L, D): one problem (``yv`` (n,), L = 1) or L
     one-vs-rest problems (``yv`` (L, n)).  Returns (β (L, D), iterations
     (L,))."""
-    x3, y2, m2 = _shards(x, yv, mask, 1)
-    lam = torch.tensor(lamduh, dtype=_param_dtype(x), device=x.device)
+    x3, y2, m2, lam, _ = _one_shard(x, yv, mask, lamduh, tol)
     obj = _make_objective(family, reg, x3, y2, m2, lam)
     beta, st = lbfgs_minimize(obj, B0, max_iter=int(max_iter), tol=float(tol),
                               line_search=line_search)
@@ -170,6 +196,16 @@ def _check_smooth(solver, reg, lamduh):
         )
 
 
+def _solve_one(runner, X, y, beta0, return_n_iter, family, lamduh, max_iter, tol, **kw):
+    """One problem over all rows through a single-lane runner: the public
+    ``lbfgs``, ``gradient_descent``, ``proximal_grad`` and ``newton``."""
+    x, yv, mask = _prep(X, y)
+    DISPATCH_COUNTS["solves"] += 1
+    beta, k = runner(x, yv, mask, _init_beta(beta0, x, family)[None], lamduh, max_iter, tol,
+                     family=family, **kw)
+    return (beta[0], int(k[0])) if return_n_iter else beta[0]
+
+
 def lbfgs(X, y, *, family: type[Family] = Logistic, regularizer=L2,
           lamduh: float = 0.0, max_iter: int = 100, tol: float = 1e-5,
           beta0=None, return_n_iter: bool = False, line_search: str = "auto"):
@@ -178,11 +214,168 @@ def lbfgs(X, y, *, family: type[Family] = Logistic, regularizer=L2,
     line_search = line_search_strategy(line_search)
     reg = get_regularizer(regularizer)
     _check_smooth("lbfgs", reg, lamduh)
-    x, yv, mask = _prep(X, y)
-    DISPATCH_COUNTS["solves"] += 1
-    beta, k = _lbfgs_run(x, yv, mask, _init_beta(beta0, x, family)[None], lamduh, max_iter,
-                         tol, family=family, reg=reg, line_search=line_search)
-    return (beta[0], int(k[0])) if return_n_iter else beta[0]
+    return _solve_one(_lbfgs_run, X, y, beta0, return_n_iter, family, lamduh, max_iter, tol,
+                      reg=reg, line_search=line_search)
+
+
+# ---------------------------------------------------- gradient descent --
+
+
+def _gd_run(x, yv, mask, B0, lamduh, max_iter, tol, *, family, reg, line_search):
+    """The reference's ``_gd_run`` for the lanes of ``B0`` (L, D) over all
+    rows as one shard (``yv`` as in :func:`_lbfgs_run`): per lane a step
+    size, a previous f and a stop flag; a pure-Armijo search along
+    −stepsize·g, the step size doubled by t after a step and halved after
+    a failed search.  Returns (β (L, D), iterations (L,))."""
+    x3, y2, m2, lam, tol = _one_shard(x, yv, mask, lamduh, tol)
+    obj = _make_objective(family, reg, x3, y2, m2, lam)
+    L, dt, dev = B0.shape[0], _param_dtype(x), x.device
+    beta = B0.clone()
+    stepsize = torch.ones(L, dtype=dt, device=dev)
+    f_prev = torch.full((L,), math.inf, dtype=dt, device=dev)
+    converged = torch.zeros(L, dtype=torch.bool, device=dev)
+    k = torch.zeros(L, dtype=torch.int32, device=dev)
+    while True:
+        running = (k < max_iter) & ~converged
+        if not any_active(running):
+            break
+        f, g = obj(beta, running, True)
+        t, _, f_new, _ = run_line_search(line_search, obj, beta, f, g, -stepsize[:, None] * g,
+                                         1e-4, 30, running, c2=None)
+        beta_new = beta - (t * stepsize)[:, None] * g
+        step_new = torch.where(t > 0, stepsize * t * 2.0, stepsize * 0.5)
+        beta = torch.where(running[:, None], beta_new, beta)
+        stepsize = torch.where(running, step_new, stepsize)
+        converged = torch.where(running, _converged(f_prev, f_new, tol), converged)
+        f_prev = torch.where(running, f_new, f_prev)
+        k = k + running.to(torch.int32)
+    return beta, k
+
+
+def gradient_descent(X, y, *, family: type[Family] = Logistic, regularizer=L2,
+                     lamduh: float = 0.0, max_iter: int = 100, tol: float = 1e-7,
+                     beta0=None, return_n_iter: bool = False, line_search: str = "backtrack"):
+    """Armijo-backtracking gradient descent on the total (smooth) objective,
+    one lane over all rows.  Reference: ``dask_ml_tpu/solvers/algorithms.py
+    :: gradient_descent``."""
+    line_search = line_search_strategy(line_search)
+    reg = get_regularizer(regularizer)
+    _check_smooth("gradient_descent", reg, lamduh)
+    return _solve_one(_gd_run, X, y, beta0, return_n_iter, family, lamduh, max_iter, tol,
+                      reg=reg, line_search=line_search)
+
+
+# ------------------------------------------------------ proximal grad --
+
+
+def _pg_run(x, yv, mask, B0, lamduh, max_iter, tol, *, family, reg):
+    """The reference's ``_pg_run`` for the lanes of ``B0`` (L, D):
+    z = prox_{tλ}(β − t·g) with t halved (at most 30 times) while the
+    smooth loss at z passes its quadratic upper bound f + gᵀΔ + ‖Δ‖²/(2t);
+    the next step starts at 2t.  Lanes check their bounds in lockstep, each
+    by its own predicate.  Returns (β (L, D), iterations (L,))."""
+    x3, y2, m2, lam, tol = _one_shard(x, yv, mask, lamduh, tol)
+    L, dt, dev = B0.shape[0], _param_dtype(x), x.device
+    beta = B0.clone()
+    t_next = torch.ones(L, dtype=dt, device=dev)
+    f_prev = torch.full((L,), math.inf, dtype=dt, device=dev)
+    converged = torch.zeros(L, dtype=torch.bool, device=dev)
+    k = torch.zeros(L, dtype=torch.int32, device=dev)
+    while True:
+        running = (k < max_iter) & ~converged
+        if not any_active(running):
+            break
+        f, g = family.loss_and_grad(beta, x3, y2, m2, running)
+        t = t_next
+        j = torch.zeros(L, dtype=torch.int32, device=dev)
+        check = running
+        while True:
+            z = reg.prox(beta - t[:, None] * g, (t * lam)[:, None])
+            diff = z - beta
+            ub = f + torch.sum(g * diff, dim=1) + torch.sum(diff ** 2, dim=1) / (2 * t)
+            check = check & (family.loss(z, x3, y2, m2, check) > ub) & (j < 30)
+            if not any_active(check):
+                break
+            t = torch.where(check, 0.5 * t, t)
+            j = j + check.to(torch.int32)
+        beta = torch.where(running[:, None], z, beta)
+        t_next = torch.where(running, t * 2.0, t_next)
+        converged = torch.where(running, _converged(f_prev, f, tol), converged)
+        f_prev = torch.where(running, f, f_prev)
+        k = k + running.to(torch.int32)
+    return beta, k
+
+
+def proximal_grad(X, y, *, family: type[Family] = Logistic, regularizer=L2,
+                  lamduh: float = 0.0, max_iter: int = 100, tol: float = 1e-7,
+                  beta0=None, return_n_iter: bool = False):
+    """Proximal gradient with backtracking on the smooth part, one lane over
+    all rows: z = prox_{tλ}(β − t∇f(β)).  Reference:
+    ``dask_ml_tpu/solvers/algorithms.py :: proximal_grad``."""
+    return _solve_one(_pg_run, X, y, beta0, return_n_iter, family, lamduh, max_iter, tol,
+                      reg=get_regularizer(regularizer))
+
+
+# ------------------------------------------------------------- newton --
+
+
+def _newton_run(x, yv, mask, B0, lamduh, max_iter, tol, *, family, reg, line_search):
+    """The reference's ``_newton_run`` for the lanes of ``B0`` (L, D): per
+    lane H = (x·w)ᵀx with w = hessian_weights(xβ)·mask, plus λI for a
+    smooth penalty and always 1e-8·I, p = −H⁻¹g, then a pure-Armijo
+    search.  H is a float32 PyTorch product with TF32 off (the reference's
+    plain XLA gemm), over x widened to float32 once a solve where it is
+    bf16, as the reference's promotion does.  Returns (β (L, D),
+    iterations (L,))."""
+    x3, y2, m2, lam, tol = _one_shard(x, yv, mask, lamduh, tol)
+    obj = _make_objective(family, reg, x3, y2, m2, lam)
+    L, dt, dev = B0.shape[0], _param_dtype(x), x.device
+    xf, m1 = x3[0].to(dt), m2[0]
+    eye = torch.eye(xf.shape[1], dtype=dt, device=dev)
+    beta = B0.clone()
+    f_prev = torch.full((L,), math.inf, dtype=dt, device=dev)
+    converged = torch.zeros(L, dtype=torch.bool, device=dev)
+    k = torch.zeros(L, dtype=torch.int32, device=dev)
+    while True:
+        running = (k < max_iter) & ~converged
+        if not any_active(running):
+            break
+        f, g = obj(beta, running, True)
+        with fp32_matmul():
+            w = family.hessian_weights((xf @ beta.T).T) * m1
+            H = torch.stack([(xf * w[lane, :, None]).T @ xf for lane in range(L)])
+        if reg.smooth:
+            H = H + lam * eye
+        H = H + 1e-8 * eye
+        p = -torch.linalg.solve_ex(H, g)[0]
+        t, _, f_new, _ = run_line_search(line_search, obj, beta, f, g, p, 1e-4, 30, running,
+                                         c2=None)
+        beta = torch.where(running[:, None], beta + t[:, None] * p, beta)
+        converged = torch.where(running, _converged(f_prev, f_new, tol), converged)
+        f_prev = torch.where(running, f_new, f_prev)
+        k = k + running.to(torch.int32)
+    return beta, k
+
+
+def _check_newton_family(family):
+    if getattr(family, "params_per_feature", 1) > 1:
+        raise ValueError(
+            "newton needs scalar per-sample hessian weights; the multinomial family has a "
+            "KxK block hessian — use lbfgs/gradient_descent/proximal_grad/admm")
+
+
+def newton(X, y, *, family: type[Family] = Logistic, regularizer=L2,
+           lamduh: float = 0.0, max_iter: int = 50, tol: float = 1e-8,
+           beta0=None, return_n_iter: bool = False, line_search: str = "backtrack"):
+    """Damped Newton, one lane over all rows: the Hessian XᵀWX as one
+    product, a (d×d) solve.  Reference: ``dask_ml_tpu/solvers/algorithms.py
+    :: newton``."""
+    line_search = line_search_strategy(line_search)
+    reg = get_regularizer(regularizer)
+    _check_smooth("newton", reg, lamduh)
+    _check_newton_family(family)
+    return _solve_one(_newton_run, X, y, beta0, return_n_iter, family, lamduh, max_iter, tol,
+                      reg=reg, line_search=line_search)
 
 
 # --------------------------------------------------------------- admm --
@@ -327,7 +520,8 @@ def admm(X, y, *, family: type[Family] = Logistic, regularizer=L2,
 # ------------------------------------------------------- packed (lanes) --
 
 _PACK_ENV = "DASK_ML_TPU_TORCH_PACK"
-_NOT_PORTED = ("gradient_descent", "proximal_grad", "newton")
+_RUNNERS = {"lbfgs": _lbfgs_run, "gradient_descent": _gd_run, "proximal_grad": _pg_run,
+            "newton": _newton_run}
 
 
 def pack_strategy(n_lanes: int | None = None, device=None) -> str:
@@ -360,14 +554,14 @@ def packed_solve(solver: str, X, Y, *, family: type[Family] = Logistic,
                  line_search: str | None = None, Beta0=None):
     """K independent solves over the leading axis of ``Y`` (reference:
     ``algorithms.py :: packed_solve``).  Under ``pack_strategy() ==
-    "packed"`` they run as the lanes of one batched solve (K lanes for
-    ``lbfgs``, K·P for ``admm``), each stopping by its own rules; under
-    ``"sequential"`` as K solves.  The answers agree up to the order of
-    float32 sums.
+    "packed"`` they run as the lanes of one batched solve (K lanes for the
+    single-lane solvers, K·P for ``admm``), each stopping by its own
+    rules; under ``"sequential"`` as K solves.  The answers agree up to
+    the order of float32 sums.
 
     Args:
-      solver: ``admm`` or ``lbfgs`` (the others raise
-        ``NotImplementedError``).
+      solver: ``admm``, ``lbfgs``, ``gradient_descent``, ``proximal_grad``
+        or ``newton``.
       Y: (K, padded_rows) stacked 0/1 targets aligned with ``X``'s padded
         rows (pad rows are dead through the mask).
       Beta0: (K, D) warm starts, one row a class (default zeros).
@@ -375,14 +569,15 @@ def packed_solve(solver: str, X, Y, *, family: type[Family] = Logistic,
       (betas (K, D) tensor, n_iters (K,) int32 numpy): each class's own
       executed-iteration count.
     """
-    if solver in _NOT_PORTED:
-        raise NotImplementedError(
-            f"packed_solve with solver={solver!r} is not ported yet "
-            f"(ROADMAP: [port-admm] gradient_descent, proximal_grad, newton)")
-    if solver not in ("admm", "lbfgs"):
+    if solver != "admm" and solver not in _RUNNERS:
         raise ValueError(f"Unknown solver {solver!r}")
     reg = get_regularizer(regularizer)
+    if solver in ("lbfgs", "gradient_descent", "newton"):
+        _check_smooth(solver, reg, lamduh)
+    if solver == "newton":
+        _check_newton_family(family)
     x, _, mask = _prep(X, np.zeros(1, np.float32))
+    _no_bf16_multiclass(x)
     Yd = Y if isinstance(Y, torch.Tensor) else torch.from_numpy(np.asarray(Y, np.float32))
     Yd = Yd.to(device=x.device, dtype=_param_dtype(x))
     if Yd.ndim != 2 or Yd.shape[1] > x.shape[0]:
@@ -407,13 +602,7 @@ def packed_solve(solver: str, X, Y, *, family: type[Family] = Logistic,
         if len(Beta0) != K:
             raise ValueError(f"Beta0 must have {K} rows (one per lane); got {len(Beta0)}")
         B0 = torch.stack([_init_beta(b, x, family) for b in Beta0])
-    if solver == "lbfgs":
-        _check_smooth(solver, reg, lamduh)
-
-        def run(yv, b0):
-            return _lbfgs_run(x, yv, mask, b0, lamduh, max_iter, tol, family=family, reg=reg,
-                              line_search=line_search)
-    else:
+    if solver == "admm":
         P = get_n_shards() if n_shards is None else int(n_shards)
 
         def run(yv, b0):
@@ -421,6 +610,14 @@ def packed_solve(solver: str, X, Y, *, family: type[Family] = Logistic,
                 x, yv, mask, b0, P, lamduh=lamduh, rho=rho, abstol=abstol, reltol=reltol,
                 inner_tol=inner_tol, max_iter=max_iter, family=family, reg=reg,
                 inner_iter=inner_iter, line_search=line_search, adaptive_rho=True)
+    else:
+        runner = _RUNNERS[solver]
+        # proximal_grad has its own backtracking and takes no line search
+        extra = {} if solver == "proximal_grad" else {"line_search": line_search}
+
+        def run(yv, b0):
+            return runner(x, yv, mask, b0, lamduh, max_iter, tol, family=family, reg=reg,
+                          **extra)
 
     if strategy == "packed":
         DISPATCH_COUNTS["solves"] += 1

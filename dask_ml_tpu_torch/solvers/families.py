@@ -7,7 +7,11 @@ a row shard) and take explicit gradients: ``Logistic.loss`` and
 of x per evaluation, or, for K one-vs-rest targets ``y`` (K, P, m) over
 K·P lanes, through K2-OvR (``ops/multiclass.py``), one read of x for all
 K classes; ``multinomial(K)`` goes through K2-MN.  ``Normal`` and
-``Poisson`` are not ported yet (ROADMAP: [port-admm]).
+``Poisson`` go through K2's other two families.  A bfloat16 X (the
+reference's mixed precision) goes through K2 for the binary families; the
+multi-class kernels take float32 only, so a bf16 X with one-vs-rest
+targets or a multinomial family raises (ROADMAP: [port-admm] bf16
+multi-class).
 """
 
 from __future__ import annotations
@@ -17,6 +21,20 @@ from functools import lru_cache
 import torch
 
 from ..ops import logistic, multiclass
+
+
+def _no_bf16_multiclass(X):
+    if X.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "a bfloat16 design matrix with a multi-class fit is not ported yet "
+            "(ROADMAP: [port-admm] bf16 multi-class); pass float32")
+
+
+def _one_target(y, family):
+    if y.ndim != 2:
+        raise NotImplementedError(
+            f"{family} takes one target a lane, y (P, m); packed one-vs-rest targets "
+            "are the logistic family's (ROADMAP: [port-admm] packed Normal/Poisson)")
 
 
 class Family:
@@ -50,23 +68,69 @@ class Logistic(Family):
     @staticmethod
     def loss(beta, X, y, mask, active=None):
         if y.ndim == 3:
+            _no_bf16_multiclass(X)
             return multiclass.logistic_ovr_value(X, y, mask, beta, active)
         return logistic.logistic_value(X, y, mask, beta, active)
 
     @staticmethod
     def loss_and_grad(beta, X, y, mask, active=None):
         if y.ndim == 3:
+            _no_bf16_multiclass(X)
             return multiclass.logistic_ovr_value_and_grad(X, y, mask, beta, active)
         return logistic.logistic_value_and_grad(X, y, mask, beta, active)
 
     @staticmethod
     def hessian_weights(eta):
-        p = torch.sigmoid(eta)
+        p = 1.0 / (1.0 + torch.exp(-eta))  # the reference's form, for newton's parity
         return p * (1.0 - p)
 
     @staticmethod
     def predict(eta):
         return torch.sigmoid(eta)
+
+
+class Normal(Family):
+    """Gaussian: loss = ½ Σ mask·(y − Xβ)²."""
+
+    @staticmethod
+    def loss(beta, X, y, mask, active=None):
+        _one_target(y, "Normal")
+        return logistic.normal_value(X, y, mask, beta, active)
+
+    @staticmethod
+    def loss_and_grad(beta, X, y, mask, active=None):
+        _one_target(y, "Normal")
+        return logistic.normal_value_and_grad(X, y, mask, beta, active)
+
+    @staticmethod
+    def hessian_weights(eta):
+        return torch.ones_like(eta)
+
+    @staticmethod
+    def predict(eta):
+        return eta
+
+
+class Poisson(Family):
+    """Counts: loss = Σ mask·(exp(Xβ) − y·Xβ)."""
+
+    @staticmethod
+    def loss(beta, X, y, mask, active=None):
+        _one_target(y, "Poisson")
+        return logistic.poisson_value(X, y, mask, beta, active)
+
+    @staticmethod
+    def loss_and_grad(beta, X, y, mask, active=None):
+        _one_target(y, "Poisson")
+        return logistic.poisson_value_and_grad(X, y, mask, beta, active)
+
+    @staticmethod
+    def hessian_weights(eta):
+        return torch.exp(eta)
+
+    @staticmethod
+    def predict(eta):
+        return torch.exp(eta)
 
 
 @lru_cache(maxsize=None)
@@ -82,10 +146,12 @@ def multinomial(n_classes: int) -> type[Family]:
 
         @staticmethod
         def loss(beta, X, y, mask, active=None):
+            _no_bf16_multiclass(X)
             return multiclass.multinomial_value(X, y, mask, beta, active)
 
         @staticmethod
         def loss_and_grad(beta, X, y, mask, active=None):
+            _no_bf16_multiclass(X)
             return multiclass.multinomial_value_and_grad(X, y, mask, beta, active)
 
         @staticmethod

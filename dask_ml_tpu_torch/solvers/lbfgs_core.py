@@ -93,6 +93,10 @@ def _backtrack_wolfe(fun, x, f0, g, p, c1, c2, max_backtracks, active):
     still holds at 2t.  Lanes step in lockstep, each by its own
     predicates, as the reference's ``bt_cond``/``ex_cond`` loops do.
 
+    ``c2=None`` is pure Armijo (``gradient_descent`` and ``newton``): no
+    expansion, and no gradient is evaluated; a lane whose search failed
+    gets ``t = 0`` and ``f_t = f0``, as the reference's; ``g_t`` is None.
+
     Returns ``(t, failed, f_t, g_t)`` with ``(f_t, g_t)`` the objective at
     ``x + t·p``: every expansion check evaluates it there (the reference's
     ``value_and_grad(x + t*p)`` in ``ex_cond``), and a lane's last check is
@@ -116,6 +120,8 @@ def _backtrack_wolfe(fun, x, f0, g, p, c1, c2, max_backtracks, active):
         j = j + bt.to(torch.int32)
     failed = (j >= max_backtracks) & (f_new > f0 + c1 * t * dg)
     t = torch.where(failed, 0.0, t)
+    if c2 is None:
+        return t, failed, torch.where(failed, f0, f_new), None
 
     j = torch.zeros_like(j)
     ex = active
@@ -153,7 +159,8 @@ def check_line_search(strategy):
 def run_line_search(strategy, fun, x, f0, g, p, c1, max_backtracks, active, c2=0.9):
     """Dispatch on the strategy: ``backtrack`` only (``probe_grid`` is not
     ported).  Returns ``(t, failed, f_t, g_t)``, see
-    :func:`_backtrack_wolfe`."""
+    :func:`_backtrack_wolfe`; ``c2=None`` is pure Armijo, with ``g_t``
+    None."""
     check_line_search(strategy)
     return _backtrack_wolfe(fun, x, f0, g, p, c1, c2, max_backtracks, active)
 

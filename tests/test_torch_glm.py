@@ -14,6 +14,14 @@ the outer loop at fixed work too (``tol=0``, ``reltol=0``: see
 ``test_torch_multiclass.py``), and a multi-class ``predict`` is held on
 the rows whose two largest reference margins are more than 1e-3 apart
 (a rounding may flip the others), ``score`` to the share of the others.
+
+``LinearRegression`` and ``PoissonRegression`` (and ``LogisticRegression``
+by ``gradient_descent``, ``proximal_grad`` and ``newton``) are held the
+same way: β to 1e-4·‖β‖∞ with equal ``n_iter_``, ``predict`` to the
+margins' bound above (relatively for Poisson's exp), ``score`` (R², minus
+the deviance) to 1e-5 and rtol 1e-5.  The single-lane solvers stop by
+their relative-decrease rule at the estimators' ``tol=1e-4``, well above
+the float32 rounding of the objective (``test_torch_glm_solvers.py``).
 """
 
 import numpy as np
@@ -22,14 +30,20 @@ import torch
 
 import jax.numpy as jnp
 
+from dask_ml_tpu.core import shard_rows as ref_shard_rows
+from dask_ml_tpu.linear_model import LinearRegression as RefLinearRegression
 from dask_ml_tpu.linear_model import LogisticRegression as RefLogisticRegression
+from dask_ml_tpu.linear_model import PoissonRegression as RefPoissonRegression
+from dask_ml_tpu.metrics import r2_score as ref_r2_score
 from dask_ml_tpu.utils import effective_mask as ref_effective_mask
 from dask_ml_tpu.utils import host_class_weight_rows as ref_host_class_weight_rows
-from dask_ml_tpu_torch import LogisticRegression, logistic_regression_from_reference
+from dask_ml_tpu_torch import (
+    LogisticRegression, linear_regression_from_reference, logistic_regression_from_reference,
+    poisson_regression_from_reference)
 from dask_ml_tpu_torch.base import clone
-from dask_ml_tpu_torch.core import mesh
+from dask_ml_tpu_torch.core import mesh, shard_rows
+from dask_ml_tpu_torch.metrics.regression import r2_score
 from dask_ml_tpu_torch.linear_model import LinearRegression, PoissonRegression
-from dask_ml_tpu_torch.solvers import packed_solve
 from dask_ml_tpu_torch.utils import effective_mask, host_class_weight_rows
 
 FIXED_INNER = {"inner_tol": 0.0, "inner_iter": 30}
@@ -151,25 +165,16 @@ def test_from_reference_predicts_what_the_reference_does():
         logistic_regression_from_reference({"coef_": arrays["coef_"]})
 
 
-@pytest.mark.parametrize("case", ["fit_checkpoint", "newton", "bf16", "linear", "poisson",
-                                  "packed_gradient_descent"])
+@pytest.mark.parametrize("case", ["fit_checkpoint", "bf16_multinomial"])
 def test_unported_paths_raise(case):
     X, y = _data(7, n=64)
     est, fit_X, fit_y = LogisticRegression(), X, y
     if case == "fit_checkpoint":
         est = LogisticRegression(fit_checkpoint=object())
-    elif case == "newton":
-        est = LogisticRegression(solver="newton")
-    elif case == "bf16":
-        fit_X = torch.from_numpy(X).bfloat16()
-    elif case == "linear":
-        est = LinearRegression()
-    elif case == "poisson":
-        est = PoissonRegression()
-    elif case == "packed_gradient_descent":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            packed_solve("gradient_descent", X, np.stack([y, 1 - y]).astype(np.float32))
-        return
+    elif case == "bf16_multinomial":
+        # bf16 X reaches K2 only; K2-MN takes float32
+        est = LogisticRegression(solver="lbfgs", multi_class="multinomial")
+        fit_X, fit_y = torch.from_numpy(X).bfloat16(), np.arange(64) % 3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         est.fit(fit_X, fit_y)
 
@@ -355,3 +360,162 @@ def test_class_weight_rows_match_reference(class_weight):
     np.testing.assert_allclose(port.numpy()[:203], host * sw, rtol=1e-6)
     with pytest.raises(ValueError, match="dict or 'balanced'"):
         host_class_weight_rows("even", classes, y)
+
+
+# ------------------------------------------------- regression estimators
+
+SOLVERS = ["admm", "lbfgs", "gradient_descent", "proximal_grad", "newton"]
+
+
+def _reg_data(kind, seed, n=2003, d=6):
+    rng = np.random.RandomState(seed)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    w = rng.standard_normal(d)
+    if kind == "linear":
+        y = (X @ w + 0.5 + rng.standard_normal(n)).astype(np.float32)
+    else:
+        y = rng.poisson(np.exp(X @ (0.3 * w) + 0.2)).astype(np.float32)
+    return X, y
+
+
+def _reg_kwargs(kind, solver):
+    if solver != "admm":
+        return dict(solver=solver)
+    if kind == "linear":
+        return dict(solver="admm", solver_kwargs=FIXED_INNER)
+    # Poisson ADMM at fixed work (test_torch_glm_solvers.py says why)
+    return dict(solver="admm", tol=0.0, max_iter=5,
+                solver_kwargs={"inner_tol": 0.0, "inner_iter": 10, "reltol": 0.0})
+
+
+def _hold_regression(port, ref, X, y, sample_weight=None):
+    beta_ref = np.append(np.asarray(ref.coef_), ref.intercept_)
+    beta = np.append(_as_np(port.coef_), port.intercept_)
+    scale = np.abs(beta_ref).max()
+    assert np.abs(beta - beta_ref).max() <= 1e-4 * scale
+    np.testing.assert_array_equal(port.n_iter_, np.asarray(ref.n_iter_))
+    bound = 1e-4 * scale * (np.abs(X).sum(1).max() + 1)
+    got, want = _as_np(port.predict(X)), np.asarray(ref.predict(X))
+    if isinstance(port, PoissonRegression):
+        np.testing.assert_allclose(got, want, rtol=bound, atol=0)
+        np.testing.assert_allclose(port.get_deviance(X, y, sample_weight),
+                                   ref.get_deviance(X, y, sample_weight), rtol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=bound)
+    np.testing.assert_allclose(port.score(X, y, sample_weight=sample_weight),
+                               ref.score(X, y, sample_weight=sample_weight), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "sample_weight"])
+@pytest.mark.parametrize("solver", SOLVERS)
+@pytest.mark.parametrize("kind", ["linear", "poisson"])
+def test_regression_fit_matches_reference(kind, solver, weighted):
+    X, y = _reg_data(kind, 0)
+    sw = (np.random.RandomState(5).uniform(0.2, 3.0, X.shape[0]).astype(np.float32)
+          if weighted else None)
+    kw = _reg_kwargs(kind, solver)
+    Ref, Port = ((RefLinearRegression, LinearRegression) if kind == "linear"
+                 else (RefPoissonRegression, PoissonRegression))
+    ref = Ref(**kw).fit(X, y, sample_weight=sw)
+    port = Port(**kw).fit(X, y, sample_weight=sw)
+    assert port.coef_.shape == (X.shape[1],) and isinstance(port.intercept_, float)
+    _hold_regression(port, ref, X, y, sample_weight=sw)
+    if weighted:
+        plain = Port(**kw).fit(X, y)
+        assert np.abs(_as_np(plain.coef_) - _as_np(port.coef_)).max() > 1e-3
+
+
+@pytest.mark.parametrize("kind", ["linear", "poisson"])
+def test_regression_warm_start_and_bf16_match_reference(kind):
+    X, y = _reg_data(kind, 1)
+    X2, y2 = _reg_data(kind, 2)
+    Ref, Port = ((RefLinearRegression, LinearRegression) if kind == "linear"
+                 else (RefPoissonRegression, PoissonRegression))
+    kw = dict(solver="gradient_descent", warm_start=True, max_iter=3, tol=0.0)
+    ref = Ref(**kw).fit(X, y).fit(X2, y2)
+    port = Port(**kw).fit(X, y).fit(X2, y2)
+    _hold_regression(port, ref, X2, y2)
+    cold = Port(**dict(kw, warm_start=False)).fit(X2, y2)
+    assert np.abs(_as_np(cold.betas_) - _as_np(port.betas_)).max() > 1e-4
+    # a bfloat16 X (the reference's shard_rows(X, dtype=bfloat16)): float32 β
+    ref = Ref(solver="lbfgs").fit(ref_shard_rows(X, dtype=jnp.bfloat16), y)
+    port = Port(solver="lbfgs").fit(shard_rows(X, dtype=torch.bfloat16), y)
+    assert port.coef_.dtype == torch.float32
+    _hold_regression(port, ref, X, y)
+
+
+@pytest.mark.parametrize("multiclass", [False, True], ids=["binary", "ovr"])
+@pytest.mark.parametrize("solver", ["gradient_descent", "proximal_grad", "newton"])
+def test_logistic_new_solvers_match_reference(solver, multiclass):
+    kw = dict(solver=solver, C=2.0)
+    if multiclass:
+        X, y = _multi_data(2)
+        ref = RefLogisticRegression(**kw).fit(X, y)
+        port = LogisticRegression(**kw).fit(X, y)
+        _hold_multi(port, ref, X, y)
+    else:
+        X, y = _data(0)
+        ref = RefLogisticRegression(**kw).fit(X, y)
+        port = LogisticRegression(**kw).fit(X, y)
+        _hold(port, ref, X, y)
+
+
+def test_bf16_logistic_matches_reference():
+    X, y = _data(1)
+    ref = RefLogisticRegression(solver="lbfgs").fit(ref_shard_rows(X, dtype=jnp.bfloat16), y)
+    port = LogisticRegression(solver="lbfgs").fit(shard_rows(X, dtype=torch.bfloat16), y)
+    assert port.coef_.dtype == torch.float32
+    _hold(port, ref, X, y)
+    Xb = shard_rows(X, dtype=torch.bfloat16)  # predict widens a bf16 X
+    np.testing.assert_array_equal(port.predict(Xb), np.asarray(ref.predict(X)))
+
+
+@pytest.mark.parametrize("kind", ["linear", "poisson"])
+def test_regression_from_reference_predicts_what_the_reference_does(kind):
+    X, y = _reg_data(kind, 3)
+    Ref = RefLinearRegression if kind == "linear" else RefPoissonRegression
+    convert = (linear_regression_from_reference if kind == "linear"
+               else poisson_regression_from_reference)
+    ref = Ref(solver="lbfgs").fit(X, y)
+    arrays = {k: np.asarray(getattr(ref, k)) for k in ("coef_", "intercept_", "n_iter_")}
+    port = convert(arrays)
+    np.testing.assert_allclose(_as_np(port.predict(X)), np.asarray(ref.predict(X)), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(port.score(X, y), ref.score(X, y), rtol=1e-5)
+    np.testing.assert_array_equal(port.n_iter_, np.asarray(ref.n_iter_))
+    assert port.intercept_ == float(np.float32(ref.intercept_))
+    with pytest.raises(ValueError, match="missing"):
+        convert({"coef_": arrays["coef_"]})
+    no_icpt = convert(dict(arrays, intercept_=0.0), fit_intercept=False)
+    assert tuple(no_icpt.betas_.shape) == (1, X.shape[1]) and no_icpt.intercept_ == 0.0
+
+
+def test_r2_score_matches_reference():
+    rng = np.random.RandomState(4)
+    t = rng.standard_normal(203).astype(np.float32)
+    p = (t + 0.3 * rng.standard_normal(203)).astype(np.float32)
+    sw = rng.uniform(0.5, 2.0, 203).astype(np.float32)
+    assert r2_score(t, p) == pytest.approx(ref_r2_score(t, p), rel=1e-6)
+    assert r2_score(t, p, sample_weight=sw) == pytest.approx(
+        ref_r2_score(t, p, sample_weight=sw), rel=1e-6)
+    # padded rows of a ShardedRows side are masked out
+    assert r2_score(shard_rows(t), torch.from_numpy(p)) == pytest.approx(
+        ref_r2_score(ref_shard_rows(t), p), rel=1e-6)
+    # a constant target: 1.0 for a perfect fit, else 0.0
+    c = np.full(20, 2.5, np.float32)
+    assert r2_score(c, c) == ref_r2_score(c, c) == 1.0
+    assert r2_score(c, c + 1.0) == ref_r2_score(c, c + 1.0) == 0.0
+    with pytest.raises(ValueError, match="different lengths"):
+        r2_score(t, p[:10])
+
+
+def test_regressor_contract():
+    for cls in (LinearRegression, PoissonRegression):
+        est = cls(C=3.0, solver="newton")
+        assert est._estimator_type == "regressor"
+        assert clone(est).get_params() == est.get_params()
+        with pytest.raises(NotImplementedError, match="fit_checkpoint"):
+            cls(fit_checkpoint=object()).fit(*_reg_data("linear", 0, n=32))
+        with pytest.raises(ValueError, match="Unknown solver"):
+            cls(solver="sgd").fit(*_reg_data("linear", 0, n=32))

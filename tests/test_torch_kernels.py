@@ -1,5 +1,6 @@
-"""The Lloyd kernels, K2 (the logistic loss and gradient) and K2-OvR and
-K2-MN (the multi-class losses) against their plain versions, on a card.
+"""The Lloyd kernels, K2 (the logistic, normal and Poisson losses and
+gradients, on float32 or bfloat16 x) and K2-OvR and K2-MN (the
+multi-class losses) against their plain versions, on a card.
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip without a
 card and ``nvcc``.  They import neither JAX nor the reference, so on a
@@ -12,8 +13,13 @@ plain reduce taken in float64, since float32 atomics carry an error of
 that size themselves), and d² to 1e-5 of ‖x‖²+‖c‖²; a label may differ
 only where the two smallest d² are that close.  K2's f and g agree with
 the plain version to 1e-5 of their Σ|terms| (float64), the scale of the
-float32 rounding of either summation order; so do K2-OvR's and K2-MN's
-against their plain versions taken in float64.
+float32 rounding of either summation order, for every family and for a
+bf16 x (both read the same bf16 values and widen them to float32), where
+the Σ|terms| of the normal and Poisson families and of bf16 x also carry
+each row's η rounding through the loss's derivative (at Poisson's |η| ~
+80 one row's exp(η) is most of the sum, and its η rounding, times
+exp(η), is what two summation orders differ by); so do K2-OvR's and
+K2-MN's against their plain versions taken in float64.
 """
 
 import shutil
@@ -254,8 +260,12 @@ def test_logistic_leaves_inactive_lanes_unwritten(cuda, grad):
 @pytest.mark.cuda
 def test_logistic_rejects_what_the_kernel_does_not_take(cuda):
     x, y, mask, beta = _logistic_inputs(2, 100, 29, 1, cuda)
-    with pytest.raises(TypeError, match="float32"):
-        logistic.logistic_value_and_grad(x.bfloat16(), y, mask, beta)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            logistic.logistic_value_and_grad(x.to(dtype), y, mask, beta)
+    logistic.logistic_value_and_grad(x.bfloat16(), y, mask, beta)  # the bf16 variant
+    with pytest.raises(TypeError, match="beta must be float32"):
+        logistic.logistic_value_and_grad(x, y, mask, beta.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         logistic.logistic_value_and_grad(x.transpose(1, 2).contiguous().transpose(1, 2),
                                          y, mask, beta)
@@ -270,6 +280,96 @@ def test_logistic_wrappers_count_their_launches(cuda):
     logistic.logistic_value_and_grad_ref(x, y, mask, beta)
     assert (logistic.logistic_value_and_grad.launches,
             logistic.logistic_value.launches) == (before[0] + 1, before[1] + 1)
+
+
+# ------------------------------------- K2's other families and bf16 x
+
+# (P, m, d): m = 1001, 1002, 1003 put bf16 lane bases (58-byte rows at
+# d = 29) off 16-byte boundaries; m = 37 is less than a tile; d = 1 and
+# 130 change the rows a tile; d = 2000 takes row_kernel
+GLM_SHAPES = [(3, 1001, 29), (3, 1002, 29), (3, 1003, 29), (2, 37, 29), (3, 777, 1),
+              (2, 4097, 130), (2, 300, 2000)]
+GLM_VARIANTS = [("normal", torch.float32), ("normal", torch.bfloat16),
+                ("poisson", torch.float32), ("poisson", torch.bfloat16),
+                ("logistic", torch.bfloat16)]
+
+
+def _glm_inputs(family, P, m, d, seed, device, dtype):
+    """x (float32 or bf16), y fitting the family, a weighted mask in [0, 3]
+    with zeros, β (Poisson: scaled to |η| up to 80), lane 1 inactive."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(P, m, d, generator=gen, device=device).to(dtype)
+    beta = torch.randn(P, d, generator=gen, device=device) / d ** 0.5
+    if family == "logistic":
+        y = (torch.rand(P, m, generator=gen, device=device) < 0.4).float()
+    elif family == "normal":
+        y = 3.0 * torch.randn(P, m, generator=gen, device=device)
+    else:
+        y = torch.poisson(torch.full((P, m), 2.0, device=device), generator=gen)
+        eta = torch.einsum("pmd,pd->pm", x.float(), beta)
+        beta = beta * (80.0 / eta.abs().amax(dim=1, keepdim=True))
+    mask = 3.0 * torch.rand(P, m, generator=gen, device=device)
+    mask[torch.rand(P, m, generator=gen, device=device) < 0.1] = 0.0
+    active = torch.ones(P, dtype=torch.bool, device=device)
+    active[1] = False
+    return x, y, mask, beta, active
+
+
+def _glm_magnitudes(family, x, y, mask, beta):
+    """Σ|terms| of f and of each g element, in float64, with each row's η
+    rounding carried through the loss: a row adds |ℓ'(η)|·s to f's and
+    |w'(η)|·s·|x| to g's, s = Σ_j |x_j β_j|.  At Poisson's |η| ~ 80 one
+    row's exp(η) is most of the sum, and the rounding of its η, times
+    exp'(η) = exp(η), is what two summation orders differ by."""
+    x, y, mask, beta = x.double(), y.double(), mask.double(), beta.double()
+    eta = torch.einsum("pmd,pd->pm", x, beta)
+    spread = torch.einsum("pmd,pd->pm", x.abs(), beta.abs())
+    if family == "logistic":
+        sig = torch.sigmoid(eta)
+        f_terms = torch.logaddexp(torch.zeros_like(eta), eta).abs() + (y * eta).abs()
+        w, dloss, dw = sig - y, sig - y, sig * (1.0 - sig)
+    elif family == "normal":
+        f_terms, w, dloss, dw = 0.5 * (y - eta) ** 2, eta - y, eta - y, torch.ones_like(eta)
+    else:
+        mu = torch.exp(eta)
+        f_terms, w, dloss, dw = mu + (y * eta).abs(), mu - y, mu - y, mu
+    f_mag = (mask * (f_terms + dloss.abs() * spread)).sum(1)
+    g_mag = torch.einsum("pm,pmd->pd", mask * (w.abs() + dw * spread), x.abs())
+    return f_mag, g_mag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,dtype", GLM_VARIANTS,
+                         ids=[f"{f}-{str(t)[6:]}" for f, t in GLM_VARIANTS])
+@pytest.mark.parametrize("P,m,d", GLM_SHAPES)
+def test_glm_variants_match_plain_version(cuda, family, dtype, P, m, d):
+    x, y, mask, beta, active = _glm_inputs(family, P, m, d, P * m + d, cuda, dtype)
+    vg = getattr(logistic, f"{family}_value_and_grad")
+    v = getattr(logistic, f"{family}_value")
+    f, g = vg(x, y, mask, beta, active)
+    fv = v(x, y, mask, beta, active)
+    again = vg(x, y, mask, beta, active)
+    torch.cuda.synchronize()
+    assert torch.equal(f, fv) and torch.equal(f, again[0]) and torch.equal(g, again[1])
+    assert float(f[1]) == 0.0 and not bool(g[1].any())  # lane 1 never written
+    rf, rg = logistic.glm_value_and_grad_ref(family, x, y, mask, beta)
+    f_mag, g_mag = _glm_magnitudes(family, x, y, mask, beta)
+    assert bool(torch.isfinite(f[active]).all()) and bool(torch.isfinite(g[active]).all())
+    assert bool(((f - rf).abs()[active].double() <= TOL * f_mag[active] + 1e-6).all())
+    assert bool(((g - rg).abs()[active].double() <= TOL * g_mag[active] + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_glm_wrappers_count_their_launches(cuda):
+    x, y, mask, beta, _ = _glm_inputs("normal", 2, 100, 5, 1, cuda, torch.bfloat16)
+    for family in ("normal", "poisson"):
+        vg = getattr(logistic, f"{family}_value_and_grad")
+        v = getattr(logistic, f"{family}_value")
+        before = (vg.launches, v.launches, logistic.glm_value_and_grad_ref.calls)
+        vg(x, y, mask, beta)
+        v(x, y, mask, beta)
+        assert (vg.launches, v.launches, logistic.glm_value_and_grad_ref.calls) == (
+            before[0] + 1, before[1] + 1, before[2])
 
 
 # --------------------------------------------------------- K2-OvR, K2-MN

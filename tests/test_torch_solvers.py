@@ -40,7 +40,7 @@ from dask_ml_tpu_torch.core import mesh, shard_rows
 from dask_ml_tpu_torch.linear_model.utils import add_intercept
 from dask_ml_tpu_torch.ops import logistic
 from dask_ml_tpu_torch.solvers import (
-    HOST_SYNCS, Logistic, admm, lbfgs, lbfgs_minimize, regularizers)
+    HOST_SYNCS, Logistic, admm, lbfgs, lbfgs_minimize, packed_solve, regularizers)
 from dask_ml_tpu_torch.solvers import algorithms
 
 RTOL_BETA = 1e-4
@@ -326,8 +326,8 @@ def test_unported_options_raise():
     X, y = _logistic_data(1, 64, 3)
     with pytest.raises(NotImplementedError, match="probe_grid"):
         lbfgs(X, y, line_search="probe_grid")
-    with pytest.raises(NotImplementedError, match="bf16 X"):
-        admm(torch.from_numpy(X).bfloat16(), y)
+    with pytest.raises(NotImplementedError, match="bf16 multi-class"):
+        packed_solve("admm", torch.from_numpy(X).bfloat16(), np.stack([y, 1 - y]))
     with pytest.raises(ValueError, match="smooth penalty"):
         lbfgs(X, y, regularizer="l1", lamduh=1.0)
     assert algorithms.line_search_strategy("auto") == "backtrack"
