@@ -96,8 +96,28 @@ Phases, in order; any failure exits non-zero:
    path's shape (8, 1.375M, 29) held against its plain version, then timed
    (CUDA events over 20 launches) beside its plain version (3 runs), its
    bound by bytes and the ``torch.bmm`` pair (informational), with K2
-   float32 logistic timed again there as the control.  Then the
-   ``kernels`` line, the card line and the result.
+   float32 logistic timed again there as the control.
+9. TSQR and decomposition at bench.py's ``tsqr_4000000x64`` (4M x 64
+   float32, 8 shards, nothing cut): X = Z·diag(s)·Rᵀ + μ generated on the
+   card (Z standard normal, R the Q factor of a seeded Gaussian, s_j =
+   10·0.9^j for j < 10 and 0.97^(j−10) after, μ_j = 5 + j/8), checked
+   against its float64 covariance and uncentred Gram (2^20-row chunks,
+   ``eigh``).  9a: ``tsqr`` by both strategies on the centred X
+   (‖QR−X‖_F/‖X‖_F ≤ 1e-5, ‖QᵀQ−I‖_max ≤ 1e-4, cholqr2's guard accepts),
+   and a 1M x 64 instance of cond ~1e6 (scales 10^(−6j/63), rotated) that
+   must take the Householder route within the same bounds; each strategy
+   timed (CUDA events, 10 calls) beside bench.py's cost model.  9b:
+   ``PCA(10, "full")``, ``PCA(10)`` (auto, randomized here),
+   ``TruncatedSVD(10)`` by tsqr and randomized and
+   ``IncrementalPCA(10, batch_size=2**18)``, each timed on the host clock
+   with its peak memory and host reads, and held to the float64
+   eigenpairs (explained variance rtol 1e-4, IncrementalPCA 1e-3; |cos|
+   ≥ 0.99999 exact, 0.9999 randomized and incremental; ``mean_`` 1e-4);
+   one more PCA full fit profiled; each IncrementalPCA update timed, and
+   its float64 Gram and ``eigh`` alone; the randomized sketch products and the
+   sketch's TSQR beside their bounds; a small fit of each estimator on
+   the card against the CPU (TOL); ``dryrun_multichip(8)`` with its PCA
+   section.  Then the ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -177,6 +197,16 @@ GLM_ETA_MAX = 80.0  # Poisson's largest |η| in 8a: exp stays finite in float32
 GLM_WRAPPERS = ("logistic_value_and_grad", "logistic_value", "normal_value_and_grad",
                 "normal_value", "poisson_value_and_grad", "poisson_value")
 SOLVER_ITERS = {"gradient_descent": 20, "proximal_grad": 20, "newton": 5}
+# phase 9: bench.py's ``tsqr_4000000x64`` and the decomposition estimators
+PCA_ROWS = 4_000_000
+PCA_D = 64
+PCA_SHARDS = 8
+PCA_K = 10
+PCA_PASSES = 11  # the PCA full fit's bound: passes of X (mean 1, centring 2, cholqr2 6, U 2)
+ILL_ROWS = 1_000_000  # the cond ~1e6 instance that must take the Householder route
+IPCA_BATCH = 1 << 18
+TSQR_REPS = 10
+SMALL_DECOMP = (20_011, 16)  # the small fits held between the card and the CPU
 
 
 def log(msg: str) -> None:
@@ -1846,6 +1876,359 @@ def glm_phase(torch, logistic, algorithms, device, card, acc6):
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+
+def pca_standin(torch, n, d, seed, device, scales=None, mean=True):
+    """X = Z·diag(s)·Rᵀ + μ on the card: Z standard normal, R the Q factor
+    of a seeded d×d Gaussian, s_j = 10·0.9^j for j < 10 and 0.97^(j−10)
+    after (a gap after the tenth component, condition ~50), μ_j = 5 + j/8.
+    ``scales`` replaces s and ``mean=False`` drops μ."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    j = torch.arange(d, dtype=torch.float64)
+    if scales is None:
+        scales = torch.where(j < 10, 10.0 * 0.9 ** j, 0.97 ** (j - 10))
+    s = scales.to(torch.float32).to(device)
+    R, _ = torch.linalg.qr(torch.randn(d, d, generator=gen, device=device))
+    mu = 5.0 + torch.arange(d, device=device, dtype=torch.float32) / 8
+    X = torch.empty(n, d, device=device)
+    for a in range(0, n, CHUNK):
+        z = torch.randn(min(CHUNK, n - a), d, generator=gen, device=device)
+        X[a:a + CHUNK] = (z * s) @ R.T + (mu if mean else 0.0)
+    return X
+
+
+def float64_moments(torch, X):
+    """The float64 mean, covariance (ddof 1, centred by the float64 mean)
+    and uncentred Gram of X, summed over 2^20-row chunks."""
+    n, d = X.shape
+    f64 = dict(dtype=torch.float64, device=X.device)
+    total = torch.zeros(d, **f64)
+    for a in range(0, n, CHUNK):
+        total += X[a:a + CHUNK].double().sum(dim=0)
+    mean = total / n
+    C, G = torch.zeros(d, d, **f64), torch.zeros(d, d, **f64)
+    for a in range(0, n, CHUNK):
+        x = X[a:a + CHUNK].double()
+        G += x.T @ x
+        x -= mean
+        C += x.T @ x
+    return mean, C / (n - 1), G
+
+
+def top_eigen(torch, M, k):
+    """The k largest eigenvalues of a symmetric M, descending, and their
+    eigenvectors as rows."""
+    w, V = torch.linalg.eigh(M)
+    return w.flip(0)[:k], V.flip(1)[:, :k].T
+
+
+def worst_rel(torch, got, want):
+    return float(((got.double() - want).abs() / want.abs()).max())
+
+
+def min_cos(torch, comps, vecs):
+    c = comps.double()
+    return float(((c * vecs).sum(dim=1) / c.norm(dim=1)).abs().min())
+
+
+def gate(ok, what):
+    if not ok:
+        raise AssertionError(f"phase 9: {what}")
+
+
+def gram64(torch, q):
+    """QᵀQ in float64, summed over 2^20-row chunks: a float32 QᵀQ over
+    millions of rows carries rounding of the order the check bounds."""
+    g = torch.zeros(q.shape[1], q.shape[1], dtype=torch.float64, device=q.device)
+    for a in range(0, q.shape[0], CHUNK):
+        x = q[a:a + CHUNK].double()
+        g += x.T @ x
+    return g
+
+
+def hold_tsqr(torch, tsqr_fn, X, strategy, what):
+    """Phase 9a: Q R of X by ``strategy``: ‖QR−X‖_F/‖X‖_F ≤ 1e-5 and
+    ‖QᵀQ−I‖_max ≤ 1e-4 (QᵀQ in float64); returns R."""
+    q, r = tsqr_fn(X, strategy)
+    resid = float(torch.linalg.norm(q @ r - X) / torch.linalg.norm(X))
+    eye = torch.eye(X.shape[1], dtype=torch.float64, device=X.device)
+    ortho = float((gram64(torch, q) - eye).abs().max())
+    log(f"phase 9a: tsqr {strategy} {what}: ‖QR−X‖_F/‖X‖_F {resid:.3e}, ‖QᵀQ−I‖_max "
+        f"{ortho:.3e}, min diag R {float(torch.diagonal(r).min()):.6g}")
+    gate(resid <= 1e-5, f"tsqr {strategy} {what}: residual {resid} > 1e-5")
+    gate(ortho <= 1e-4, f"tsqr {strategy} {what}: orthogonality {ortho} > 1e-4")
+    return r
+
+
+def tsqr_bound(n, d, strategy):
+    """bench.py's cost models: cholqr2 six passes of X and 8nd² FLOPs,
+    Householder two passes and 4nd²."""
+    passes, flops = (6, 8.0) if strategy == "cholqr2" else (2, 4.0)
+    return bound_ms(passes * n * d * 4, flops * n * d * d)
+
+
+def tsqr_phase(torch, linalg, Xc, device, card):
+    """Phase 9a: both strategies on the centred X, the guard's Householder
+    route on an ill-conditioned instance, and each strategy's time."""
+    from dask_ml_tpu_torch.core import use_device
+
+    n, d = Xc.shape
+
+    def run(X, strategy):
+        with use_device(device, n_shards=PCA_SHARDS):
+            return linalg.tsqr(X, strategy)
+
+    for strategy in ("cholqr2", "householder"):
+        r = hold_tsqr(torch, run, Xc, strategy, f"{n}x{d}")
+        if strategy == "cholqr2":
+            gate(float(torch.diagonal(r).min()) > 0, "cholqr2's guard refused the centred X")
+        del r
+        ms = time_ms(torch, lambda s=strategy: run(Xc, s), TSQR_REPS)
+        b, by = tsqr_bound(n, d, strategy)
+        log(f"phase 9a: tsqr {strategy} {n}x{d} at {PCA_SHARDS} shards: {ms:.4f} ms a call "
+            f"(CUDA events, {TSQR_REPS} calls), bound {b:.4f} ms by {by} ({100 * b / ms:.1f}%) "
+            f"[{card}]")
+    scales = 10.0 ** (-6.0 * torch.arange(d, dtype=torch.float64) / (d - 1))
+    Xill = pca_standin(torch, ILL_ROWS, d, 2, device, scales=scales, mean=False)
+    linalg.HOST_READS["reads"] = 0
+    r = hold_tsqr(torch, run, Xill, "cholqr2", f"{ILL_ROWS}x{d}, cond ~1e6")
+    gate(float(torch.diagonal(r).min()) < 0, "the cond ~1e6 instance kept cholqr2's route")
+    log(f"phase 9a: the cond ~1e6 instance took the Householder route "
+        f"({linalg.HOST_READS['reads']} guard read)")
+    del Xill, r
+
+
+def decomposition_fit(torch, linalg, label, make, X, card):
+    """Phase 9b: one fit on the host clock after a sync, with its
+    n_components_, peak memory and host reads."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    linalg.HOST_READS["reads"] = 0
+    t0 = time.perf_counter()
+    est = make().fit(X)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    k = getattr(est, "n_components_", est.components_.shape[0])
+    log(f"phase 9b: {label} {tuple(X.shape)}: {ms:.3f} ms on the host clock, n_components_ {k}, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"{linalg.HOST_READS['reads']} host reads [{card}]")
+    return est, ms
+
+
+def hold_pca(torch, label, est, mean, evals, evecs, total, min_c):
+    """Phase 9b's gates for PCA and IncrementalPCA against the float64
+    covariance's top eigenpairs."""
+    rtol = 1e-3 if label.startswith("IncrementalPCA") else 1e-4
+    ev = worst_rel(torch, est.explained_variance_, evals)
+    cos = min_cos(torch, est.components_, evecs)
+    dmean = float((est.mean_.double() - mean).abs().max())
+    ratio = worst_rel(torch, est.explained_variance_ratio_, evals / total)
+    log(f"phase 9b: {label}: explained_variance_ worst rel {ev:.3e} (≤ {rtol:g}), min |cos| "
+        f"{cos:.8f} (≥ {min_c}), mean_ worst abs {dmean:.3e} (≤ 1e-4), ratio worst rel "
+        f"{ratio:.3e} (≤ {rtol:g})")
+    gate(ev <= rtol, f"{label}: explained_variance_ off by {ev}")
+    gate(cos >= min_c, f"{label}: a component's |cos| {cos} < {min_c}")
+    gate(dmean <= 1e-4, f"{label}: mean_ off by {dmean}")
+    gate(ratio <= rtol, f"{label}: explained_variance_ratio_ off by {ratio}")
+
+
+def hold_tsvd(torch, label, est, Cpop, gvals, gvecs, total, min_c):
+    """Phase 9b's gates for TruncatedSVD against the float64 uncentred
+    Gram: s² to its top eigenvalues, the components to its eigenvectors,
+    explained_variance_ to the float64 variance along the fitted
+    components, the ratio to it over the float64 total variance."""
+    sv = worst_rel(torch, est.singular_values_.double() ** 2, gvals)
+    cos = min_cos(torch, est.components_, gvecs)
+    c = est.components_.double()
+    var = torch.einsum("kd,de,ke->k", c, Cpop, c)
+    ev = worst_rel(torch, est.explained_variance_, var)
+    ratio = worst_rel(torch, est.explained_variance_ratio_, var / total)
+    log(f"phase 9b: {label}: singular_values_² worst rel {sv:.3e}, min |cos| {cos:.8f} "
+        f"(≥ {min_c}), explained_variance_ worst rel {ev:.3e}, ratio {ratio:.3e} (≤ 1e-4)")
+    gate(sv <= 1e-4, f"{label}: singular values off by {sv}")
+    gate(cos >= min_c, f"{label}: a component's |cos| {cos} < {min_c}")
+    gate(ev <= 1e-4, f"{label}: explained_variance_ off by {ev}")
+    gate(ratio <= 1e-4, f"{label}: explained_variance_ratio_ off by {ratio}")
+
+
+def profiled_pca_fit(torch, make, X, card):
+    """Phase 9b: one more PCA ``full`` fit under ``torch.profiler``: device
+    time by operation, and the device's idle share over the fit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        make().fit(X)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, count = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    log(f"phase 9b: profiled PCA full fit {wall_ms:.3f} ms on the host clock [{card}]")
+    if not per_name:
+        log("  device time by operation: not measured (the profiler recorded no device event)")
+        return
+    busy = sum(ms for ms, _ in per_name.values())
+    for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:14]:
+        log(f"  device {ms:12.3f} ms {count:6d}x  {name[:110]}")
+    log(f"  device busy {busy:.3f} ms of {wall_ms:.3f} ms: idle share "
+        f"{(wall_ms - busy) / wall_ms:.4f}")
+
+
+def small_decomposition(torch, device):
+    """Phase 9b: the same small fit of each estimator (PCA full,
+    TruncatedSVD tsqr, IncrementalPCA) on the card and on the CPU, every
+    fitted array within TOL (relative, with an atol of TOL of its largest
+    |value|)."""
+    from dask_ml_tpu_torch import PCA, IncrementalPCA, TruncatedSVD
+    from dask_ml_tpu_torch.core import use_device
+
+    n, d = SMALL_DECOMP
+    X = pca_standin(torch, n, d, 5, torch.device("cpu"))
+    makes = {"PCA": lambda: PCA(n_components=5, svd_solver="full"),
+             "TruncatedSVD": lambda: TruncatedSVD(n_components=5),
+             "IncrementalPCA": lambda: IncrementalPCA(n_components=5, batch_size=4000)}
+    worst = {}
+    for name, make in makes.items():
+        fits = {}
+        for dev in ("cpu", device):
+            with use_device(dev, n_shards=PCA_SHARDS):
+                fits[str(dev)] = make().fit(X.to(dev))
+        cpu, card_fit = fits["cpu"], fits[str(device)]
+        gap = 0.0
+        for attr in ("components_", "explained_variance_", "explained_variance_ratio_",
+                     "singular_values_"):
+            want, got = getattr(cpu, attr), getattr(card_fit, attr).cpu()
+            torch.testing.assert_close(got, want, rtol=TOL, atol=TOL * float(want.abs().max()))
+            gap = max(gap, float(((got - want).abs() / want.abs().max()).max()))
+        worst[name] = gap
+    log(f"phase 9b: small fits {n}x{d} on the card match the CPU within {TOL} "
+        f"(largest difference over the largest |value|: {worst})")
+
+
+def ipca_update_times(torch, X, card):
+    """Phase 9b: each IncrementalPCA update's time (CUDA events around one
+    partial_fit a batch), and its factorization alone at its shape (the
+    float64 Gram of the stacked matrix and its ``eigh``)."""
+    from dask_ml_tpu_torch.linalg.tsqr import blocked_gram
+
+    from dask_ml_tpu_torch import IncrementalPCA
+
+    est = IncrementalPCA(n_components=PCA_K, batch_size=IPCA_BATCH)
+    n = X.shape[0]
+    times = []
+    for a in range(0, n, IPCA_BATCH):
+        b = min(a + IPCA_BATCH, n)
+        if b - a < PCA_K:
+            break
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        est.partial_fit(X[a:b])
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    log(f"phase 9b: IncrementalPCA updates (CUDA events, {len(times)} batches of "
+        f"{IPCA_BATCH} rows): " + ", ".join(f"{t:.3f}" for t in times) + f" ms [{card}]")
+    m = IPCA_BATCH + PCA_K + 1
+    stacked = X[:m] - X[:m].mean(dim=0)
+    gram_ms = time_ms(torch, lambda: torch.linalg.eigh(blocked_gram(stacked.double())), 5)
+    d = X.shape[1]
+    b, by = bound_ms((IPCA_BATCH * d + 2 * PCA_K * d) * 4, 4.0 * m * d * d)
+    log(f"phase 9b: the update's float64 Gram and eigh of ({m}, {d}): {gram_ms:.3f} ms; the "
+        f"update's bound {b:.4f} ms by {by} (batch read once, 4md² FLOPs) [{card}]")
+
+
+def sketch_times(torch, linalg, Xc, device, card):
+    """Phase 9b: the randomized solver's products at PCA(n_components=10)'s
+    sketch width k = 20 (x @ g and xᵀ @ q, each read of X once) and a TSQR
+    of the (n, 20) sketch, each beside its bound."""
+    from dask_ml_tpu_torch.core import use_device
+
+    n, d = Xc.shape
+    k = PCA_K + 10
+    gen = torch.Generator(device=device).manual_seed(4)
+    g = torch.randn(d, k, generator=gen, device=device)
+    y = Xc @ g
+    for name, fn in (("x @ g", lambda: Xc @ g), ("x.T @ q", lambda: Xc.T @ y)):
+        ms = time_ms(torch, fn, TSQR_REPS)
+        b, by = bound_ms((n * d + n * k) * 4, 2.0 * n * d * k)
+        log(f"phase 9b: randomized sketch pass {name} ({n}x{d} by {k}): {ms:.4f} ms, bound "
+            f"{b:.4f} ms by {by} ({100 * b / ms:.1f}%) [{card}]")
+    with use_device(device, n_shards=PCA_SHARDS):
+        ms = time_ms(torch, lambda: linalg.tsqr(y, "cholqr2"), TSQR_REPS)
+    b, by = tsqr_bound(n, k, "cholqr2")
+    log(f"phase 9b: tsqr cholqr2 of the sketch ({n}x{k}): {ms:.4f} ms, bound {b:.4f} ms by "
+        f"{by} ({100 * b / ms:.1f}%) [{card}]")
+
+
+def decomposition_phase(torch, device, card):
+    """Phase 9 end to end: TSQR and the decomposition estimators at
+    bench.py's ``tsqr_4000000x64``."""
+    from dask_ml_tpu_torch import linalg
+    from dask_ml_tpu_torch import PCA, IncrementalPCA, TruncatedSVD
+    from dask_ml_tpu_torch.core import use_device
+    from dask_ml_tpu_torch.entry import dryrun_multichip
+
+    n, d = PCA_ROWS, PCA_D
+    t0 = time.perf_counter()
+    X = pca_standin(torch, n, d, 0, device)
+    mean, C, G = float64_moments(torch, X)
+    torch.cuda.synchronize()
+    log(f"phase 9: X {n}x{d} float32 and its float64 moments on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    evals, evecs = top_eigen(torch, C, PCA_K)
+    total = torch.trace(C)
+    gvals, gvecs = top_eigen(torch, G, PCA_K)
+    Cpop = C * (n - 1) / n
+
+    # 9a: tsqr on the centred X
+    Xc = X - X.mean(dim=0)
+    tsqr_phase(torch, linalg, Xc, device, card)
+
+    # 9b: the estimators, each fitted once untimed on 2^16 rows first (the
+    # libraries' handles and workspaces)
+    fits = {}
+    with use_device(device, n_shards=PCA_SHARDS):
+        cases = (
+            ("PCA full", lambda: PCA(n_components=PCA_K, svd_solver="full"), 0.99999),
+            ("PCA auto (randomized)", lambda: PCA(n_components=PCA_K), 0.9999),
+            ("TruncatedSVD tsqr", lambda: TruncatedSVD(n_components=PCA_K), 0.99999),
+            ("TruncatedSVD randomized",
+             lambda: TruncatedSVD(n_components=PCA_K, algorithm="randomized"), 0.9999),
+            ("IncrementalPCA", lambda: IncrementalPCA(n_components=PCA_K,
+                                                      batch_size=IPCA_BATCH), 0.9999),
+        )
+        for _, make, _ in cases:
+            make().fit(X[:1 << 16])
+        for label, make, min_c in cases:
+            est, ms = decomposition_fit(torch, linalg, label, make, X, card)
+            fits[label] = ms
+            if label == "PCA auto (randomized)":
+                gate(est._resolve(n, d)[1] == "randomized", "PCA auto did not resolve to randomized")
+            if label.startswith("TruncatedSVD"):
+                hold_tsvd(torch, label, est, Cpop, gvals, gvecs, torch.trace(Cpop), min_c)
+            else:
+                hold_pca(torch, label, est, mean, evals, evecs, total, min_c)
+            del est
+        b, by = bound_ms(PCA_PASSES * n * d * 4, 0.0)
+        log(f"phase 9b: PCA full fit {fits['PCA full']:.3f} ms beside its bound by bytes "
+            f"{b:.4f} ms ({PCA_PASSES} passes of X) [{card}]")
+        profiled_pca_fit(torch, lambda: PCA(n_components=PCA_K, svd_solver="full"), X, card)
+        ipca_update_times(torch, X, card)
+    sketch_times(torch, linalg, Xc, device, card)
+    del X, Xc
+    torch.cuda.synchronize()
+    small_decomposition(torch, device)
+    ran = dryrun_multichip(PCA_SHARDS)
+    gate("PCA via TSQR" in ran, "dryrun_multichip ran no PCA section")
+    log(f"phase 9: dryrun_multichip({PCA_SHARDS}) on the card ran {len(ran)} sections")
+
+
 def main() -> int:
     import torch
 
@@ -1920,6 +2303,9 @@ def main() -> int:
     # 8. K2's other families and bf16 x: LinearRegression, PoissonRegression,
     # a bf16 LogisticRegression and the new solvers
     out += glm_phase(torch, logistic, algorithms, device, card, acc6)
+
+    # 9. TSQR and the decomposition estimators (plain PyTorch, no kernel)
+    decomposition_phase(torch, device, card)
 
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

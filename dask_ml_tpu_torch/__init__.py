@@ -8,12 +8,17 @@ run on CUDA unless the caller asks for the CPU (``core.set_device``).
 
 from .cluster import KMeans
 from .convert import (
-    kmeans_from_reference, linear_regression_from_reference, logistic_regression_from_reference,
-    poisson_regression_from_reference)
+    incremental_pca_from_reference, kmeans_from_reference, linear_regression_from_reference,
+    logistic_regression_from_reference, pca_from_reference, poisson_regression_from_reference,
+    truncated_svd_from_reference)
 from .core import get_device, set_device, shard_rows
+from .decomposition import PCA, IncrementalPCA, TruncatedSVD
+from .linalg import randomized_svd, tsqr, tsqr_svd
 from .linear_model import LinearRegression, LogisticRegression, PoissonRegression
 
-__all__ = ["KMeans", "LinearRegression", "LogisticRegression", "PoissonRegression",
-           "get_device", "kmeans_from_reference", "linear_regression_from_reference",
-           "logistic_regression_from_reference", "poisson_regression_from_reference",
-           "set_device", "shard_rows"]
+__all__ = ["IncrementalPCA", "KMeans", "LinearRegression", "LogisticRegression", "PCA",
+           "PoissonRegression", "TruncatedSVD", "get_device", "incremental_pca_from_reference",
+           "kmeans_from_reference", "linear_regression_from_reference",
+           "logistic_regression_from_reference", "pca_from_reference",
+           "poisson_regression_from_reference", "randomized_svd", "set_device", "shard_rows",
+           "truncated_svd_from_reference", "tsqr", "tsqr_svd"]

@@ -12,6 +12,8 @@ from __future__ import annotations
 import copy
 import inspect
 
+import numpy as np
+
 from .core.sharded import ShardedRows, shard_rows
 
 
@@ -102,6 +104,29 @@ class RegressorMixin:
 class TransformerMixin:
     def fit_transform(self, X, y=None, **fit_params):
         return self.fit(X, y, **fit_params).transform(X)
+
+
+class ComponentsOutMixin:
+    """Output feature names ``<classname><i>`` for each fitted component
+    (scikit-learn's ``ClassNamePrefixFeaturesOutMixin``, bound to
+    ``components_``'s row count as the reference's mixin binds it; shared
+    by PCA, TruncatedSVD and IncrementalPCA)."""
+
+    @property
+    def _n_features_out(self):
+        return self.components_.shape[0]
+
+    def get_feature_names_out(self, input_features=None):
+        if not hasattr(self, "components_"):
+            raise AttributeError(
+                f"This {type(self).__name__} instance is not fitted yet; call 'fit' first.")
+        n_in = getattr(self, "n_features_in_", None)
+        if input_features is not None and n_in is not None and len(input_features) != n_in:
+            raise ValueError(
+                f"input_features should have length equal to number of features "
+                f"({n_in}), got {len(input_features)}")
+        prefix = type(self).__name__.lower()
+        return np.asarray([f"{prefix}{i}" for i in range(self._n_features_out)], dtype=object)
 
 
 class TorchEstimator(BaseEstimator):

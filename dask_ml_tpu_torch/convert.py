@@ -1,7 +1,8 @@
 """Weights carried across: a fitted reference estimator's attributes, as
 numpy arrays, into a fitted port estimator (``KMeans``,
-``LogisticRegression``: binary, one-vs-rest and multinomial, and
-``LinearRegression`` and ``PoissonRegression``)."""
+``LogisticRegression``: binary, one-vs-rest and multinomial,
+``LinearRegression``, ``PoissonRegression``, ``PCA``, ``TruncatedSVD`` and
+``IncrementalPCA``)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 
 from .cluster.k_means import KMeans
 from .core.mesh import get_device
+from .decomposition import PCA, IncrementalPCA, TruncatedSVD
 from .linear_model.glm import LinearRegression, LogisticRegression, PoissonRegression
 
 
@@ -127,3 +129,78 @@ def poisson_regression_from_reference(arrays, *, device=None, **params) -> Poiss
     """A fitted port ``PoissonRegression`` from the reference's, as
     :func:`linear_regression_from_reference` does for ``LinearRegression``."""
     return _regression_from_reference(PoissonRegression, arrays, device, params)
+
+
+def _components_from_reference(cls, arrays, device, params, tensors, ints):
+    missing = set(tensors) | set(ints)
+    missing -= set(arrays)
+    if missing:
+        raise ValueError(f"missing fitted attributes: {sorted(missing)}")
+    comps = np.asarray(arrays["components_"])
+    if comps.ndim != 2 or comps.shape[1] != int(arrays["n_features_in_"]):
+        raise ValueError(
+            f"components_ of shape {comps.shape} does not match "
+            f"n_features_in_={int(arrays['n_features_in_'])}")
+    device = torch.device(device) if device is not None else get_device()
+    est = cls(**params)
+    for name in tensors:
+        setattr(est, name, torch.tensor(np.asarray(arrays[name], dtype=np.float32),
+                                        device=device))
+    for name in ints:
+        setattr(est, name, int(arrays[name]))
+    return est
+
+
+def pca_from_reference(arrays, *, device=None, **params) -> PCA:
+    """A fitted port ``PCA`` from the reference's.
+
+    ``arrays`` maps ``components_``, ``explained_variance_``,
+    ``explained_variance_ratio_``, ``singular_values_``, ``mean_``,
+    ``noise_variance_``, ``n_components_``, ``n_samples_`` and
+    ``n_features_in_`` to numpy arrays or scalars; ``params`` (``whiten``
+    among them) go to the constructor.  The arrays land on ``device``
+    (default: the active device) as float32, so ``transform``,
+    ``score_samples`` and the model covariance compute what the
+    reference's do.
+    """
+    return _components_from_reference(
+        PCA, arrays, device, params,
+        ("components_", "explained_variance_", "explained_variance_ratio_",
+         "singular_values_", "mean_", "noise_variance_"),
+        ("n_components_", "n_samples_", "n_features_in_"))
+
+
+def truncated_svd_from_reference(arrays, *, device=None, **params) -> TruncatedSVD:
+    """A fitted port ``TruncatedSVD`` from the reference's: ``arrays`` maps
+    ``components_``, ``explained_variance_``, ``explained_variance_ratio_``,
+    ``singular_values_`` and ``n_features_in_``, as
+    :func:`pca_from_reference` does."""
+    params.setdefault("n_components", np.asarray(arrays["components_"]).shape[0])
+    return _components_from_reference(
+        TruncatedSVD, arrays, device, params,
+        ("components_", "explained_variance_", "explained_variance_ratio_",
+         "singular_values_"),
+        ("n_features_in_",))
+
+
+def incremental_pca_from_reference(arrays, *, device=None, **params) -> IncrementalPCA:
+    """A fitted port ``IncrementalPCA`` from the reference's, able to go on
+    with ``partial_fit`` exactly as the reference does.
+
+    ``arrays`` maps ``components_``, ``singular_values_``, ``mean_``,
+    ``var_``, ``explained_variance_``, ``explained_variance_ratio_``,
+    ``noise_variance_``, ``n_samples_seen_``, ``n_components_`` and
+    ``n_features_in_``, and the running state ``_mean_sh_`` and
+    ``_anchor_`` (the shifted mean and the anchor it is shifted by).  The
+    count lands on the device as the port's running count.
+    """
+    est = _components_from_reference(
+        IncrementalPCA, arrays, device, params,
+        ("components_", "singular_values_", "mean_", "var_", "_mean_sh_", "_anchor_",
+         "explained_variance_", "explained_variance_ratio_", "noise_variance_"),
+        ("n_components_", "n_features_in_"))
+    if "n_samples_seen_" not in arrays:
+        raise ValueError("missing fitted attributes: ['n_samples_seen_']")
+    est.n_samples_seen_ = torch.tensor(int(arrays["n_samples_seen_"]),
+                                       device=est.components_.device)
+    return est

@@ -64,6 +64,20 @@ class ShardedRows:
         return x[: self.n_samples]
 
 
+def host_to_device(x, device=None, *, keep_float64=False) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (default: the active device);
+    float64 becomes float32, as the reference's arrays do without x64,
+    unless ``keep_float64``."""
+    x = np.asarray(x)
+    if x.dtype == np.float64 and not keep_float64:
+        x = x.astype(np.float32)
+    x = np.ascontiguousarray(x)
+    if not x.flags.writeable:  # torch.from_numpy wants a writable buffer
+        x = x.copy()
+    device = torch.device(device) if device is not None else get_device()
+    return torch.from_numpy(x).to(device)
+
+
 def shard_rows(x, device=None, *, n_shards=None, dtype=None) -> ShardedRows:
     """Ingest rows as a padded, masked ``ShardedRows``.
 
@@ -76,14 +90,7 @@ def shard_rows(x, device=None, *, n_shards=None, dtype=None) -> ShardedRows:
         return x
     n_shards = get_n_shards() if n_shards is None else int(n_shards)
     if not isinstance(x, torch.Tensor):
-        x = np.asarray(x)
-        if dtype is None and x.dtype == np.float64:
-            dtype = torch.float32
-        device = torch.device(device) if device is not None else get_device()
-        x = np.ascontiguousarray(x)
-        if not x.flags.writeable:  # torch.from_numpy wants a writable buffer
-            x = x.copy()
-        x = torch.from_numpy(x).to(device)
+        x = host_to_device(x, device, keep_float64=dtype is not None)
     if dtype is not None:
         x = x.to(dtype)
     n = x.shape[0]

@@ -60,6 +60,8 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
     - the ``lbfgs`` fit on a bfloat16 X (the reference's mixed precision),
       whose ``coef_`` must be float32;
     - the KMeans fit, ``init="random"``, ``max_iter=2``;
+    - PCA via TSQR, ``PCA(n_components=3, svd_solver="full")``, whose
+      ``components_`` must be ``(3, d)``;
     - the packed one-vs-rest ADMM fit on 3 classes (packed forced), each
       class held against an independent binary solve to atol 1e-4;
     - the multinomial ``lbfgs`` fit, ``max_iter=5``;
@@ -67,12 +69,14 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
 
     Not run yet, each waiting for its ROADMAP item: ring pairwise
     distances and MiniBatchKMeans ([port-rest]), scanned minibatch SGD
-    ([port-stream]), TSQR through PCA ([port-tsqr]), the packed SGD cohort
-    on a data × model mesh, Hyperband and the packed C-grid
-    ([port-search]), and the multi-process run ([port-multi]).  Prints the sections it ran and returns their names.
+    ([port-stream]), the packed SGD cohort on a data × model mesh,
+    Hyperband and the packed C-grid ([port-search]), and the
+    multi-process run ([port-multi]).  Prints the sections it ran and
+    returns their names.
     """
     from .cluster import KMeans
     from .core.sharded import shard_rows
+    from .decomposition import PCA
     from .linear_model import LogisticRegression
 
     ran = []
@@ -97,6 +101,10 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
         km = KMeans(n_clusters=3, init="random", random_state=0, max_iter=2).fit(sX)
         assert tuple(km.cluster_centers_.shape) == (3, d)
         ran.append("KMeans init=random")
+
+        pca = PCA(n_components=3, svd_solver="full").fit(sX)
+        assert tuple(pca.components_.shape) == (3, d)
+        ran.append("PCA via TSQR")
 
         ym = rng.randint(0, 3, size=n).astype(np.float32)
         sym = shard_rows(ym)

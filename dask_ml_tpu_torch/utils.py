@@ -1,10 +1,11 @@
-"""The helpers of ``dask_ml_tpu/utils.py`` that the KMeans and
-LogisticRegression paths call, re-done for torch tensors."""
+"""The helpers of ``dask_ml_tpu/utils.py`` that the KMeans, GLM and
+decomposition paths call, re-done for torch tensors."""
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import numbers
 import time
 
 import numpy as np
@@ -148,6 +149,30 @@ def host_class_weight_rows(class_weight, classes, yv):
         _check_class_weight_keys(class_weight, classes)
         cw = np.asarray([float(class_weight.get(c, 1.0)) for c in classes.tolist()])
     return cw[np.searchsorted(classes, yv)].astype(np.float32)
+
+
+def svd_flip(u, v, u_based_decision: bool = True):
+    """Deterministic SVD sign convention (reference: ``utils.py ::
+    svd_flip``): each component's largest-|.| entry of ``u`` (columns) or
+    ``v`` (rows) made positive.  Ties in ``argmax`` go to the first index,
+    as in ``jnp.argmax``."""
+    if u_based_decision:
+        max_abs = torch.argmax(torch.abs(u), dim=0)
+        signs = torch.sign(u[max_abs, torch.arange(u.shape[1], device=u.device)])
+    else:
+        max_abs = torch.argmax(torch.abs(v), dim=1)
+        signs = torch.sign(v[torch.arange(v.shape[0], device=v.device), max_abs])
+    return u * signs[None, :], v * signs[:, None]
+
+
+def check_random_state(random_state) -> np.random.RandomState:
+    """A numpy ``RandomState`` from None, an int seed or a ``RandomState``
+    (reference: ``utils.py :: check_random_state``)."""
+    if random_state is None or isinstance(random_state, numbers.Integral):
+        return np.random.RandomState(random_state)
+    if isinstance(random_state, np.random.RandomState):
+        return random_state
+    raise ValueError(f"Cannot make RandomState from {random_state!r}")
 
 
 @contextlib.contextmanager

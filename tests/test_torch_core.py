@@ -128,7 +128,9 @@ def test_port_and_chip_smoke_import_none_of_jax_reference_or_sklearn_ast():
     scanned = {str(f.relative_to(REPO)) for f in files}
     for module in ("ops/logistic.py", "solvers/families.py", "solvers/regularizers.py",
                    "solvers/lbfgs_core.py", "solvers/algorithms.py", "linear_model/glm.py",
-                   "linear_model/utils.py", "convert.py", "ops/multiclass.py", "entry.py"):
+                   "linear_model/utils.py", "convert.py", "ops/multiclass.py", "entry.py",
+                   "linalg/tsqr.py", "linalg/randomized.py", "decomposition/pca.py",
+                   "decomposition/truncated_svd.py", "decomposition/incremental_pca.py"):
         assert f"dask_ml_tpu_torch/{module}" in scanned, module
     found = []
     for path in files:
@@ -162,6 +164,10 @@ def test_port_imports_none_of_jax_reference_or_sklearn_at_run_time():
         "for mc in ('ovr', 'multinomial'):\n"
         "    m3 = p.LogisticRegression(max_iter=2, multi_class=mc).fit(x, y3)\n"
         "    assert m3.predict_proba(x).shape == (64, 3)\n"
+        "xt = np.random.RandomState(1).randn(64, 6).astype(np.float32)\n"
+        "for est in (p.PCA(n_components=2), p.TruncatedSVD(n_components=2),\n"
+        "            p.IncrementalPCA(n_components=2, batch_size=16)):\n"
+        "    assert est.fit(xt).transform(xt).shape == (64, 2)\n"
         "from dask_ml_tpu_torch.entry import entry\n"
         "fn, args = entry()\n"
         "assert fn(*args).shape == (256,)\n"

@@ -45,8 +45,8 @@ def test_entry_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 def test_dryrun_multichip_runs_its_sections(capsys, monkeypatch):
     monkeypatch.delenv("DASK_ML_TPU_TORCH_PACK", raising=False)
     ran = dryrun_multichip(8, device="cpu")
-    assert ran == ["binary ADMM", "bf16 lbfgs", "KMeans init=random", "packed OvR ADMM",
-                   "multinomial lbfgs", "class_weight balanced"]
+    assert ran == ["binary ADMM", "bf16 lbfgs", "KMeans init=random", "PCA via TSQR",
+                   "packed OvR ADMM", "multinomial lbfgs", "class_weight balanced"]
     out = capsys.readouterr().out
     assert "dryrun_multichip(8) on cpu" in out and "packed OvR ADMM" in out
     assert "DASK_ML_TPU_TORCH_PACK" not in os.environ
