@@ -117,7 +117,32 @@ Phases, in order; any failure exits non-zero:
    its float64 Gram and ``eigh`` alone; the randomized sketch products and the
    sketch's TSQR beside their bounds; a small fit of each estimator on
    the card against the CPU (TOL); ``dryrun_multichip(8)`` with its PCA
-   section.  Then the ``kernels`` line, the card line and the result.
+   section.  9a also repeats ``linalg/tsqr.py :: _local_hh`` HH_REPS times at
+   its lanes (8, 500k, 64) and at the IncrementalPCA update's stacked shape
+   (262155, 64), and prints how many calls returned a non-finite R (an open
+   check on cuSOLVER; printed, not gated).
+10. The streamed SGD through K4 (``csrc/sgd.cu``).  10a: K4's two wrappers
+   (``sgd_update``, ``sgd_loss``) against their plain versions taken in
+   float64 (``hold_sgd``: loss rtol 1e-5, the updated coef to
+   1e-5·eta·max|g| plus its float32 rounding, t equal) at every loss × K ∈
+   {1, 3, 10, 100} at 2^20 x 64, d ∈ {1, 28, 130, 2000}, B = 37 and 256,
+   a strided minibatch view (n_mb = 16), margins past ±80, each penalty and
+   schedule, fit_intercept off; masks weighted in [0, 2) with a tenth 0.
+   10b: bench.py's ``streamed_sgd_70x1048576x64`` at full size: 70
+   device-born blocks of 2^20 x 64 float32 (``stream_classification_blocks``),
+   one ``SGDClassifier(random_state=0).partial_fit`` a block, a scalar sync
+   every 8; the first 8 blocks also through the plain version (coef within
+   1e-4·‖coef‖∞); gates: 70 blocks, peak allocated < 2 GB, cosine to the
+   stream's w ≥ 0.99, the last block's loss below the first's, 70 K4
+   launches.  10d: the scanned minibatch fit (``batch_size=65536``, 5
+   epochs), a 10-class one-vs-all fit with early stopping (K4's value-only
+   variant on the held-out rows) and ``Incremental(SGDRegressor)`` over a
+   2^20 x 64 host array, each gated on accuracy or R².  10c: K4 timed at
+   (1, 2^20, 64), K=1 and K=10 (CUDA events, 20 launches) beside its plain
+   version, its bound and the addmm + elementwise + mm sequence.  10e: 16
+   blocks of the stream under ``torch.profiler``: the device's idle share,
+   device operations, runtime launch calls and host syncs a block.  Then
+   the ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -207,6 +232,31 @@ ILL_ROWS = 1_000_000  # the cond ~1e6 instance that must take the Householder ro
 IPCA_BATCH = 1 << 18
 TSQR_REPS = 10
 SMALL_DECOMP = (20_011, 16)  # the small fits held between the card and the CPU
+HH_REPS = 20  # _local_hh calls a shape in the cuSOLVER check
+SGD_ROWS = 1 << 20  # bench.py's streamed_sgd_70x1048576x64
+SGD_D = 64
+SGD_BLOCKS = 70
+SGD_WARM = 2
+SGD_SYNC = 8  # a scalar sync every 8 blocks, as bench.py's stream
+SGD_CHECK = 8  # the stream's first blocks held through K4 and through the plain version
+SGD_TOL = 1e-5
+SGD_FIT_BATCH = 65536  # 16 minibatch steps an epoch at 2^20 rows
+SGD_OVA_K = 10
+SGD_EPOCHS = 5  # the binary fits' epochs
+SGD_PROFILE = 16
+# 10c's entries: (name, K, minibatch view or not, wrapper).  Each is timed
+# and held at the shape its path gives K4: the stream's blocks, the
+# binary minibatch fit's steps, the 10-class fit's steps and its held-out
+# losses; the K=1 value-only call and the K=10 update of a whole block are
+# kept for the record and join no path.
+SGD_TABLE = (
+    ("sgd_update", 1, False, "update"),
+    ("sgd_loss_K1", 1, False, "loss"),
+    ("sgd_update_minibatch", 1, True, "update"),
+    ("sgd_update_K10", SGD_OVA_K, False, "update"),
+    ("sgd_loss_K10", SGD_OVA_K, False, "loss"),
+    ("sgd_update_K10_minibatch", SGD_OVA_K, True, "update"),
+)
 
 
 def log(msg: str) -> None:
@@ -1931,9 +1981,9 @@ def min_cos(torch, comps, vecs):
     return float(((c * vecs).sum(dim=1) / c.norm(dim=1)).abs().min())
 
 
-def gate(ok, what):
+def gate(ok, what, phase=9):
     if not ok:
-        raise AssertionError(f"phase 9: {what}")
+        raise AssertionError(f"phase {phase}: {what}")
 
 
 def gram64(torch, q):
@@ -1996,6 +2046,7 @@ def tsqr_phase(torch, linalg, Xc, device, card):
     log(f"phase 9a: the cond ~1e6 instance took the Householder route "
         f"({linalg.HOST_READS['reads']} guard read)")
     del Xill, r
+    cusolver_check(torch, linalg, Xc)
 
 
 def decomposition_fit(torch, linalg, label, make, X, card):
@@ -2228,6 +2279,538 @@ def decomposition_phase(torch, device, card):
     gate("PCA via TSQR" in ran, "dryrun_multichip ran no PCA section")
     log(f"phase 9: dryrun_multichip({PCA_SHARDS}) on the card ran {len(ran)} sections")
 
+# ---------------------------------------------------------------- phase 10
+
+def cusolver_check(torch, linalg, Xc):
+    """Phase 9a: ``_local_hh`` repeated at the lanes of phase 9a (8 lanes of
+    n/8 rows) and at the IncrementalPCA update's stacked shape (one lane of
+    IPCA_BATCH + PCA_K + 1 rows), HH_REPS calls each, counting the calls
+    whose R is not finite (cuSOLVER returned one on some calls there)."""
+    from dask_ml_tpu_torch.linalg.tsqr import _local_hh
+
+    n, d = Xc.shape
+    m = IPCA_BATCH + PCA_K + 1
+    for what, xs in ((f"({PCA_SHARDS}, {n // PCA_SHARDS}, {d})",
+                      Xc[: n - n % PCA_SHARDS].view(PCA_SHARDS, -1, d)),
+                     (f"({m}, {d})", Xc[:m].unsqueeze(0))):
+        bad = 0
+        for _ in range(HH_REPS):
+            _, r = _local_hh(xs)
+            bad += int(not bool(torch.isfinite(r).all()))
+        log(f"phase 9a: cuSOLVER check: _local_hh at {what}: {bad} of {HH_REPS} calls returned "
+            "a non-finite R")
+
+
+def sgd_hyper(torch, device, eta_scale=1.0):
+    """The estimators' hyperparameters at SGDClassifier's defaults (alpha
+    1e-4, eta0 0.01, t0 = 1/(alpha·eta0)), epsilon 0.1 for huber."""
+    return torch.tensor([1e-4, 0.01, 0.25, 1e6, 0.15, 0.1, eta_scale], dtype=torch.float32,
+                        device=device)
+
+
+def sgd_inputs(torch, B, d, K, loss, seed, device, scale=1.0):
+    """x standard normal, targets from a true model (one-vs-all ±1 for the
+    classifier losses, x·w + noise for the regressors), a mask in [0, 2)
+    with a tenth of its rows 0, and a state whose margins have spread
+    ``scale``."""
+    from dask_ml_tpu_torch.ops.sgd import CLASSIFIER_LOSSES
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, d, generator=gen, device=device)
+    W = torch.randn(d, K, generator=gen, device=device)
+    if loss in CLASSIFIER_LOSSES:
+        noise = torch.randn(B, K, generator=gen, device=device)
+        if K == 1:
+            y = torch.where(x @ W[:, 0] + noise[:, 0] > 0, 1.0, -1.0)[:, None]
+        else:
+            idx = torch.argmax(x @ W + noise, dim=1)
+            y = 2.0 * torch.nn.functional.one_hot(idx, K).float() - 1.0
+    else:
+        y = x @ W + 0.3 * torch.randn(B, 1, generator=gen, device=device)
+    mask = 2.0 * torch.rand(B, generator=gen, device=device)
+    mask[torch.rand(B, generator=gen, device=device) < 0.1] = 0.0
+    coef = scale * torch.randn(d, K, generator=gen, device=device) / d ** 0.5
+    intercept = 0.1 * torch.randn(K, generator=gen, device=device)
+    return x, y.contiguous(), mask, coef, intercept
+
+
+def hold_sgd(torch, sgd, case, hyper, what, loss, penalty="l2", schedule="optimal",
+             fit_intercept=True):
+    """10a: both K4 wrappers against their plain versions taken in float64 on
+    the same inputs: the mean loss to rtol SGD_TOL, the updated coef and
+    intercept to SGD_TOL·eta·max|g| plus 2^-22 of each element (the float32
+    rounding of the stored c − eta·g), with hinge's rows within 1e-5 of its
+    kink allowed their jump of dℓ, t equal.  Returns the largest absolute
+    differences of each wrapper's outputs: (``sgd_update``'s coef,
+    intercept and mean loss; ``sgd_loss``'s mean loss)."""
+    x, y, mask, coef, intercept = case
+    d64 = torch.float64
+    h64 = hyper.to(d64)
+    t0 = torch.tensor(5.0, device=x.device)
+    c64, b64, t64 = coef.to(d64), intercept.to(d64), t0.to(d64)
+    out64 = torch.empty(2, dtype=d64, device=x.device)
+    sgd.sgd_update_ref(x.to(d64), y.to(d64), mask.to(d64), c64, b64, t64, h64, loss=loss,
+                       penalty=penalty, schedule=schedule, fit_intercept=fit_intercept, out=out64)
+    c32, b32, t32 = coef.clone(), intercept.clone(), t0.clone()
+    out = sgd.sgd_update(x, y, mask, c32, b32, t32, hyper, loss=loss, penalty=penalty,
+                         schedule=schedule, fit_intercept=fit_intercept)
+    lo = sgd.sgd_loss(x, y, mask, coef, intercept, hyper, loss=loss)
+    torch.cuda.synchronize()
+    eta = float(sgd.learning_rate(schedule, t0.to(d64), h64))
+    g = torch.cat([(coef.to(d64) - c64).flatten(), (intercept.to(d64) - b64).flatten()]) / eta
+    gmax = float(g.abs().max())
+    allow = 0.0
+    if loss == "hinge":
+        z = y.to(d64) * (x.to(d64) @ coef.to(d64) + intercept.to(d64))
+        near = ((z - 1.0).abs() <= 1e-5 * (1.0 + z.abs())) & (mask[:, None] > 0)
+        count = max(float(out64[1]), 1.0)
+        allow = eta * int(near.sum()) * float(mask.max()) * float(x.abs().max()) / count
+    err_state = 0.0
+    for got, want in ((c32, c64), (b32, b64)):
+        diff = (got.to(d64) - want).abs()
+        tol = SGD_TOL * eta * gmax + 2.0 ** -22 * want.abs() + allow
+        if not bool((diff <= tol).all()):
+            worst = float((diff / tol).max())
+            raise AssertionError(f"K4 update {what}: {worst:.3g}x its tolerance "
+                                 f"(max|Δ| {float(diff.max()):.3g}, eta·max|g| {eta * gmax:.3g})")
+        err_state = max(err_state, float(diff.max()))
+    if float(t32) != float(t64):
+        raise AssertionError(f"K4 update {what}: t {float(t32)} against {float(t64)}")
+    ref_loss, ref_count = float(out64[0]), float(out64[1])
+    err_loss = {}
+    for name, o in (("update", out), ("loss", lo)):
+        got_loss, got_count = float(o[0]), float(o[1])
+        if abs(got_loss - ref_loss) > SGD_TOL * abs(ref_loss) or \
+                abs(got_count - ref_count) > SGD_TOL * ref_count:
+            raise AssertionError(f"K4 {name} {what}: loss {got_loss!r} count {got_count!r}, "
+                                 f"plain {ref_loss!r} {ref_count!r}")
+        err_loss[name] = abs(got_loss - ref_loss)
+    if not bool(torch.equal(lo, sgd.sgd_loss(x, y, mask, coef, intercept, hyper, loss=loss))):
+        raise AssertionError(f"K4 loss {what}: a repeat gave other bits")
+    return max(err_state, err_loss["update"]), err_loss["loss"]
+
+
+def minibatch_view(case, n_mb, i=5):
+    """Minibatch ``i`` of ``n_mb`` of a block's (x, y, mask, coef, intercept):
+    the rows i::n_mb, read where they lie, as ``_minibatch_views`` gives
+    them to K4."""
+    x, y, mask, coef, intercept = case
+    d, K = x.shape[1], y.shape[1]
+    return (x.view(-1, n_mb, d)[:, i], y.view(-1, n_mb, K)[:, i], mask.view(-1, n_mb)[:, i],
+            coef, intercept)
+
+
+def sgd_edge_cases():
+    """10a: (label, B, d, K, loss, options) of every case held; option
+    ``n_mb`` holds a minibatch view of the B rows."""
+    big, cases = SGD_ROWS, []
+    n_mb = SGD_ROWS // SGD_FIT_BATCH
+    for loss in ("log_loss", "hinge", "squared_hinge", "modified_huber"):
+        for K in (1, 3, 10, 100):
+            cases.append((f"{loss} K={K}", big, SGD_D, K, loss, {}))
+    for loss in ("squared_error", "huber"):
+        cases.append((loss, big, SGD_D, 1, loss, {}))
+    for d in (1, 28, 130, 2000):
+        cases.append((f"d={d}", 3001, d, 3, "log_loss", {}))
+    cases += [
+        ("d=2000 squared_error", 3001, 2000, 1, "squared_error", {"penalty": "l1"}),
+        ("B=37 hinge", 37, SGD_D, 1, "hinge", {"penalty": "elasticnet"}),
+        ("B=256 modified_huber K=10", 256, SGD_D, 10, "modified_huber", {"penalty": None}),
+        ("strided n_mb=16", 65536, SGD_D, 3, "log_loss", {"schedule": "invscaling", "n_mb": 16}),
+        (f"the binary minibatch fit's steps (n_mb={n_mb})", big, SGD_D, 1, "log_loss",
+         {"n_mb": n_mb}),
+        (f"the {SGD_OVA_K}-class fit's steps (n_mb={n_mb})", big, SGD_D, SGD_OVA_K, "log_loss",
+         {"n_mb": n_mb}),
+        ("margins past ±80 log_loss", 65536, SGD_D, 1, "log_loss", {"scale": 60.0}),
+        ("margins past ±80 modified_huber K=3", 65536, SGD_D, 3, "modified_huber",
+         {"scale": 60.0, "schedule": "constant"}),
+        ("huber wide residuals", 65536, SGD_D, 1, "huber", {"scale": 3.0}),
+        ("adaptive, no intercept", 65536, SGD_D, 10, "squared_hinge",
+         {"schedule": "adaptive", "fit_intercept": False}),
+    ]
+    return cases
+
+
+def compare_sgd(torch, sgd, device):
+    """10a: every edge case held; logs each wrapper's largest difference."""
+    worst = {"sgd_update": 0.0, "sgd_loss": 0.0}
+    for i, (label, B, d, K, loss, opts) in enumerate(sgd_edge_cases()):
+        opts = dict(opts)
+        scale = opts.pop("scale", 1.0)
+        n_mb = opts.pop("n_mb", None)
+        hyper = sgd_hyper(torch, device, 0.2 if opts.get("schedule") == "adaptive" else 1.0)
+        case = sgd_inputs(torch, B, d, K, loss, 100 + i, device, scale)
+        if n_mb:
+            case = minibatch_view(case, n_mb)
+        errs = hold_sgd(torch, sgd, case, hyper, label, loss, **opts)
+        for key, err in zip(worst, errs):
+            worst[key] = max(worst[key], err)
+        del case
+    log(f"phase 10a: K4 held against its plain version (float64) at {len(sgd_edge_cases())} "
+        f"shapes, rtol {SGD_TOL}; largest absolute differences over them {worst}")
+
+
+def reset_sgd_counts(sgd):
+    sgd.sgd_update.launches = 0
+    sgd.sgd_loss.launches = 0
+    sgd.sgd_update_ref.calls = 0
+    sgd.sgd_loss_ref.calls = 0
+
+
+class PlainK4:
+    """K4's wrappers replaced by their plain versions (on the card, as a
+    check only) inside a ``with`` block."""
+
+    def __init__(self, sgd):
+        self.sgd = sgd
+        self.kernels = (sgd.sgd_update, sgd.sgd_loss)
+
+    def __enter__(self):
+        self.sgd.sgd_update = self.sgd.sgd_update_ref
+        self.sgd.sgd_loss = self.sgd.sgd_loss_ref
+        return self
+
+    def __exit__(self, *exc):
+        self.sgd.sgd_update, self.sgd.sgd_loss = self.kernels
+
+
+def sgd_stream_agreement(torch, sgd, w, device):
+    """10b: the stream's first SGD_CHECK blocks through K4 and through the
+    plain version: coef within 1e-4·‖coef‖∞, t equal."""
+    import contextlib
+
+    import numpy as np
+
+    from dask_ml_tpu_torch import SGDClassifier
+    from dask_ml_tpu_torch.datasets import stream_classification_blocks
+
+    fits = []
+    for plain in (False, True):
+        clf = SGDClassifier(random_state=0)
+        with (PlainK4(sgd) if plain else contextlib.nullcontext()):
+            for Xb, yb in stream_classification_blocks(SGD_CHECK, SGD_ROWS, SGD_D, seed=0,
+                                                       coef=w, device=device):
+                clf.partial_fit(Xb, yb, classes=[0.0, 1.0])
+        fits.append(clf)
+    kernel, plain = fits
+    gap = float(np.abs(kernel.coef_ - plain.coef_).max())
+    scale = float(np.abs(plain.coef_).max())
+    if not gap <= 1e-4 * scale or kernel.t_ != plain.t_:
+        raise AssertionError(f"phase 10b: {SGD_CHECK} blocks through K4 are {gap} from the plain "
+                             f"version's coef (‖coef‖∞ {scale}), t_ {kernel.t_} {plain.t_}")
+    log(f"phase 10b: the first {SGD_CHECK} blocks through K4 and through the plain version: "
+        f"‖Δcoef‖∞ {gap:.3g} = {gap / scale:.3g}·‖coef‖∞, t_ {kernel.t_}")
+    return gap
+
+
+def sgd_stream(torch, sgd, device, card):
+    """10b: bench.py's ``streamed_sgd_70x1048576x64`` on the port: SGD_BLOCKS
+    device-born blocks, one ``partial_fit`` a block, a scalar sync every
+    SGD_SYNC blocks; gated on the blocks done, the peak memory, the cosine
+    to the stream's w and the loss.  Returns (launches, steady ms/block)."""
+    from dask_ml_tpu_torch import SGDClassifier
+    from dask_ml_tpu_torch.datasets import stream_classification_blocks
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    w = torch.randn(SGD_D, generator=gen, device=device)
+    sgd_stream_agreement(torch, sgd, w, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_sgd_counts(sgd)
+    clf = SGDClassifier(random_state=0)
+    n_done, first, t0 = 0, None, time.perf_counter()
+    for i, (Xb, yb) in enumerate(stream_classification_blocks(SGD_BLOCKS, SGD_ROWS, SGD_D,
+                                                              seed=0, coef=w, device=device)):
+        clf.partial_fit(Xb, yb, classes=[0.0, 1.0])
+        if i == 0:
+            first = clf._loss_
+        if i + 1 == SGD_WARM:
+            float(clf._loss_)  # the steady clock starts here
+            t0 = time.perf_counter()
+        elif i % SGD_SYNC == SGD_SYNC - 1:
+            float(clf._loss_)
+        n_done += 1
+    final = float(clf._loss_)
+    dt = time.perf_counter() - t0
+    launches, plain = sgd.sgd_update.launches, sgd.sgd_update_ref.calls
+    peak = torch.cuda.max_memory_allocated()
+    steady = n_done - SGD_WARM
+    ms_block = 1e3 * dt / steady
+    rows_s = steady * SGD_ROWS / dt
+    gbs = steady * SGD_ROWS * SGD_D * 4 / dt / 1e9
+    coef = torch.from_numpy(clf.coef_[0]).to(device)
+    cos = cosine(torch, coef, w)
+    first = float(first)
+    log(f"phase 10b: streamed SGD {n_done}x{SGD_ROWS}x{SGD_D} float32 "
+        f"({n_done * SGD_ROWS * SGD_D * 4 / 1e9:.2f} GB over the stream): steady "
+        f"{ms_block:.4f} ms/block after {SGD_WARM} warm blocks, {rows_s:.6g} rows/s, "
+        f"{gbs:.2f} GB/s of x, train loss {first:.6f} (block 1) -> {final:.6f}, t_ {clf.t_}, "
+        f"K4 launches {launches}, plain-version calls {plain}, peak allocated "
+        f"{peak / 2**30:.3f} GiB (base {base / 2**30:.3f}), cosine to w {cos:.6f} [{card}]")
+    gate(n_done == SGD_BLOCKS, f"{n_done} of {SGD_BLOCKS} blocks done", phase=10)
+    gate(peak < 2e9, f"peak allocated {peak} B over the stream", phase=10)
+    gate(cos >= 0.99, f"cosine of coef to w {cos}", phase=10)
+    gate(final < first, f"final loss {final} not below the first block's {first}", phase=10)
+    gate(launches == SGD_BLOCKS and plain == 0,
+             f"K4 launched {launches} times, the plain version {plain} times", phase=10)
+    return launches
+
+
+def sgd_table_entry(torch, sgd, case, hyper, name, kind, card):
+    """10c: one entry of SGD_TABLE on its inputs: the wrapper timed (CUDA
+    events over 20 launches) beside its plain version (3 runs), its bound
+    from this view's rows, the addmm + elementwise + mm sequence for the
+    update and addmm + elementwise + sum for the loss (informational: no
+    single PyTorch call computes either), and its largest difference from
+    the plain version in float64 on the same inputs (``hold_sgd``)."""
+    x, y, mask, coef, intercept = case
+    B, d = x.shape
+    K = y.shape[1]
+    loss = "log_loss"
+    kw = dict(loss=loss, penalty="l2", schedule="optimal")
+    c, b, t = coef.clone(), intercept.clone(), torch.tensor(5.0, device=x.device)
+    if kind == "update":
+        ms = time_ms(torch, lambda: sgd.sgd_update(x, y, mask, c, b, t, hyper, **kw), 20)
+        plain_ms = time_ms(torch, lambda: sgd.sgd_update_ref(x, y, mask, c, b, t, hyper, **kw), 3)
+    else:
+        ms = time_ms(torch, lambda: sgd.sgd_loss(x, y, mask, c, b, hyper, loss=loss), 20)
+        plain_ms = time_ms(torch, lambda: sgd.sgd_loss_ref(x, y, mask, c, b, hyper, loss=loss), 3)
+
+    def library():
+        m = torch.addmm(intercept, x, coef)
+        z = y * m
+        if kind == "loss":
+            return torch.sum(torch.nn.functional.softplus(-z) * mask[:, None])
+        dm = -torch.sigmoid(-z) * y * mask[:, None]
+        return torch.mm(x.T, dm)
+
+    lib_ms = time_ms(torch, library, 20)
+    err_update, err_loss = hold_sgd(torch, sgd, case, hyper, name, loss)
+    nbytes = B * d * 4 + B * (K + 1) * 4 + (2 if kind == "update" else 1) * (d + 1) * K * 4
+    flops = (4 if kind == "update" else 2) * B * d * K
+    b_ms, b_by = bound_ms(nbytes, flops)
+    rows = f"rows 5::{x.stride(0) // d} of {B * x.stride(0) // d}" if x.stride(0) != d else "rows"
+    log(f"phase 10c: {name} at {B} {rows} x {d}, K={K}: {ms:.4f} ms, "
+        f"{B / ms * 1e3:.4g} rows/s, {nbytes / ms / 1e6:.1f} GB/s, "
+        f"{b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
+        f"{b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; the PyTorch sequence, "
+        f"informational: {lib_ms:.4f} ms) [{card}]")
+    return {"name": name, "route": "cuda", "source": "dask_ml_tpu_torch/csrc/sgd.cu",
+            "replaces": ("dask_ml_tpu/linear_model/_sgd.py:146" if kind == "update"
+                         else "dask_ml_tpu/linear_model/_sgd.py:241"),
+            "max_abs_err": err_update if kind == "update" else err_loss,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def sgd_table(torch, sgd, device, launches, card):
+    """10c: every entry of SGD_TABLE at the shape its path gives K4 (a
+    2^20 x 64 block, or minibatch 5 of its SGD_ROWS // SGD_FIT_BATCH
+    strided views).  Returns the kernels line's entries: those a path of
+    this run launched, with their launches."""
+    out = []
+    n_mb = SGD_ROWS // SGD_FIT_BATCH
+    for K in (1, SGD_OVA_K):
+        block = sgd_inputs(torch, SGD_ROWS, SGD_D, K, "log_loss", 1, device)
+        hyper = sgd_hyper(torch, device)
+        for name, k, strided, kind in SGD_TABLE:
+            if k != K:
+                continue
+            case = minibatch_view(block, n_mb) if strided else block
+            entry = sgd_table_entry(torch, sgd, case, hyper, name, kind, card)
+            if name in launches:
+                out.append(dict(entry, launches=launches[name]))
+        del block
+    return out
+
+
+def timed_fits(torch, make, X, y, reps=3):
+    """``reps`` fits of ``make()``, each synced: the median host-clock ms of
+    the whole fit, of its epoch loop (``linear_model/_sgd.py ::
+    _run_epochs``, synced at both ends) and of the rest, its set-up."""
+    from dask_ml_tpu_torch.linear_model import _sgd
+
+    run, fits, loops = _sgd._run_epochs, [], []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_iter = run(*args, **kwargs)
+        torch.cuda.synchronize()
+        loops.append(1e3 * (time.perf_counter() - t0))
+        return n_iter
+
+    _sgd._run_epochs = timed
+    try:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            make().fit(X, y)
+            torch.cuda.synchronize()
+            fits.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        _sgd._run_epochs = run
+    setups = [f - e for f, e in zip(fits, loops)]
+    return tuple(sorted(v)[reps // 2] for v in (fits, loops, setups))
+
+
+def sgd_fits(torch, sgd, device, card):
+    """10d: the other entry points at full width, each with its launches:
+    the full-batch and the scanned minibatch fits (the epoch loop timed
+    apart from the rest of a fit, its set-up), a 10-class fit with early
+    stopping (K4's value-only variant on its held-out rows) and
+    ``Incremental(SGDRegressor)`` over a host array.  Returns {kernel
+    entry: launches}."""
+    import numpy as np
+
+    from dask_ml_tpu_torch import Incremental, SGDClassifier, SGDRegressor
+    from dask_ml_tpu_torch.core import shard_rows
+    from dask_ml_tpu_torch.datasets import stream_classification_blocks
+
+    launches = {}
+    n_mb = SGD_ROWS // SGD_FIT_BATCH
+    gen = torch.Generator(device=device).manual_seed(11)
+    w = torch.randn(SGD_D, generator=gen, device=device)
+    (X, y), = stream_classification_blocks(1, SGD_ROWS, SGD_D, seed=3, coef=w, device=device)
+    acc_true = float(((X.data @ w > 0).float() == y.data).float().mean())
+    for label, bs in (("full batch", None), ("minibatch", SGD_FIT_BATCH)):
+        def make():
+            return SGDClassifier(max_iter=SGD_EPOCHS, tol=None, batch_size=bs)
+
+        make().fit(X, y)  # warm: the plans and the allocator
+        reset_sgd_counts(sgd)
+        est = make().fit(X, y)
+        torch.cuda.synchronize()
+        n_launch, n_plain = sgd.sgd_update.launches, sgd.sgd_update_ref.calls
+        fit, loop, setup = timed_fits(torch, make, X, y)
+        acc = est.score(X, y)
+        log(f"phase 10d: SGDClassifier {label} fit {SGD_ROWS}x{SGD_D}, {SGD_EPOCHS} epochs: "
+            f"{fit:.3f} ms, the epoch loop {loop:.3f} ms ({loop / SGD_EPOCHS:.4f} ms an epoch "
+            f"of {1 if bs is None else n_mb} steps), set-up {setup:.3f} ms (medians of 3); "
+            f"t_ {est.t_}, K4 launches {n_launch}, accuracy {acc:.6f} (the true w: "
+            f"{acc_true:.6f}) [{card}]")
+        gate(n_launch == est.t_ and n_plain == 0, f"the {label} fit's launches", phase=10)
+        gate(acc >= 0.98 * acc_true, f"the {label} fit's accuracy {acc}", phase=10)
+        if bs is not None:
+            gate(est.t_ == SGD_EPOCHS * n_mb, f"minibatch steps {est.t_}", phase=10)
+            launches["sgd_update_minibatch"] = n_launch
+    del X, y
+    # 10 classes, one-vs-all, early stopping on the held-out rows' loss
+    W = torch.randn(SGD_D, SGD_OVA_K, generator=gen, device=device)
+    Xo = torch.randn(SGD_ROWS, SGD_D, generator=gen, device=device)
+    yo = torch.argmax(Xo @ W + torch.randn(SGD_ROWS, SGD_OVA_K, generator=gen, device=device),
+                      dim=1).float()
+    acc_true = float((torch.argmax(Xo @ W, dim=1).float() == yo).float().mean())
+    sX, sy = shard_rows(Xo), shard_rows(yo)
+    reset_sgd_counts(sgd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = SGDClassifier(max_iter=8, tol=1e-4, early_stopping=True, batch_size=SGD_FIT_BATCH,
+                        random_state=0).fit(sX, sy)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    acc = est.score(sX, sy)
+    launches["sgd_update_K10_minibatch"] = sgd.sgd_update.launches
+    launches["sgd_loss_K10"] = sgd.sgd_loss.launches
+    log(f"phase 10d: SGDClassifier {SGD_OVA_K}-class one-vs-all fit with early stopping "
+        f"{SGD_ROWS}x{SGD_D}, batch_size {SGD_FIT_BATCH}: {ms:.3f} ms, n_iter_ {est.n_iter_}, "
+        f"t_ {est.t_}, K4 launches {launches['sgd_update_K10_minibatch']} (update, {n_mb} "
+        f"strided minibatches an epoch), {launches['sgd_loss_K10']} (loss, the whole block), "
+        f"accuracy {acc:.6f} (the true W: {acc_true:.6f}) [{card}]")
+    gate(launches["sgd_update_K10_minibatch"] == est.t_ == est.n_iter_ * n_mb
+         and sgd.sgd_update_ref.calls == 0,
+         "the 10-class fit's steps did not all go through K4 as minibatches", phase=10)
+    gate(launches["sgd_loss_K10"] == est.n_iter_ and sgd.sgd_loss_ref.calls == 0,
+         "the early-stopping fit's held-out losses did not all go through K4", phase=10)
+    gate(acc >= 0.9 * acc_true, f"the {SGD_OVA_K}-class fit's accuracy {acc}", phase=10)
+    del Xo, yo, sX, sy
+    # Incremental(SGDRegressor) over a host array
+    rng = np.random.RandomState(5)
+    Xh = rng.standard_normal((SGD_ROWS, SGD_D)).astype(np.float32)
+    wh = rng.standard_normal(SGD_D).astype(np.float32)
+    yh = Xh @ wh + 0.5 + 0.1 * rng.standard_normal(SGD_ROWS).astype(np.float32)
+    reset_sgd_counts(sgd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inc = Incremental(SGDRegressor(learning_rate="constant", eta0=0.5), chunk_size=SGD_FIT_BATCH,
+                      random_state=0).fit(Xh, yh)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    r2 = inc.score(Xh, yh)
+    log(f"phase 10d: Incremental(SGDRegressor(learning_rate='constant', eta0=0.5), "
+        f"chunk_size={SGD_FIT_BATCH}).fit on a host "
+        f"array {SGD_ROWS}x{SGD_D}: {ms:.3f} ms, {SGD_ROWS // SGD_FIT_BATCH} blocks, K4 launches "
+        f"{sgd.sgd_update.launches}, R² {r2:.6f} [{card}]")
+    gate(sgd.sgd_update.launches == SGD_ROWS // SGD_FIT_BATCH, "Incremental's launches", phase=10)
+    gate(r2 >= 0.99, f"Incremental(SGDRegressor) R² {r2}", phase=10)
+    return launches
+
+
+def sgd_profile(torch, sgd, device, card):
+    """10e: SGD_PROFILE blocks of the stream under ``torch.profiler``, after
+    2 warm blocks: the device's busy and idle share, the device kernels and
+    the runtime's launch calls a block, and the host syncs a block (counted
+    by ``torch.cuda.set_sync_debug_mode``'s warnings)."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dask_ml_tpu_torch import SGDClassifier
+    from dask_ml_tpu_torch.datasets import stream_classification_blocks
+
+    blocks = list(stream_classification_blocks(SGD_PROFILE + 2, SGD_ROWS, SGD_D, seed=9,
+                                               device=device))
+    clf = SGDClassifier(random_state=0)
+    for Xb, yb in blocks[:2]:
+        clf.partial_fit(Xb, yb, classes=[0.0, 1.0])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for Xb, yb in blocks[2:]:
+                    clf.partial_fit(Xb, yb, classes=[0.0, 1.0])
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    per_name, launch_calls = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, count = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+        elif "LaunchKernel" in e.name:
+            launch_calls += 1
+    log(f"phase 10e: profiled stream of {SGD_PROFILE} blocks: {wall_ms:.3f} ms on the host "
+        f"clock ({wall_ms / SGD_PROFILE:.4f} ms/block), {syncs / SGD_PROFILE:.2f} host syncs a "
+        f"block, {launch_calls / SGD_PROFILE:.2f} runtime launch calls a block [{card}]")
+    if not per_name:
+        log("  device time by kernel: not measured (the profiler recorded no device event)")
+        return
+    busy = sum(ms for ms, _ in per_name.values())
+    n_dev = sum(c for _, c in per_name.values())
+    for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"  device {ms:10.4f} ms {count:5d}x  {name[:110]}")
+    log(f"  device busy {busy:.3f} ms of {wall_ms:.3f} ms: idle share "
+        f"{(wall_ms - busy) / wall_ms:.4f}; {n_dev / SGD_PROFILE:.2f} device operations a block")
+
+
+def sgd_phase(torch, device, card):
+    """Phase 10 end to end; returns K4's lines of the table."""
+    from dask_ml_tpu_torch.ops import sgd
+
+    compare_sgd(torch, sgd, device)
+    launches = {"sgd_update": sgd_stream(torch, sgd, device, card)}
+    launches.update(sgd_fits(torch, sgd, device, card))
+    out = sgd_table(torch, sgd, device, launches, card)
+    sgd_profile(torch, sgd, device, card)
+    return out
+
 
 def main() -> int:
     import torch
@@ -2306,6 +2889,9 @@ def main() -> int:
 
     # 9. TSQR and the decomposition estimators (plain PyTorch, no kernel)
     decomposition_phase(torch, device, card)
+
+    # 10. the streamed SGD through K4: SGDClassifier, SGDRegressor, Incremental
+    out += sgd_phase(torch, device, card)
 
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

@@ -1,8 +1,8 @@
 """Weights carried across: a fitted reference estimator's attributes, as
 numpy arrays, into a fitted port estimator (``KMeans``,
 ``LogisticRegression``: binary, one-vs-rest and multinomial,
-``LinearRegression``, ``PoissonRegression``, ``PCA``, ``TruncatedSVD`` and
-``IncrementalPCA``)."""
+``LinearRegression``, ``PoissonRegression``, ``PCA``, ``TruncatedSVD``,
+``IncrementalPCA``, ``SGDClassifier`` and ``SGDRegressor``)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch
 from .cluster.k_means import KMeans
 from .core.mesh import get_device
 from .decomposition import PCA, IncrementalPCA, TruncatedSVD
+from .linear_model._sgd import SGDClassifier, SGDRegressor
 from .linear_model.glm import LinearRegression, LogisticRegression, PoissonRegression
 
 
@@ -203,4 +204,53 @@ def incremental_pca_from_reference(arrays, *, device=None, **params) -> Incremen
         raise ValueError("missing fitted attributes: ['n_samples_seen_']")
     est.n_samples_seen_ = torch.tensor(int(arrays["n_samples_seen_"]),
                                        device=est.components_.device)
+    return est
+
+
+def _sgd_state(arrays, n_outputs, device):
+    """The port's SGD state ``{coef (d, K), intercept (K,), t}`` from the
+    reference's ``coef_`` ((K, d), or (d,) for a regressor), ``intercept_``
+    and ``t_``."""
+    missing = {"coef_", "intercept_", "t_", "n_features_in_"} - set(arrays)
+    if missing:
+        raise ValueError(f"missing fitted attributes: {sorted(missing)}")
+    d = int(arrays["n_features_in_"])
+    coef = np.asarray(arrays["coef_"], dtype=np.float32).reshape(-1, d)
+    intercept = np.asarray(arrays["intercept_"], dtype=np.float32).reshape(-1)
+    if coef.shape[0] != n_outputs or intercept.shape != (n_outputs,):
+        raise ValueError(f"coef_ of shape {np.shape(arrays['coef_'])} and intercept_ of "
+                         f"shape {intercept.shape} do not make {n_outputs} outputs of {d} "
+                         "features")
+    device = torch.device(device) if device is not None else get_device()
+    return {"coef": torch.tensor(np.ascontiguousarray(coef.T), device=device),
+            "intercept": torch.tensor(intercept, device=device),
+            "t": torch.tensor(float(arrays["t_"]), dtype=torch.float32, device=device)}
+
+
+def sgd_classifier_from_reference(arrays, *, device=None, **params) -> SGDClassifier:
+    """A fitted port ``SGDClassifier`` from the reference's, able to go on
+    with ``partial_fit`` where the reference's would.
+
+    ``arrays`` maps ``coef_`` ((K, d), (1, d) for two classes),
+    ``intercept_``, ``t_``, ``classes_`` and ``n_features_in_`` to numpy
+    arrays or scalars; ``params`` go to the constructor.  The state lands
+    on ``device`` (default: the active device) as float32.
+    """
+    if "classes_" not in arrays:
+        raise ValueError("missing fitted attributes: ['classes_']")
+    est = SGDClassifier(**params)
+    est._set_classes(arrays["classes_"])
+    k = len(est.classes_)
+    est._state = _sgd_state(arrays, 1 if k == 2 else k, device)
+    est.n_features_in_ = int(arrays["n_features_in_"])
+    return est
+
+
+def sgd_regressor_from_reference(arrays, *, device=None, **params) -> SGDRegressor:
+    """A fitted port ``SGDRegressor`` from the reference's: ``arrays`` maps
+    ``coef_`` (d,), ``intercept_``, ``t_`` and ``n_features_in_``, as
+    :func:`sgd_classifier_from_reference` does."""
+    est = SGDRegressor(**params)
+    est._state = _sgd_state(arrays, 1, device)
+    est.n_features_in_ = int(arrays["n_features_in_"])
     return est

@@ -65,19 +65,21 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
     - the packed one-vs-rest ADMM fit on 3 classes (packed forced), each
       class held against an independent binary solve to atol 1e-4;
     - the multinomial ``lbfgs`` fit, ``max_iter=5``;
-    - ``class_weight="balanced"`` with ``lbfgs``, ``max_iter=5``.
+    - ``class_weight="balanced"`` with ``lbfgs``, ``max_iter=5``;
+    - the scanned minibatch SGD fit, ``SGDClassifier(max_iter=2, tol=None,
+      batch_size=n // 4)``, which must take more steps than epochs
+      (``t_ > 2``) and reach a training accuracy of 0.8.
 
     Not run yet, each waiting for its ROADMAP item: ring pairwise
-    distances and MiniBatchKMeans ([port-rest]), scanned minibatch SGD
-    ([port-stream]), the packed SGD cohort on a data × model mesh,
-    Hyperband and the packed C-grid ([port-search]), and the
-    multi-process run ([port-multi]).  Prints the sections it ran and
-    returns their names.
+    distances and MiniBatchKMeans ([port-rest]), the packed SGD cohort on
+    a data × model mesh, Hyperband and the packed C-grid ([port-search]),
+    and the multi-process run ([port-multi]).  Prints the sections it ran
+    and returns their names.
     """
     from .cluster import KMeans
     from .core.sharded import shard_rows
     from .decomposition import PCA
-    from .linear_model import LogisticRegression
+    from .linear_model import LogisticRegression, SGDClassifier
 
     ran = []
     with use_device(device, n_shards=n_shards):
@@ -126,6 +128,13 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
         lrw = LogisticRegression(solver="lbfgs", max_iter=5, class_weight="balanced").fit(sX, sy)
         assert tuple(lrw.coef_.shape) == (d,)
         ran.append("class_weight balanced")
+
+        msgd = SGDClassifier(max_iter=2, tol=None, batch_size=max(n // 4, 1)).fit(sX, sy)
+        # more steps than epochs: the minibatch path ran (full batch gives t_ == 2)
+        assert msgd.t_ > 2, f"minibatch path did not engage (t_={msgd.t_})"
+        acc = float(msgd.score(sX, sy))
+        assert acc >= 0.8, f"scanned-minibatch SGD failed to converge (acc={acc})"
+        ran.append("scanned minibatch SGD")
         dev = sX.data.device
     print(f"dryrun_multichip({n_shards}) on {dev}: {', '.join(ran)} OK")
     return ran

@@ -1,5 +1,5 @@
-"""The helpers of ``dask_ml_tpu/utils.py`` that the KMeans, GLM and
-decomposition paths call, re-done for torch tensors."""
+"""The helpers of ``dask_ml_tpu/utils.py`` that the KMeans, GLM,
+decomposition and SGD paths call, re-done for torch tensors."""
 
 from __future__ import annotations
 
@@ -163,6 +163,62 @@ def svd_flip(u, v, u_based_decision: bool = True):
         max_abs = torch.argmax(torch.abs(v), dim=1)
         signs = torch.sign(v[torch.arange(v.shape[0], device=v.device), max_abs])
     return u * signs[None, :], v * signs[:, None]
+
+
+def check_chunks(n_samples, n_features=None, chunks=None):
+    """Rows per streamed block from a chunk spec (reference: ``utils.py ::
+    check_chunks``): None (at most 16 blocks), an int, or a (rows, features)
+    pair whose feature entry spans every column."""
+    n_samples = int(n_samples)
+    if n_samples <= 0:
+        raise ValueError("n_samples must be positive")
+    if chunks is None:
+        return max(1, -(-n_samples // 16))
+    if isinstance(chunks, numbers.Integral):
+        chunks = int(chunks)
+        if chunks <= 0:
+            raise ValueError(f"chunks must be positive; got {chunks}")
+        return chunks
+    if isinstance(chunks, (tuple, list)) and len(chunks) == 2:
+        rows, cols = chunks
+        if n_features is not None and int(cols) != int(n_features):
+            raise ValueError(
+                f"column chunking is not supported; the feature chunk must span all "
+                f"{n_features} columns, got {cols}")
+        return check_chunks(n_samples, n_features, int(rows))
+    raise ValueError(f"Unrecognized chunks: {chunks!r}")
+
+
+def classes_f32_exact(classes) -> bool:
+    """True when every class label survives a float32 round trip: the
+    condition for comparing labels on the device."""
+    classes = np.asarray(classes)
+    return bool(np.issubdtype(classes.dtype, np.number)
+                and np.array_equal(classes.astype(np.float32).astype(classes.dtype), classes))
+
+
+def masked_device_accuracy(pred_idx, y_data, mask, classes) -> float:
+    """Masked accuracy read as one scalar: ``pred_idx`` (padded n,) class
+    indices and ``y_data`` (padded n,) label values on one device; a label
+    outside ``classes`` is a miss.  Callers check :func:`classes_f32_exact`."""
+    cls = torch.from_numpy(np.asarray(classes).astype(np.float32)).to(mask.device)
+    hit = (cls[pred_idx] == y_data.to(torch.float32)).to(torch.float32) * mask
+    return float(torch.sum(hit) / safe_denominator(torch.sum(mask)))
+
+
+def check_max_iter(max_iter):
+    """Reject an epoch budget below 1."""
+    if max_iter < 1:
+        raise ValueError(f"max_iter must be >= 1, got {max_iter}")
+
+
+def copy_learned_attributes(from_estimator, to_estimator):
+    """Copy the fitted (trailing-underscore, public) attributes across
+    (reference: ``utils.py :: copy_learned_attributes``)."""
+    for name, value in vars(from_estimator).items():
+        if name.endswith("_") and not name.startswith("_"):
+            setattr(to_estimator, name, value)
+    return to_estimator
 
 
 def check_random_state(random_state) -> np.random.RandomState:

@@ -1,7 +1,8 @@
 """The port's entry points (``dask_ml_tpu_torch/entry.py``) against the
 repository's ``__graft_entry__.py``, on the CPU: ``entry()``'s forward on
 its example arguments within 1e-6 of the reference's, and
-``dryrun_multichip`` at 8 logical shards."""
+``dryrun_multichip`` at 8 logical shards, its scanned-SGD section's
+``t_ > 2`` check among them."""
 
 import os
 
@@ -46,8 +47,19 @@ def test_dryrun_multichip_runs_its_sections(capsys, monkeypatch):
     monkeypatch.delenv("DASK_ML_TPU_TORCH_PACK", raising=False)
     ran = dryrun_multichip(8, device="cpu")
     assert ran == ["binary ADMM", "bf16 lbfgs", "KMeans init=random", "PCA via TSQR",
-                   "packed OvR ADMM", "multinomial lbfgs", "class_weight balanced"]
+                   "packed OvR ADMM", "multinomial lbfgs", "class_weight balanced",
+                   "scanned minibatch SGD"]
     out = capsys.readouterr().out
     assert "dryrun_multichip(8) on cpu" in out and "packed OvR ADMM" in out
     assert "DASK_ML_TPU_TORCH_PACK" not in os.environ
     assert mesh.get_n_shards() == 1  # the shard count was scoped to the dryrun
+
+
+def test_dryrun_scanned_sgd_section_checks_the_minibatch_path(monkeypatch):
+    """The eighth section fails when the fit takes one step an epoch (t_ ==
+    2), as a fall back to the full batch would."""
+    from dask_ml_tpu_torch.linear_model import _sgd
+
+    monkeypatch.setattr(_sgd, "_minibatch_views", lambda *a, **k: None)
+    with pytest.raises(AssertionError, match=r"minibatch path did not engage \(t_=2.0\)"):
+        dryrun_multichip(8, device="cpu")

@@ -1,0 +1,136 @@
+"""K4 (``csrc/sgd.cu``: the SGD step and its value-only variant) against its
+plain version, on a card.
+
+The kernel is CUDA C++ with no CPU mode, so these tests skip without a
+card and ``nvcc``.  They import neither JAX nor the reference, so on a
+machine with a card and without JAX they run as
+``python -m pytest --noconftest -m cuda tests/test_torch_sgd_kernel.py``.
+
+Tolerance: the plain version is taken in float64 on the same inputs; the
+mean loss and Σ mask agree to rtol 1e-5, the updated coef and intercept to
+1e-5·eta·max|g| plus 2^-22 of each element (the float32 rounding of the
+stored c − eta·g), t exactly; hinge's rows within 1e-5 of its kink may
+take the other side, each moving the gradient by at most mask·|x|/count.
+The kernel is deterministic: a repeat gives the same bits.
+"""
+
+import shutil
+
+import pytest
+import torch
+
+from dask_ml_tpu_torch.ops import sgd
+
+TOL = 1e-5
+CLS = ("log_loss", "hinge", "squared_hinge", "modified_huber")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available() or shutil.which("nvcc") is None:
+        pytest.skip("needs a CUDA card and nvcc: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(B, d, K, loss, seed, device, scale=1.0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, d, generator=gen, device=device)
+    if loss in CLS:
+        idx = torch.randint(0, max(K, 2), (B,), generator=gen, device=device)
+        y = (2.0 * torch.nn.functional.one_hot(idx, max(K, 2)).float() - 1.0)[:, -K:]
+    else:
+        y = torch.randn(B, 1, generator=gen, device=device) * 2
+    mask = 2.0 * torch.rand(B, generator=gen, device=device)
+    mask[torch.rand(B, generator=gen, device=device) < 0.1] = 0.0
+    coef = scale * torch.randn(d, K, generator=gen, device=device) / d ** 0.5
+    intercept = 0.1 * torch.randn(K, generator=gen, device=device)
+    return x, y.contiguous(), mask, coef, intercept
+
+
+def _hyper(device, eta_scale=1.0):
+    return torch.tensor([1e-3, 0.05, 0.25, 2e4, 0.15, 0.3, eta_scale], device=device)
+
+
+def _hold(x, y, mask, coef, intercept, hyper, loss, penalty="l2", schedule="optimal",
+          fit_intercept=True):
+    f64 = torch.float64
+    t0 = torch.tensor(7.0, device=x.device)
+    c64, b64, t64 = coef.to(f64), intercept.to(f64), t0.to(f64)
+    out64 = torch.empty(2, dtype=f64, device=x.device)
+    sgd.sgd_update_ref(x.to(f64), y.to(f64), mask.to(f64), c64, b64, t64, hyper.to(f64),
+                       loss=loss, penalty=penalty, schedule=schedule,
+                       fit_intercept=fit_intercept, out=out64)
+    before = sgd.sgd_update.launches
+    runs = []
+    for _ in range(2):
+        c, b, t = coef.clone(), intercept.clone(), t0.clone()
+        out = sgd.sgd_update(x, y, mask, c, b, t, hyper, loss=loss, penalty=penalty,
+                             schedule=schedule, fit_intercept=fit_intercept)
+        runs.append((c, b, t, out))
+    assert sgd.sgd_update.launches == before + 2
+    (c, b, t, out), (c2, b2, t2, out2) = runs
+    assert torch.equal(c, c2) and torch.equal(b, b2) and torch.equal(out, out2)
+    eta = float(sgd.learning_rate(schedule, t0.to(f64), hyper.to(f64)))
+    g = torch.cat([(coef.to(f64) - c64).flatten(), (intercept.to(f64) - b64).flatten()]) / eta
+    allow = 0.0
+    if loss == "hinge":
+        z = y.to(f64) * (x.to(f64) @ coef.to(f64) + intercept.to(f64))
+        near = ((z - 1.0).abs() <= 1e-5 * (1.0 + z.abs())) & (mask[:, None] > 0)
+        allow = eta * int(near.sum()) * float(mask.max()) * float(x.abs().max()) / max(
+            float(out64[1]), 1.0)
+    for got, want in ((c, c64), (b, b64)):
+        tol = TOL * eta * float(g.abs().max()) + 2.0 ** -22 * want.abs() + allow
+        assert bool(((got.to(f64) - want).abs() <= tol).all())
+    assert float(t) == float(t64) == 8.0
+    lo = sgd.sgd_loss(x, y, mask, coef, intercept, hyper, loss=loss)
+    for o in (out, lo):
+        torch.testing.assert_close(o.to(f64), out64, rtol=TOL, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 3, 10, 100])
+@pytest.mark.parametrize("loss", CLS)
+def test_classifier_losses_against_plain(cuda, loss, K):
+    _hold(*_inputs(50_003, 64, K, loss, K, cuda), _hyper(cuda), loss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["squared_error", "huber"])
+@pytest.mark.parametrize("d", [1, 28, 64, 130, 2000])
+def test_regression_losses_and_widths_against_plain(cuda, loss, d):
+    _hold(*_inputs(3001, d, 1, loss, d, cuda), _hyper(cuda), loss, penalty="elasticnet")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("penalty, schedule, fit_intercept", [
+    (None, "constant", True), ("l1", "invscaling", True), ("elasticnet", "adaptive", False),
+    ("l2", "optimal", False)])
+def test_penalties_and_schedules_against_plain(cuda, penalty, schedule, fit_intercept):
+    hyper = _hyper(cuda, 0.2 if schedule == "adaptive" else 1.0)
+    _hold(*_inputs(4097, 130, 3, "log_loss", 3, cuda), hyper, "log_loss", penalty=penalty,
+          schedule=schedule, fit_intercept=fit_intercept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 37, 256])
+def test_short_blocks_against_plain(cuda, B):
+    _hold(*_inputs(B, 64, 10, "modified_huber", B, cuda), _hyper(cuda), "modified_huber")
+
+
+@pytest.mark.cuda
+def test_margins_past_80_and_strided_minibatch_against_plain(cuda):
+    _hold(*_inputs(20_000, 64, 1, "log_loss", 5, cuda, scale=60.0), _hyper(cuda), "log_loss")
+    x, y, mask, coef, intercept = _inputs(16 * 512, 64, 3, "hinge", 6, cuda)
+    views = (x.view(-1, 16, 64)[:, 5], y.view(-1, 16, 3)[:, 5], mask.view(-1, 16)[:, 5])
+    _hold(*views, coef, intercept, _hyper(cuda), "hinge")
+
+
+@pytest.mark.cuda
+def test_all_zero_mask_gives_count_one_and_no_nan(cuda):
+    x, y, _, coef, intercept = _inputs(1000, 8, 1, "log_loss", 1, cuda)
+    t = torch.tensor(0.0, device=cuda)
+    c = coef.clone()
+    out = sgd.sgd_update(x, y, torch.zeros(1000, device=cuda), c, intercept.clone(), t,
+                         _hyper(cuda), loss="log_loss", penalty=None, schedule="constant")
+    assert out.tolist() == [0.0, 0.0] and torch.equal(c, coef) and float(t) == 1.0
