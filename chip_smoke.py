@@ -5,6 +5,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --k4-yardstick ROOT`` instead times K4's step and
+loss (10c) and profiles the minibatch fits' epochs (10e) on the package
+under ROOT, e.g. a parent commit unpacked there, to compare two trees in
+one call.
+
 Phases, in order; any failure exits non-zero:
 
 1. Environment: torch and CUDA versions, the card's name and power limit;
@@ -121,13 +126,18 @@ Phases, in order; any failure exits non-zero:
    its lanes (8, 500k, 64) and at the IncrementalPCA update's stacked shape
    (262155, 64), and prints how many calls returned a non-finite R (an open
    check on cuSOLVER; printed, not gated).
-10. The streamed SGD through K4 (``csrc/sgd.cu``).  10a: K4's two wrappers
-   (``sgd_update``, ``sgd_loss``) against their plain versions taken in
-   float64 (``hold_sgd``: loss rtol 1e-5, the updated coef to
+10. The streamed SGD through K4 (``csrc/sgd.cu``).  10a: K4's three wrappers
+   (``sgd_update``, ``sgd_loss``, ``sgd_epoch``) against their plain versions
+   taken in float64 (``hold_sgd``: loss rtol 1e-5, the updated coef to
    1e-5·eta·max|g| plus its float32 rounding, t equal) at every loss × K ∈
    {1, 3, 10, 100} at 2^20 x 64, d ∈ {1, 28, 130, 2000}, B = 37 and 256,
    a strided minibatch view (n_mb = 16), margins past ±80, each penalty and
-   schedule, fit_intercept off; masks weighted in [0, 2) with a tenth 0.
+   schedule, fit_intercept off, and the tensor-core path's edges (K ∈ {2, 4,
+   16} at d ∈ {1, 64}, K = 16 at d = 256, d = 97); masks weighted in [0, 2)
+   with a tenth 0.  The epoch (``hold_epoch``: each step's loss rtol 1e-5,
+   the final state to the steps' summed tolerance, the same bits twice)
+   at both fits' epochs at full size, n_mb = 2 to 16, a zero-mask minibatch,
+   margins past ±80, K ∈ {1, 2, 4, 10, 16}, d ∈ {1, 64, 200, 256, 300}.
    10b: bench.py's ``streamed_sgd_70x1048576x64`` at full size: 70
    device-born blocks of 2^20 x 64 float32 (``stream_classification_blocks``),
    one ``SGDClassifier(random_state=0).partial_fit`` a block, a scalar sync
@@ -135,14 +145,19 @@ Phases, in order; any failure exits non-zero:
    1e-4·‖coef‖∞); gates: 70 blocks, peak allocated < 2 GB, cosine to the
    stream's w ≥ 0.99, the last block's loss below the first's, 70 K4
    launches.  10d: the scanned minibatch fit (``batch_size=65536``, 5
-   epochs), a 10-class one-vs-all fit with early stopping (K4's value-only
-   variant on the held-out rows) and ``Incremental(SGDRegressor)`` over a
-   2^20 x 64 host array, each gated on accuracy or R².  10c: K4 timed at
-   (1, 2^20, 64), K=1 and K=10 (CUDA events, 20 launches) beside its plain
+   epochs, one K4 epoch launch each), a 10-class one-vs-all fit with early
+   stopping (an epoch launch an epoch, K4's value-only variant on the
+   held-out rows), 4 multi-class ``partial_fit`` steps on its block and
+   ``Incremental(SGDRegressor)`` over a 2^20 x 64 host array, each gated on
+   its launches and on accuracy or R².  10c: K4 timed at (1, 2^20, 64),
+   K=1 and K=10, on a minibatch view and as an epoch (a step: the epoch's
+   time over its 16 steps) (CUDA events, 20 launches) beside its plain
    version, its bound and the addmm + elementwise + mm sequence.  10e: 16
    blocks of the stream under ``torch.profiler``: the device's idle share,
-   device operations, runtime launch calls and host syncs a block.  Then
-   the ``kernels`` line, the card line and the result.
+   device operations, runtime launch calls and host syncs a block; then one
+   epoch of each minibatch fit: each kernel's device time, the idle time
+   and the host clock a step.  Then the ``kernels`` line, the card line and
+   the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -244,17 +259,22 @@ SGD_FIT_BATCH = 65536  # 16 minibatch steps an epoch at 2^20 rows
 SGD_OVA_K = 10
 SGD_EPOCHS = 5  # the binary fits' epochs
 SGD_PROFILE = 16
-# 10c's entries: (name, K, minibatch view or not, wrapper).  Each is timed
+SGD_PARTIAL = 4  # 10d's multi-class partial_fit calls on the 10-class block
+# 10c's entries: (name, K, minibatch views or not, wrapper).  Each is timed
 # and held at the shape its path gives K4: the stream's blocks, the
-# binary minibatch fit's steps, the 10-class fit's steps and its held-out
-# losses; the K=1 value-only call and the K=10 update of a whole block are
-# kept for the record and join no path.
+# multi-class partial_fit's block, the binary and the 10-class minibatch
+# fits' epochs (timed a step: the epoch over its SGD_ROWS // SGD_FIT_BATCH
+# minibatches) and the held-out losses.  The K=1 value-only call is kept for
+# the record and joins no path; so are the step on one minibatch view, the
+# way the parent stepped an epoch, timed as its yardstick.
 SGD_TABLE = (
     ("sgd_update", 1, False, "update"),
     ("sgd_loss_K1", 1, False, "loss"),
+    ("sgd_epoch_minibatch", 1, True, "epoch"),
     ("sgd_update_minibatch", 1, True, "update"),
     ("sgd_update_K10", SGD_OVA_K, False, "update"),
     ("sgd_loss_K10", SGD_OVA_K, False, "loss"),
+    ("sgd_epoch_K10_minibatch", SGD_OVA_K, True, "epoch"),
     ("sgd_update_K10_minibatch", SGD_OVA_K, True, "update"),
 )
 
@@ -2428,7 +2448,134 @@ def sgd_edge_cases():
         ("adaptive, no intercept", 65536, SGD_D, 10, "squared_hinge",
          {"schedule": "adaptive", "fit_intercept": False}),
     ]
+    # the tensor-core path: both n-tile counts, its feature edges, the
+    # 32-row tiles past d = 96
+    for K in (2, 4, 16):
+        for d in (1, SGD_D):
+            cases.append((f"tensor cores K={K} d={d}", 65536, d, K, "log_loss", {}))
+    cases.append(("tensor cores K=16 d=256", 20011, 256, 16, "hinge", {}))
+    cases.append(("tensor cores K=5 d=97 margins past ±80", 20011, 97, 5, "modified_huber",
+                  {"scale": 60.0}))
     return cases
+
+
+def epoch_grids(sgd, device, loss, B, d, K):
+    """The blocks of a step's plan and of an epoch's plan for minibatches of
+    B rows (the epoch's sums are a step's where the two are equal)."""
+    lib = sgd._load()
+    return tuple(int(sgd._plan(lib, device, sgd.LOSSES[loss], B, d, K, epoch=e)[0][3])
+                 for e in (False, True))
+
+
+def hold_epoch(torch, sgd, stacks, hyper, what, loss, penalty="l2", schedule="optimal",
+               fit_intercept=True):
+    """10a: the epoch kernel (``sgd_epoch``) against its plain version's steps
+    taken in float64 from the same state: each step's (mean loss, Σ mask) to
+    rtol SGD_TOL, the final coef and intercept to SGD_TOL times the steps'
+    sum of eta·max|g| (each step's own tolerance, summed) plus 2^-22 of each
+    element a step, with each step's hinge allowance; t equal.  The epoch is
+    run twice and must give the same bits; it is also run as n_mb calls of
+    ``sgd_update``, and whether the bits agree is logged with both grids.
+    Returns the largest absolute difference of its outputs."""
+    xs, ys, ms, coef, intercept = stacks
+    d64 = torch.float64
+    n_mb = xs.shape[1]
+    h64 = hyper.to(d64)
+    t0 = torch.tensor(5.0, device=xs.device)
+    c64, b64, t64 = coef.to(d64), intercept.to(d64), t0.to(d64)
+    out64 = torch.empty((n_mb, 2), dtype=d64, device=xs.device)
+    moves = allow = 0.0
+    for i in range(n_mb):
+        before = torch.cat([c64.flatten(), b64.flatten()])
+        x, y, m = xs[:, i], ys[:, i], ms[:, i]
+        if loss == "hinge":
+            eta = float(sgd.learning_rate(schedule, t64, h64))
+            z = y.to(d64) * (x.to(d64) @ c64 + b64)
+            near = ((z - 1.0).abs() <= 1e-5 * (1.0 + z.abs())) & (m[:, None] > 0)
+            allow += eta * int(near.sum()) * float(m.max()) * float(x.abs().max()) / max(
+                float(m.sum()), 1.0)
+        sgd.sgd_update_ref(x.to(d64), y.to(d64), m.to(d64), c64, b64, t64, h64, loss=loss,
+                           penalty=penalty, schedule=schedule, fit_intercept=fit_intercept,
+                           out=out64[i])
+        moves += float((torch.cat([c64.flatten(), b64.flatten()]) - before).abs().max())
+    kw = dict(loss=loss, penalty=penalty, schedule=schedule, fit_intercept=fit_intercept)
+    runs = []
+    for _ in range(2):
+        c, b, t = coef.clone(), intercept.clone(), t0.clone()
+        runs.append((c, b, t, sgd.sgd_epoch(xs, ys, ms, c, b, t, hyper, **kw)))
+    c, b, t = coef.clone(), intercept.clone(), t0.clone()
+    steps = torch.stack([sgd.sgd_update(xs[:, i], ys[:, i], ms[:, i], c, b, t, hyper, **kw)
+                         for i in range(n_mb)])
+    torch.cuda.synchronize()
+    (c1, b1, t1, o1), (c2, b2, t2, o2) = runs
+    if not (torch.equal(c1, c2) and torch.equal(b1, b2) and torch.equal(o1, o2)):
+        raise AssertionError(f"K4 epoch {what}: a repeat gave other bits")
+    err = 0.0
+    for got, want in ((c1, c64), (b1, b64)):
+        diff = (got.to(d64) - want).abs()
+        tol = SGD_TOL * moves + n_mb * 2.0 ** -22 * want.abs() + allow
+        if not bool((diff <= tol).all()):
+            worst = float((diff / tol).max())
+            raise AssertionError(f"K4 epoch {what}: {worst:.3g}x its tolerance "
+                                 f"(max|Δ| {float(diff.max()):.3g}, Σ eta·max|g| {moves:.3g})")
+        err = max(err, float(diff.max()))
+    if float(t1) != float(t64):
+        raise AssertionError(f"K4 epoch {what}: t {float(t1)} against {float(t64)}")
+    rel = (o1.to(d64) - out64).abs()  # absolute, held relative to each value
+    if not bool((rel <= SGD_TOL * out64.abs()).all()):
+        raise AssertionError(f"K4 epoch {what}: step losses {o1.tolist()} against "
+                             f"{out64.tolist()}")
+    same = torch.equal(c1, c) and torch.equal(b1, b) and torch.equal(o1, steps)
+    grids = epoch_grids(sgd, xs.device, loss, xs.shape[0], xs.shape[2], ys.shape[2])
+    log(f"phase 10a: K4 epoch {what}: max|Δ| {err:.3g}; the same bits as {n_mb} sgd_update "
+        f"calls: {same} (grids: step {grids[0]}, epoch {grids[1]} blocks)")
+    return max(err, float(rel[:, 0].max()))
+
+
+def epoch_edge_cases():
+    """10a: (label, rows a minibatch, n_mb, d, K, loss, options) of every
+    epoch held; option ``zero_last`` zeroes the last minibatch's mask."""
+    n_mb = SGD_ROWS // SGD_FIT_BATCH
+    return [
+        (f"the binary minibatch fit's epoch (n_mb={n_mb})", SGD_FIT_BATCH, n_mb, SGD_D, 1,
+         "log_loss", {}),
+        (f"the {SGD_OVA_K}-class fit's epoch (n_mb={n_mb})", SGD_FIT_BATCH, n_mb, SGD_D,
+         SGD_OVA_K, "log_loss", {}),
+        ("n_mb=2 hinge", 4096, 2, SGD_D, 1, "hinge", {"penalty": "elasticnet"}),
+        ("n_mb=2 K=2 d=1", 4096, 2, 1, 2, "log_loss", {"schedule": "invscaling"}),
+        ("n_mb=16 K=4 a zero-mask minibatch", 4096, 16, SGD_D, 4, "modified_huber",
+         {"zero_last": True, "schedule": "constant"}),
+        ("n_mb=16 K=1 a zero-mask minibatch", 4096, 16, SGD_D, 1, "log_loss",
+         {"zero_last": True}),
+        ("n_mb=16 K=16 margins past ±80", 4096, 16, SGD_D, 16, "log_loss",
+         {"scale": 60.0, "fit_intercept": False}),
+        ("n_mb=16 K=1 margins past ±80", 4096, 16, SGD_D, 1, "log_loss", {"scale": 60.0}),
+        ("n_mb=4 K=10 d=1", 4096, 4, 1, 10, "squared_hinge", {"penalty": "l1"}),
+        ("n_mb=2 huber d=200", 4096, 2, 200, 1, "huber", {}),
+        ("n_mb=3 K=16 d=256", 2001, 3, 256, 16, "hinge", {}),
+        ("n_mb=2 the row path d=300", 3001, 2, 300, 1, "squared_error", {}),
+    ]
+
+
+def compare_epoch(torch, sgd, device):
+    """10a: every epoch case held; logs the largest difference."""
+    worst = 0.0
+    cases = epoch_edge_cases()
+    for i, (label, B, n_mb, d, K, loss, opts) in enumerate(cases):
+        opts = dict(opts)
+        scale = opts.pop("scale", 1.0)
+        zero_last = opts.pop("zero_last", False)
+        hyper = sgd_hyper(torch, device)
+        x, y, mask, coef, intercept = sgd_inputs(torch, B * n_mb, d, K, loss, 300 + i, device,
+                                                 scale)
+        stacks = (x.view(B, n_mb, d), y.view(B, n_mb, K), mask.view(B, n_mb), coef, intercept)
+        if zero_last:
+            stacks[2][:, -1] = 0.0
+        worst = max(worst, hold_epoch(torch, sgd, stacks, hyper, label, loss, **opts))
+        del x, y, mask, stacks
+    log(f"phase 10a: K4's epoch held against its plain version's steps (float64) at "
+        f"{len(cases)} cases, rtol {SGD_TOL}; largest absolute difference {worst:.3g}")
+    return worst
 
 
 def compare_sgd(torch, sgd, device):
@@ -2452,9 +2599,15 @@ def compare_sgd(torch, sgd, device):
 
 def reset_sgd_counts(sgd):
     sgd.sgd_update.launches = 0
+    sgd.sgd_epoch.launches = 0
     sgd.sgd_loss.launches = 0
     sgd.sgd_update_ref.calls = 0
+    sgd.sgd_epoch_ref.calls = 0
     sgd.sgd_loss_ref.calls = 0
+
+
+def plain_sgd_calls(sgd):
+    return sgd.sgd_update_ref.calls + sgd.sgd_epoch_ref.calls + sgd.sgd_loss_ref.calls
 
 
 class PlainK4:
@@ -2463,15 +2616,16 @@ class PlainK4:
 
     def __init__(self, sgd):
         self.sgd = sgd
-        self.kernels = (sgd.sgd_update, sgd.sgd_loss)
+        self.kernels = (sgd.sgd_update, sgd.sgd_epoch, sgd.sgd_loss)
 
     def __enter__(self):
         self.sgd.sgd_update = self.sgd.sgd_update_ref
+        self.sgd.sgd_epoch = self.sgd.sgd_epoch_ref
         self.sgd.sgd_loss = self.sgd.sgd_loss_ref
         return self
 
     def __exit__(self, *exc):
-        self.sgd.sgd_update, self.sgd.sgd_loss = self.kernels
+        self.sgd.sgd_update, self.sgd.sgd_epoch, self.sgd.sgd_loss = self.kernels
 
 
 def sgd_stream_agreement(torch, sgd, w, device):
@@ -2559,69 +2713,94 @@ def sgd_stream(torch, sgd, device, card):
 
 def sgd_table_entry(torch, sgd, case, hyper, name, kind, card):
     """10c: one entry of SGD_TABLE on its inputs: the wrapper timed (CUDA
-    events over 20 launches) beside its plain version (3 runs), its bound
-    from this view's rows, the addmm + elementwise + mm sequence for the
-    update and addmm + elementwise + sum for the loss (informational: no
-    single PyTorch call computes either), and its largest difference from
-    the plain version in float64 on the same inputs (``hold_sgd``)."""
+    events over 20 launches; an epoch's time divided by its steps) beside
+    its plain version (3 runs), its bound from this view's rows (a step's),
+    the addmm + elementwise + mm sequence for a step and addmm +
+    elementwise + sum for the loss (informational: no single PyTorch call
+    computes either), and its largest difference from the plain version in
+    float64 on the same inputs (``hold_sgd``, ``hold_epoch``).  ``case``:
+    a block, a minibatch view, or (an epoch) the stacks of a block's
+    minibatches."""
     x, y, mask, coef, intercept = case
-    B, d = x.shape
-    K = y.shape[1]
+    B, d = x.shape[0], x.shape[-1]
+    K = y.shape[-1]
     loss = "log_loss"
     kw = dict(loss=loss, penalty="l2", schedule="optimal")
     c, b, t = coef.clone(), intercept.clone(), torch.tensor(5.0, device=x.device)
-    if kind == "update":
+    steps = x.shape[1] if kind == "epoch" else 1
+    if kind == "epoch":
+        ms = time_ms(torch, lambda: sgd.sgd_epoch(x, y, mask, c, b, t, hyper, **kw), 20) / steps
+        plain_ms = time_ms(torch, lambda: sgd.sgd_epoch_ref(x, y, mask, c, b, t, hyper, **kw),
+                           3) / steps
+        one = (x[:, 5], y[:, 5], mask[:, 5])
+    elif kind == "update":
         ms = time_ms(torch, lambda: sgd.sgd_update(x, y, mask, c, b, t, hyper, **kw), 20)
         plain_ms = time_ms(torch, lambda: sgd.sgd_update_ref(x, y, mask, c, b, t, hyper, **kw), 3)
+        one = (x, y, mask)
     else:
         ms = time_ms(torch, lambda: sgd.sgd_loss(x, y, mask, c, b, hyper, loss=loss), 20)
         plain_ms = time_ms(torch, lambda: sgd.sgd_loss_ref(x, y, mask, c, b, hyper, loss=loss), 3)
+        one = (x, y, mask)
 
     def library():
-        m = torch.addmm(intercept, x, coef)
-        z = y * m
+        xo, yo, mo = one
+        m = torch.addmm(intercept, xo, coef)
+        z = yo * m
         if kind == "loss":
-            return torch.sum(torch.nn.functional.softplus(-z) * mask[:, None])
-        dm = -torch.sigmoid(-z) * y * mask[:, None]
-        return torch.mm(x.T, dm)
+            return torch.sum(torch.nn.functional.softplus(-z) * mo[:, None])
+        dm = -torch.sigmoid(-z) * yo * mo[:, None]
+        return torch.mm(xo.T, dm)
 
     lib_ms = time_ms(torch, library, 20)
-    err_update, err_loss = hold_sgd(torch, sgd, case, hyper, name, loss)
-    nbytes = B * d * 4 + B * (K + 1) * 4 + (2 if kind == "update" else 1) * (d + 1) * K * 4
-    flops = (4 if kind == "update" else 2) * B * d * K
+    if kind == "epoch":
+        err = hold_epoch(torch, sgd, case, hyper, name, loss)
+    else:
+        err_update, err_loss = hold_sgd(torch, sgd, case, hyper, name, loss)
+        err = err_update if kind == "update" else err_loss
+    nbytes = B * d * 4 + B * (K + 1) * 4 + (1 if kind == "loss" else 2) * (d + 1) * K * 4
+    flops = (2 if kind == "loss" else 4) * B * d * K
     b_ms, b_by = bound_ms(nbytes, flops)
-    rows = f"rows 5::{x.stride(0) // d} of {B * x.stride(0) // d}" if x.stride(0) != d else "rows"
+    if kind == "epoch":
+        rows = f"rows i::{steps} of {B * steps}, a step of {steps}"
+    elif x.stride(0) != d:
+        rows = f"rows 5::{x.stride(0) // d} of {B * x.stride(0) // d}"
+    else:
+        rows = "rows"
     log(f"phase 10c: {name} at {B} {rows} x {d}, K={K}: {ms:.4f} ms, "
         f"{B / ms * 1e3:.4g} rows/s, {nbytes / ms / 1e6:.1f} GB/s, "
         f"{b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
         f"{b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; the PyTorch sequence, "
         f"informational: {lib_ms:.4f} ms) [{card}]")
+    replaces = {"update": "dask_ml_tpu/linear_model/_sgd.py:146",
+                "epoch": "dask_ml_tpu/linear_model/_sgd.py:203",
+                "loss": "dask_ml_tpu/linear_model/_sgd.py:241"}[kind]
     return {"name": name, "route": "cuda", "source": "dask_ml_tpu_torch/csrc/sgd.cu",
-            "replaces": ("dask_ml_tpu/linear_model/_sgd.py:146" if kind == "update"
-                         else "dask_ml_tpu/linear_model/_sgd.py:241"),
-            "max_abs_err": err_update if kind == "update" else err_loss,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def sgd_table(torch, sgd, device, launches, card):
     """10c: every entry of SGD_TABLE at the shape its path gives K4 (a
-    2^20 x 64 block, or minibatch 5 of its SGD_ROWS // SGD_FIT_BATCH
-    strided views).  Returns the kernels line's entries: those a path of
-    this run launched, with their launches."""
+    2^20 x 64 block, minibatch 5 of its SGD_ROWS // SGD_FIT_BATCH strided
+    views, or all of them for an epoch).  Returns the kernels line's
+    entries: those a path of this run launched, with their launches."""
     out = []
     n_mb = SGD_ROWS // SGD_FIT_BATCH
     for K in (1, SGD_OVA_K):
         block = sgd_inputs(torch, SGD_ROWS, SGD_D, K, "log_loss", 1, device)
         hyper = sgd_hyper(torch, device)
+        x, y, mask, coef, intercept = block
+        stacks = (x.view(-1, n_mb, SGD_D), y.view(-1, n_mb, K), mask.view(-1, n_mb), coef,
+                  intercept)
         for name, k, strided, kind in SGD_TABLE:
             if k != K:
                 continue
-            case = minibatch_view(block, n_mb) if strided else block
+            case = (stacks if kind == "epoch" else minibatch_view(block, n_mb)) if strided \
+                else block
             entry = sgd_table_entry(torch, sgd, case, hyper, name, kind, card)
-            if name in launches:
+            if launches.get(name):
                 out.append(dict(entry, launches=launches[name]))
-        del block
+        del block, stacks, x, y, mask
     return out
 
 
@@ -2682,19 +2861,24 @@ def sgd_fits(torch, sgd, device, card):
         reset_sgd_counts(sgd)
         est = make().fit(X, y)
         torch.cuda.synchronize()
-        n_launch, n_plain = sgd.sgd_update.launches, sgd.sgd_update_ref.calls
+        steps, epochs = sgd.sgd_update.launches, sgd.sgd_epoch.launches
+        n_plain = plain_sgd_calls(sgd)
         fit, loop, setup = timed_fits(torch, make, X, y)
         acc = est.score(X, y)
         log(f"phase 10d: SGDClassifier {label} fit {SGD_ROWS}x{SGD_D}, {SGD_EPOCHS} epochs: "
             f"{fit:.3f} ms, the epoch loop {loop:.3f} ms ({loop / SGD_EPOCHS:.4f} ms an epoch "
             f"of {1 if bs is None else n_mb} steps), set-up {setup:.3f} ms (medians of 3); "
-            f"t_ {est.t_}, K4 launches {n_launch}, accuracy {acc:.6f} (the true w: "
-            f"{acc_true:.6f}) [{card}]")
-        gate(n_launch == est.t_ and n_plain == 0, f"the {label} fit's launches", phase=10)
+            f"t_ {est.t_}, K4 launches: {steps} steps, {epochs} epochs, accuracy {acc:.6f} "
+            f"(the true w: {acc_true:.6f}) [{card}]")
+        gate(n_plain == 0, f"the {label} fit's plain-version calls {n_plain}", phase=10)
         gate(acc >= 0.98 * acc_true, f"the {label} fit's accuracy {acc}", phase=10)
-        if bs is not None:
+        if bs is None:
+            gate(steps == est.t_ and epochs == 0, f"the {label} fit's launches", phase=10)
+        else:
             gate(est.t_ == SGD_EPOCHS * n_mb, f"minibatch steps {est.t_}", phase=10)
-            launches["sgd_update_minibatch"] = n_launch
+            gate(epochs == SGD_EPOCHS and steps == 0,
+                 f"the {label} fit launched {epochs} epochs and {steps} steps", phase=10)
+            launches["sgd_epoch_minibatch"] = epochs
     del X, y
     # 10 classes, one-vs-all, early stopping on the held-out rows' loss
     W = torch.randn(SGD_D, SGD_OVA_K, generator=gen, device=device)
@@ -2711,19 +2895,36 @@ def sgd_fits(torch, sgd, device, card):
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
     acc = est.score(sX, sy)
-    launches["sgd_update_K10_minibatch"] = sgd.sgd_update.launches
+    launches["sgd_epoch_K10_minibatch"] = sgd.sgd_epoch.launches
     launches["sgd_loss_K10"] = sgd.sgd_loss.launches
     log(f"phase 10d: SGDClassifier {SGD_OVA_K}-class one-vs-all fit with early stopping "
         f"{SGD_ROWS}x{SGD_D}, batch_size {SGD_FIT_BATCH}: {ms:.3f} ms, n_iter_ {est.n_iter_}, "
-        f"t_ {est.t_}, K4 launches {launches['sgd_update_K10_minibatch']} (update, {n_mb} "
-        f"strided minibatches an epoch), {launches['sgd_loss_K10']} (loss, the whole block), "
-        f"accuracy {acc:.6f} (the true W: {acc_true:.6f}) [{card}]")
-    gate(launches["sgd_update_K10_minibatch"] == est.t_ == est.n_iter_ * n_mb
-         and sgd.sgd_update_ref.calls == 0,
-         "the 10-class fit's steps did not all go through K4 as minibatches", phase=10)
-    gate(launches["sgd_loss_K10"] == est.n_iter_ and sgd.sgd_loss_ref.calls == 0,
+        f"t_ {est.t_}, K4 launches {launches['sgd_epoch_K10_minibatch']} (epochs of {n_mb} "
+        f"strided minibatches), {sgd.sgd_update.launches} (steps), "
+        f"{launches['sgd_loss_K10']} (loss, the whole block), accuracy {acc:.6f} (the true W: "
+        f"{acc_true:.6f}) [{card}]")
+    gate(launches["sgd_epoch_K10_minibatch"] == est.n_iter_ and est.t_ == est.n_iter_ * n_mb
+         and sgd.sgd_update.launches == 0 and plain_sgd_calls(sgd) == 0,
+         "the 10-class fit's epochs did not each go through K4 in one launch", phase=10)
+    gate(launches["sgd_loss_K10"] == est.n_iter_,
          "the early-stopping fit's held-out losses did not all go through K4", phase=10)
     gate(acc >= 0.9 * acc_true, f"the {SGD_OVA_K}-class fit's accuracy {acc}", phase=10)
+    # a multi-class stream: partial_fit on the whole 10-class block, a step each
+    reset_sgd_counts(sgd)
+    clf = SGDClassifier(random_state=0)
+    classes = [float(k) for k in range(SGD_OVA_K)]
+    for _ in range(SGD_PARTIAL):
+        clf.partial_fit(sX, sy, classes=classes)
+    torch.cuda.synchronize()
+    launches["sgd_update_K10"] = sgd.sgd_update.launches
+    acc = clf.score(sX, sy)
+    log(f"phase 10d: SGDClassifier {SGD_OVA_K}-class partial_fit x{SGD_PARTIAL} on "
+        f"{SGD_ROWS}x{SGD_D}: t_ {clf.t_}, K4 launches {launches['sgd_update_K10']}, accuracy "
+        f"{acc:.6f} [{card}]")
+    gate(launches["sgd_update_K10"] == SGD_PARTIAL and plain_sgd_calls(sgd) == 0,
+         "the multi-class partial_fit's steps did not all go through K4", phase=10)
+    gate(bool(np.isfinite(clf.coef_).all()) and acc > 1.0 / SGD_OVA_K,
+         f"the multi-class partial_fit's accuracy {acc}", phase=10)
     del Xo, yo, sX, sy
     # Incremental(SGDRegressor) over a host array
     rng = np.random.RandomState(5)
@@ -2800,19 +3001,109 @@ def sgd_profile(torch, sgd, device, card):
         f"{(wall_ms - busy) / wall_ms:.4f}; {n_dev / SGD_PROFILE:.2f} device operations a block")
 
 
+def kernel_name(name):
+    """A device event's kernel name without its namespace and arguments."""
+    m = re.search(r"([A-Za-z_]+_kernel)", name)
+    return m.group(1) if m else name.split("(")[0][:60]
+
+
+def epoch_profile(torch, device, K, card):
+    """10e: one epoch of ``linear_model/_sgd.py :: sgd_epoch`` (the
+    minibatch fits' epoch: SGD_ROWS // SGD_FIT_BATCH steps on the strided
+    views of a 2^20 x 64 block, log_loss, l2, optimal) under
+    ``torch.profiler``, after a warm epoch: per step, each kernel's device
+    time, the device's idle time between the epoch's first and last device
+    event, and the host clock of the whole call (synced); beside them the
+    call's CUDA-event time a step (outside the profiler), which a profile
+    that dropped a kernel's event does not match.  Returns {"host_ms",
+    "device_ms", "gap_ms", "event_ms"} a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dask_ml_tpu_torch.linear_model import _sgd
+
+    n_mb = SGD_ROWS // SGD_FIT_BATCH
+    x, y, _, coef, intercept = sgd_inputs(torch, SGD_ROWS, SGD_D, K, "log_loss", 21, device)
+    mask = torch.ones(SGD_ROWS, device=device)
+    views = (x.view(-1, n_mb, SGD_D), y.view(-1, n_mb, K), mask.view(-1, n_mb))
+    hyper = sgd_hyper(torch, device)
+    state = {"coef": coef.clone(), "intercept": intercept.clone(),
+             "t": torch.tensor(0.0, device=device)}
+    kw = dict(loss="log_loss", penalty="l2", schedule="optimal")
+    _sgd.sgd_epoch(state, *views, hyper, **kw)  # warm: the plan and the allocator
+    event_ms = time_ms(torch, lambda: _sgd.sgd_epoch(state, *views, hyper, **kw), 5) / n_mb
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _sgd.sgd_epoch(state, *views, hyper, **kw)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / n_mb
+    events = sorted(((e.time_range.start, e.time_range.end, kernel_name(e.name))
+                     for e in prof.events() if e.device_type == DeviceType.CUDA))
+    label = f"{'binary' if K == 1 else f'{K}-class'} minibatch fit's epoch ({n_mb} steps)"
+    if not events:
+        log(f"phase 10e: {label}: host {host_ms:.4f} ms a step, CUDA events {event_ms:.4f} ms; "
+            f"device time: not measured (the profiler recorded no device event) [{card}]")
+        return {"host_ms": host_ms, "device_ms": None, "gap_ms": None, "event_ms": event_ms}
+    per_name = {}
+    for start, end, name in events:
+        ms, count = per_name.get(name, (0.0, 0))
+        per_name[name] = (ms + (end - start) / 1e3, count + 1)
+    busy = sum(ms for ms, _ in per_name.values())
+    span = (events[-1][1] - events[0][0]) / 1e3
+    kernels = ", ".join(f"{name} {ms / n_mb:.4f} ms ({count}x)"
+                        for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0]))
+    dropped = " (below the CUDA-event time: the profiler dropped events)" \
+        if busy / n_mb < 0.5 * event_ms else ""
+    log(f"phase 10e: {label}, a step: host {host_ms:.4f} ms; device {busy / n_mb:.4f} ms "
+        f"({kernels}){dropped}; idle between the epoch's device events "
+        f"{(span - busy) / n_mb:.4f} ms; CUDA events {event_ms:.4f} ms [{card}]")
+    return {"host_ms": host_ms, "device_ms": busy / n_mb, "gap_ms": (span - busy) / n_mb,
+            "event_ms": event_ms}
+
+
+def k4_yardstick(torch, device, card):
+    """``--k4-yardstick ROOT``: the step and loss entries of SGD_TABLE (10c)
+    and the two minibatch fits' epoch profiles (10e), on the package under
+    ROOT (a parent's tree, whose K4 has no epoch kernel, or this one), so
+    that two trees are timed in one call on one card."""
+    from dask_ml_tpu_torch.ops import _build, sgd
+
+    log(f"k4 yardstick: {sgd.__file__}")
+    _build.build(["sgd"])
+    n_mb = SGD_ROWS // SGD_FIT_BATCH
+    for K in (1, SGD_OVA_K):
+        block = sgd_inputs(torch, SGD_ROWS, SGD_D, K, "log_loss", 1, device)
+        hyper = sgd_hyper(torch, device)
+        for name, k, strided, kind in SGD_TABLE:
+            if k == K and kind != "epoch":
+                sgd_table_entry(torch, sgd, minibatch_view(block, n_mb) if strided else block,
+                                hyper, name, kind, card)
+        del block
+    for K in (1, SGD_OVA_K):
+        epoch_profile(torch, device, K, card)
+
+
 def sgd_phase(torch, device, card):
     """Phase 10 end to end; returns K4's lines of the table."""
     from dask_ml_tpu_torch.ops import sgd
 
     compare_sgd(torch, sgd, device)
+    compare_epoch(torch, sgd, device)
     launches = {"sgd_update": sgd_stream(torch, sgd, device, card)}
     launches.update(sgd_fits(torch, sgd, device, card))
     out = sgd_table(torch, sgd, device, launches, card)
     sgd_profile(torch, sgd, device, card)
+    for K in (1, SGD_OVA_K):
+        epoch_profile(torch, device, K, card)
     return out
 
 
 def main() -> int:
+    yardstick = None
+    if "--k4-yardstick" in sys.argv:
+        yardstick = sys.argv[sys.argv.index("--k4-yardstick") + 1]
+        sys.path.insert(0, yardstick)
     import torch
 
     if not torch.cuda.is_available():
@@ -2830,6 +3121,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     set_device(device)
+    if yardstick is not None:
+        k4_yardstick(torch, device, card)
+        return 0
 
     # 2. build every kernel source, in parallel
     t0 = time.perf_counter()

@@ -8,8 +8,9 @@ gradient step over the whole block through K4 (``ops/sgd.py``,
 host read in the step.  ``fit`` runs one full-batch step an epoch, or with
 ``batch_size`` one step a minibatch of the padded rows, minibatch ``i``
 the rows ``i::n_mb`` (the reference's stride interleave, read where they
-lie).  Multi-class is one-vs-all in one ``[d, K]`` matrix; binary keeps one
-column with ±1 targets.  Host blocks are padded to the bucket ladder
+lie), all of an epoch's steps in one launch of K4's epoch.  Multi-class
+is one-vs-all in one ``[d, K]`` matrix; binary keeps one column with ±1
+targets.  Host blocks are padded to the bucket ladder
 (``programs/bucket.py``) as in the reference, so both packages step on the
 same padded shapes.
 
@@ -77,14 +78,18 @@ def sgd_step(state, xb, yb, mask, hyper, *, loss, penalty, schedule, fit_interce
 
 def sgd_epoch(state, xs, ys, ms, hyper, *, loss, penalty, schedule, fit_intercept=True):
     """One epoch: a step for each minibatch ``i`` of stacks ``(B, n_mb, ...)``
-    (the strided views ``xs[:, i]``, no copy), in order.  Returns ``(state,
-    epoch loss)``, the steps' losses weighted by their real row counts, on
-    the device."""
+    (the strided views ``xs[:, i]``, no copy), in order, through K4's epoch
+    (one launch an epoch on the card; one minibatch is a plain step).
+    Returns ``(state, epoch loss)``, the steps' losses weighted by their
+    real row counts, on the device."""
     n_mb = xs.shape[1]
     outs = torch.empty((n_mb, 2), dtype=torch.float32, device=xs.device)
-    for i in range(n_mb):
-        sgd_step(state, xs[:, i], ys[:, i], ms[:, i], hyper, loss=loss, penalty=penalty,
-                 schedule=schedule, fit_intercept=fit_intercept, out=outs[i])
+    kw = dict(loss=loss, penalty=penalty, schedule=schedule, fit_intercept=fit_intercept)
+    if n_mb == 1:
+        sgd_step(state, xs[:, 0], ys[:, 0], ms[:, 0], hyper, out=outs[0], **kw)
+    else:
+        k4.sgd_epoch(xs, ys, ms, state["coef"], state["intercept"], state["t"], hyper, out=outs,
+                     **kw)
     losses, counts = outs[:, 0], outs[:, 1]
     return state, torch.sum(losses * counts) / safe_denominator(torch.sum(counts))
 

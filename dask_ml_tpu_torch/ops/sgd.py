@@ -1,10 +1,11 @@
-"""K4: one minibatch SGD step of a linear model, and its loss alone.
+"""K4: minibatch SGD steps of a linear model, and the loss alone.
 
 It replaces ``dask_ml_tpu/linear_model/_sgd.py :: sgd_step`` (the step of
-``partial_fit``, and each step of ``sgd_epoch``'s scan) and ``::
-_eval_loss_fn`` (the held-out loss of ``early_stopping``).  For one block
-x ``[B, d]`` float32, targets ``[B, K]``, a mask ``[B]`` and the state coef
-``[d, K]``, intercept ``[K]``, t ``[]``:
+``partial_fit``), ``:: sgd_epoch`` (a ``lax.scan`` of the step over an
+epoch's minibatches) and ``:: _eval_loss_fn`` (the held-out loss of
+``early_stopping``).  For one block x ``[B, d]`` float32, targets
+``[B, K]``, a mask ``[B]`` and the state coef ``[d, K]``, intercept ``[K]``,
+t ``[]``:
 
 - margins = x·coef + intercept;
 - per row and column, the loss and dLoss/dmargin: ``log_loss``, ``hinge``,
@@ -23,12 +24,13 @@ bounds the kernel on an H100 and what its design does about it.  x, the
 targets and the mask may be row-strided views (a minibatch ``rows[i::n_mb]``
 of a padded block is one), as long as each row is contiguous.
 
-Two wrappers: :func:`sgd_update` (the step) and :func:`sgd_loss` (the
-masked mean loss only).  Each writes ``out`` (2,) float32 = (mean loss,
-Σ mask) on the device and reads nothing back to the host.  Each runs its
-plain PyTorch version (``*_ref``) on a CPU tensor and launches the kernel
-on a CUDA tensor, or raises.  Each counts its launches in
-``<wrapper>.launches``; the plain versions count their calls in
+Three wrappers: :func:`sgd_update` (the step), :func:`sgd_epoch` (an
+epoch's steps over minibatch stacks ``(B, n_mb, ...)``, in one cooperative
+launch) and :func:`sgd_loss` (the masked mean loss only).  Each writes its
+``(mean loss, Σ mask)`` pairs on the device and reads nothing back to the
+host.  Each runs its plain PyTorch version (``*_ref``) on a CPU tensor and
+launches the kernel on a CUDA tensor, or raises.  Each counts its launches
+in ``<wrapper>.launches``; the plain versions count their calls in
 ``<plain version>.calls``.
 """
 
@@ -41,7 +43,7 @@ import torch
 from . import _build
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_PLAN_WORDS = 8
+_PLAN_WORDS = 9
 #: the kernel's ids of the losses, penalties and schedules
 LOSSES = {"log_loss": 0, "hinge": 1, "squared_hinge": 2, "modified_huber": 3,
           "squared_error": 4, "huber": 5}
@@ -61,11 +63,15 @@ def _load():
     global _lib
     if _lib is None:
         lib = _build.load("sgd")
-        lib.sgd_plan.argtypes = [_INT, _LL, _INT, _INT, _VP]
+        lib.sgd_plan.argtypes = [_INT, _LL, _INT, _INT, _INT, _VP]
         lib.sgd_plan.restype = _INT
         lib.sgd_step.argtypes = [_VP, _INT, _INT, _INT, _INT, _INT, _VP, _LL, _VP, _LL, _VP, _LL,
                                  _VP, _VP, _VP, _VP, _LL, _INT, _INT, _VP, _VP, _VP]
         lib.sgd_step.restype = _INT
+        lib.sgd_epoch_run.argtypes = [_VP, _INT, _INT, _INT, _INT, _VP, _LL, _LL, _VP, _LL, _LL,
+                                      _VP, _LL, _LL, _VP, _VP, _VP, _VP, _LL, _INT, _INT, _INT,
+                                      _VP, _VP, _VP]
+        lib.sgd_epoch_run.restype = _INT
         lib.sgd_error_string.argtypes = [_INT]
         lib.sgd_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -77,15 +83,18 @@ def _check(lib, err, what):
         raise RuntimeError(f"{what}: CUDA error {err} ({lib.sgd_error_string(err).decode()})")
 
 
-def _plan(lib, device, loss_id, B, d, K):
-    """The launch plan for (loss, B, d, K) on ``device``, made once, and the
-    device's scratch for the block records (one stream uses it at a time;
-    a buffer outgrown is freed in the stream's order by the allocator)."""
-    key = (device.index, loss_id, B, d, K)
+def _plan(lib, device, loss_id, B, d, K, epoch=False):
+    """The launch plan for (loss, B, d, K) on ``device`` (with ``epoch``:
+    an epoch's, B the rows of one minibatch), made once, and the device's
+    scratch for the block records (one stream uses it at a time; a buffer
+    outgrown is freed in the stream's order by the allocator)."""
+    key = (device.index, loss_id, B, d, K, epoch)
     plan = _plans.get(key)
     if plan is None:
         plan = (ctypes.c_longlong * _PLAN_WORDS)()
-        _check(lib, lib.sgd_plan(loss_id, B, d, K, plan), "sgd_plan")
+        _check(lib, lib.sgd_plan(loss_id, B, d, K, int(epoch), plan),
+               "sgd_plan (an epoch needs every block resident at once)" if epoch
+               else "sgd_plan")
         _plans[key] = plan
     scratch = _scratch.get(device.index)
     if scratch is None or scratch.numel() < plan[6]:
@@ -180,6 +189,20 @@ def sgd_update_ref(x, y, mask, coef, intercept, t, hyper, *, loss, penalty, sche
     return out
 
 
+def sgd_epoch_ref(xs, ys, ms, coef, intercept, t, hyper, *, loss, penalty, schedule,
+                  fit_intercept=True, out=None):
+    """Plain version of :func:`sgd_epoch`: a step of :func:`sgd_update_ref`
+    for each minibatch ``xs[:, i]``, in order, its pair in ``out[i]``."""
+    sgd_epoch_ref.calls += 1
+    n_mb = xs.shape[1]
+    out = torch.empty((n_mb, 2), dtype=xs.dtype, device=xs.device) if out is None else out
+    for i in range(n_mb):
+        sgd_update_ref(xs[:, i], ys[:, i], ms[:, i], coef, intercept, t, hyper, loss=loss,
+                       penalty=penalty, schedule=schedule, fit_intercept=fit_intercept,
+                       out=out[i])
+    return out
+
+
 def sgd_loss_ref(x, y, mask, coef, intercept, hyper, *, loss, out=None):
     """Plain version of :func:`sgd_loss`."""
     sgd_loss_ref.calls += 1
@@ -240,11 +263,15 @@ def _validate(x, y, mask, coef, intercept, t, hyper, out, loss, penalty, schedul
         raise ValueError(f"{K} columns of {d} features: a block record past 2^31 floats")
 
 
-def _launch(x, y, mask, coef, intercept, t, hyper, out, loss, penalty, schedule, fit_intercept,
-            grad):
+def _cuda_lib(x):
     if x.device.type != "cuda":
         raise ValueError(f"K4 runs on cuda or cpu, not {x.device}")
-    lib = _load()
+    return _load()
+
+
+def _launch(x, y, mask, coef, intercept, t, hyper, out, loss, penalty, schedule, fit_intercept,
+            grad):
+    lib = _cuda_lib(x)
     B, d = x.shape
     K = y.shape[1]
     with torch.cuda.device(x.device):
@@ -279,6 +306,54 @@ def sgd_update(x, y, mask, coef, intercept, t, hyper, *, loss, penalty, schedule
     return out
 
 
+def sgd_epoch(xs, ys, ms, coef, intercept, t, hyper, *, loss, penalty, schedule,
+              fit_intercept=True, out=None):
+    """An epoch: one step for each minibatch ``i`` of the stacks ``xs``
+    ``(B, n_mb, d)``, ``ys`` ``(B, n_mb, K)`` and ``ms`` ``(B, n_mb)`` (the
+    strided views ``xs[:, i]``, read where they lie), in order, on the state
+    in place; returns ``out`` ``(n_mb, 2)``, each step's (mean loss, Σ
+    mask), allocated when not given.  Validated once an epoch; on the card
+    one cooperative launch, no host read.  ``n_mb`` must be at least 2 (one
+    minibatch is :func:`sgd_update`'s step)."""
+    if not all(isinstance(v, torch.Tensor) for v in (xs, ys, ms)) or (xs.ndim, ys.ndim,
+                                                                      ms.ndim) != (3, 3, 2):
+        raise ValueError("xs, ys and ms must be (B, n_mb, d), (B, n_mb, K) and (B, n_mb) "
+                         "tensors")
+    if ys.shape[:2] != xs.shape[:2] or ms.shape != xs.shape[:2]:
+        raise ValueError(f"stacks disagree: xs {tuple(xs.shape)}, ys {tuple(ys.shape)}, "
+                         f"ms {tuple(ms.shape)}")
+    n_mb = xs.shape[1]
+    if n_mb < 2:
+        raise ValueError(f"an epoch of {n_mb} minibatch: one step is sgd_update's")
+    _validate(xs[:, 0], ys[:, 0], ms[:, 0], coef, intercept, t, hyper, None, loss, penalty,
+              schedule)
+    if t is None or t.ndim != 0:
+        raise ValueError("t must be a 0-d tensor")
+    if out is not None and (not isinstance(out, torch.Tensor) or tuple(out.shape) != (n_mb, 2)
+                            or out.dtype != torch.float32 or out.device != xs.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 ({n_mb}, 2) tensor on {xs.device}")
+    if xs.device.type == "cpu":
+        return sgd_epoch_ref(xs, ys, ms, coef, intercept, t, hyper, loss=loss, penalty=penalty,
+                             schedule=schedule, fit_intercept=fit_intercept, out=out)
+    lib = _cuda_lib(xs)
+    B, _, d = xs.shape
+    K = ys.shape[2]
+    with torch.cuda.device(xs.device):
+        if out is None:
+            out = torch.empty((n_mb, 2), dtype=torch.float32, device=xs.device)
+        plan, scratch = _plan(lib, xs.device, LOSSES[loss], B, d, K, epoch=True)
+        err = lib.sgd_epoch_run(
+            plan, LOSSES[loss], PENALTIES[penalty], SCHEDULES[schedule], int(fit_intercept),
+            xs.data_ptr(), xs.stride(0), xs.stride(1), ys.data_ptr(), ys.stride(0),
+            ys.stride(1), ms.data_ptr(), ms.stride(0), ms.stride(1), coef.data_ptr(),
+            intercept.data_ptr(), t.data_ptr(), hyper.data_ptr(), B, n_mb, d, K,
+            scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _check(lib, err, "sgd_epoch_run")
+    sgd_epoch.launches += 1
+    return out
+
+
 def sgd_loss(x, y, mask, coef, intercept, hyper, *, loss, out=None):
     """The masked mean loss of the state on a block: ``out`` (2,) = (mean
     loss, Σ mask).  No host read."""
@@ -291,6 +366,8 @@ def sgd_loss(x, y, mask, coef, intercept, hyper, *, loss, out=None):
 
 
 sgd_update.launches = 0
+sgd_epoch.launches = 0
 sgd_loss.launches = 0
 sgd_update_ref.calls = 0
+sgd_epoch_ref.calls = 0
 sgd_loss_ref.calls = 0

@@ -1,5 +1,5 @@
-"""K4 (``csrc/sgd.cu``: the SGD step and its value-only variant) against its
-plain version, on a card.
+"""K4 (``csrc/sgd.cu``: the SGD step, its value-only variant and the epoch)
+against its plain version, on a card.
 
 The kernel is CUDA C++ with no CPU mode, so these tests skip without a
 card and ``nvcc``.  They import neither JAX nor the reference, so on a
@@ -12,6 +12,14 @@ mean loss and Σ mask agree to rtol 1e-5, the updated coef and intercept to
 stored c − eta·g), t exactly; hinge's rows within 1e-5 of its kink may
 take the other side, each moving the gradient by at most mask·|x|/count.
 The kernel is deterministic: a repeat gives the same bits.
+
+The epoch (``sgd_epoch``, n_mb steps in one launch) is held against the
+plain version's steps in float64 from the same state: each step's loss and
+Σ mask to rtol 1e-5, and the final coef and intercept to 1e-5 times the
+sum over the steps of eta·max|g| (each step's own tolerance, summed), plus
+2^-22 of each element a step, with the hinge allowance of each step;
+t exactly.  The tensor-core path (K in 2..16, d <= 256) is held by the
+step's tolerance at every K and d of its layout's edges.
 """
 
 import shutil
@@ -52,6 +60,14 @@ def _hyper(device, eta_scale=1.0):
     return torch.tensor([1e-3, 0.05, 0.25, 2e4, 0.15, 0.3, eta_scale], device=device)
 
 
+def _hinge_allowance(x, y, mask, coef, intercept, eta, count):
+    """What rows within 1e-5 of hinge's kink may move the update by."""
+    f64 = torch.float64
+    z = y.to(f64) * (x.to(f64) @ coef.to(f64) + intercept.to(f64))
+    near = ((z - 1.0).abs() <= 1e-5 * (1.0 + z.abs())) & (mask[:, None] > 0)
+    return eta * int(near.sum()) * float(mask.max()) * float(x.abs().max()) / max(count, 1.0)
+
+
 def _hold(x, y, mask, coef, intercept, hyper, loss, penalty="l2", schedule="optimal",
           fit_intercept=True):
     f64 = torch.float64
@@ -75,10 +91,7 @@ def _hold(x, y, mask, coef, intercept, hyper, loss, penalty="l2", schedule="opti
     g = torch.cat([(coef.to(f64) - c64).flatten(), (intercept.to(f64) - b64).flatten()]) / eta
     allow = 0.0
     if loss == "hinge":
-        z = y.to(f64) * (x.to(f64) @ coef.to(f64) + intercept.to(f64))
-        near = ((z - 1.0).abs() <= 1e-5 * (1.0 + z.abs())) & (mask[:, None] > 0)
-        allow = eta * int(near.sum()) * float(mask.max()) * float(x.abs().max()) / max(
-            float(out64[1]), 1.0)
+        allow = _hinge_allowance(x, y, mask, coef, intercept, eta, float(out64[1]))
     for got, want in ((c, c64), (b, b64)):
         tol = TOL * eta * float(g.abs().max()) + 2.0 ** -22 * want.abs() + allow
         assert bool(((got.to(f64) - want).abs() <= tol).all())
@@ -134,3 +147,87 @@ def test_all_zero_mask_gives_count_one_and_no_nan(cuda):
     out = sgd.sgd_update(x, y, torch.zeros(1000, device=cuda), c, intercept.clone(), t,
                          _hyper(cuda), loss="log_loss", penalty=None, schedule="constant")
     assert out.tolist() == [0.0, 0.0] and torch.equal(c, coef) and float(t) == 1.0
+
+
+def _hold_epoch(xs, ys, ms, coef, intercept, hyper, loss, penalty="l2", schedule="optimal",
+                fit_intercept=True):
+    f64 = torch.float64
+    n_mb = xs.shape[1]
+    t0 = torch.tensor(7.0, device=xs.device)
+    c64, b64, t64 = coef.to(f64), intercept.to(f64), t0.to(f64)
+    h64 = hyper.to(f64)
+    out64 = torch.empty((n_mb, 2), dtype=f64, device=xs.device)
+    moves = allow = 0.0
+    for i in range(n_mb):
+        before = torch.cat([c64.flatten(), b64.flatten()])
+        eta = float(sgd.learning_rate(schedule, t64, h64))
+        if loss == "hinge":
+            allow += _hinge_allowance(xs[:, i], ys[:, i], ms[:, i], c64, b64, eta,
+                                      float(ms[:, i].sum()))
+        sgd.sgd_update_ref(xs[:, i].to(f64), ys[:, i].to(f64), ms[:, i].to(f64), c64, b64, t64,
+                           h64, loss=loss, penalty=penalty, schedule=schedule,
+                           fit_intercept=fit_intercept, out=out64[i])
+        moves += float((torch.cat([c64.flatten(), b64.flatten()]) - before).abs().max())
+    before = (sgd.sgd_epoch.launches, sgd.sgd_update.launches)
+    runs = []
+    for _ in range(2):
+        c, b, t = coef.clone(), intercept.clone(), t0.clone()
+        out = sgd.sgd_epoch(xs, ys, ms, c, b, t, hyper, loss=loss, penalty=penalty,
+                            schedule=schedule, fit_intercept=fit_intercept)
+        runs.append((c, b, t, out))
+    assert (sgd.sgd_epoch.launches, sgd.sgd_update.launches) == (before[0] + 2, before[1])
+    (c, b, t, out), (c2, b2, t2, out2) = runs
+    assert torch.equal(c, c2) and torch.equal(b, b2) and torch.equal(out, out2)
+    for got, want in ((c, c64), (b, b64)):
+        tol = TOL * moves + n_mb * 2.0 ** -22 * want.abs() + allow
+        assert bool(((got.to(f64) - want).abs() <= tol).all())
+    assert float(t) == float(t64) == 7.0 + n_mb
+    torch.testing.assert_close(out.to(f64), out64, rtol=TOL, atol=0.0)
+    return out
+
+
+def _stacks(B, n_mb, d, K, loss, seed, device, scale=1.0):
+    x, y, mask, coef, intercept = _inputs(B * n_mb, d, K, loss, seed, device, scale)
+    return (x.view(B, n_mb, d), y.view(B, n_mb, K), mask.view(B, n_mb), coef, intercept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 33, 64, 256])
+@pytest.mark.parametrize("K", [2, 4, 10, 16])
+def test_tensor_core_path_against_plain(cuda, K, d):
+    _hold(*_inputs(10_007, d, K, "log_loss", K + d, cuda), _hyper(cuda), "log_loss")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mb, B, d, K, loss, penalty, schedule", [
+    (2, 4096, 64, 1, "log_loss", "l2", "optimal"),
+    (16, 4096, 64, 1, "hinge", "elasticnet", "invscaling"),
+    (3, 1001, 200, 1, "huber", "l1", "constant"),
+    (16, 4096, 64, 10, "log_loss", "l2", "optimal"),
+    (2, 1003, 33, 4, "modified_huber", None, "constant"),
+    (4, 777, 256, 16, "squared_hinge", "l2", "invscaling"),
+    (2, 513, 1, 2, "hinge", "l1", "optimal"),
+    (3, 1000, 300, 1, "squared_error", "elasticnet", "optimal"),  # the row path
+    (2, 500, 64, 20, "log_loss", "l2", "optimal"),                # the row path
+])
+def test_epoch_against_plain(cuda, n_mb, B, d, K, loss, penalty, schedule):
+    _hold_epoch(*_stacks(B, n_mb, d, K, loss, n_mb + d + K, cuda), _hyper(cuda), loss,
+                penalty=penalty, schedule=schedule)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 10])
+def test_epoch_zero_mask_minibatch_and_margins_past_80(cuda, K):
+    xs, ys, ms, coef, intercept = _stacks(2048, 16, 64, K, "log_loss", 40 + K, cuda, scale=60.0)
+    ms[:, 15] = 0.0
+    out = _hold_epoch(xs, ys, ms, coef, intercept, _hyper(cuda), "log_loss",
+                      fit_intercept=False)
+    assert out[15].tolist() == [0.0, 0.0]
+
+
+@pytest.mark.cuda
+def test_epoch_of_one_minibatch_raises(cuda):
+    xs, ys, ms, coef, intercept = _stacks(64, 1, 8, 1, "log_loss", 0, cuda)
+    with pytest.raises(ValueError, match="sgd_update"):
+        sgd.sgd_epoch(xs, ys, ms, coef, intercept, torch.tensor(0.0, device=cuda),
+                      _hyper(cuda), loss="log_loss", penalty="l2", schedule="optimal")
