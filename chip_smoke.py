@@ -156,8 +156,32 @@ Phases, in order; any failure exits non-zero:
    blocks of the stream under ``torch.profiler``: the device's idle share,
    device operations, runtime launch calls and host syncs a block; then one
    epoch of each minibatch fit: each kernel's device time, the idle time
-   and the host clock a step.  Then the ``kernels`` line, the card line and
-   the result.
+   and the host clock a step.
+11. The search (BASELINE ``configs[4]``) through K5 (``csrc/cohort.cu``).
+   11a: K5 against its plain version taken in float64 (``hold_cohort``:
+   each lane's loss and count rtol 1e-5, its coef to 1e-5·eta·max|g| plus
+   its float32 rounding, t equal, the same bits twice) at M ∈ {1, 2, 5, 34,
+   81}, K ∈ {1, 3, 10}, d ∈ {1, 64, 130}, M·K = 810, B = 37 and 2^20 + 3,
+   a strided view, each loss, penalty and schedule, fit_intercept off,
+   weighted lanes and an all-zero lane; at M = 1 also against K4's
+   ``sgd_update``.  11b: 9·2^20 x 64 float32 on the card, y = [X·w +
+   logistic noise > 0]; ``HyperbandSearchCV(SGDClassifier(tol=None,
+   random_state=0), {"alpha": logspace(-7, 0, 200), "penalty": ["l2"]},
+   max_iter=81, test_size=2^20, chunk_size=2^20, random_state=0)`` on the
+   device blocks (143 models in 5 brackets, 1581 ``partial_fit`` calls),
+   the counts set to 0 just before the fit; gates: ``metadata_ ==
+   metadata``, K5 launched and no plain version, ``DISPATCH_STATS``'s
+   dispatches equal to K5's launches and at most a quarter of the
+   model-steps, ``best_score_`` ≥ 0.98 of the true w's test accuracy, the
+   best coef's cosine to w ≥ 0.99; prints the fit's time, peak memory,
+   launches by cohort size, host syncs and rounds; one more fit under
+   ``torch.profiler`` (idle share, device time by kernel).  11c: a Cohort
+   of 81 over the first 8 training blocks through K5 and through the
+   plain version (each lane within 1e-4·‖coef‖∞), and 3 members replayed
+   alone through K4.  11d: K5 at the search's cohort sizes on a 2^20 x 64
+   block (CUDA events over 20 launches) beside its plain version, its bound
+   and the matmul + elementwise + matmul sequence; ``packed_accuracy`` of
+   81 models.  Then the ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -165,6 +189,7 @@ prints no result and exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import re
@@ -277,6 +302,14 @@ SGD_TABLE = (
     ("sgd_epoch_K10_minibatch", SGD_OVA_K, True, "epoch"),
     ("sgd_update_K10_minibatch", SGD_OVA_K, True, "update"),
 )
+
+# phase 11: the search (BASELINE configs[4]) through K5
+SEARCH_ROWS = 9 * (1 << 20)  # 8 training blocks of 2^20 and a test split of 2^20
+SEARCH_D = 64
+SEARCH_CHUNK = 1 << 20
+SEARCH_MAX_ITER = 81
+COHORT_TOL = 1e-5
+COHORT_TIMES = ((81, 1), (27, 1), (9, 1), (5, 1), (8, 10))  # (M, K) of 11d at 2^20 x 64
 
 
 def log(msg: str) -> None:
@@ -3099,6 +3132,456 @@ def sgd_phase(torch, device, card):
     return out
 
 
+def cohort_hypers(torch, M, device, loss, schedule):
+    """(M, 7) hyperparameters a lane: alpha over 1e-5..1e-1 and eta0 over
+    0.005..0.05 across the lanes, t0 = 1/(alpha·eta0) as the estimators set
+    it, epsilon over 0.05..0.5 (huber), eta_scale 0.2 for adaptive."""
+    alpha = torch.logspace(-5, -1, M, dtype=torch.float64)
+    eta0 = torch.linspace(0.005, 0.05, M, dtype=torch.float64)
+    cols = [alpha, eta0, torch.full((M,), 0.25, dtype=torch.float64), 1.0 / (alpha * eta0),
+            torch.full((M,), 0.15, dtype=torch.float64),
+            torch.linspace(0.05, 0.5, M, dtype=torch.float64),
+            torch.full((M,), 0.2 if schedule == "adaptive" else 1.0, dtype=torch.float64)]
+    return torch.stack(cols, 1).to(device=device, dtype=torch.float32).contiguous()
+
+
+def cohort_inputs(torch, B, d, K, M, loss, seed, device, weighted=False, zero_lane=False,
+                  scale=1.0, n_mb=None):
+    """x, targets and a mask as ``sgd_inputs`` gives them (with ``n_mb``:
+    minibatch 5 of a block of B·n_mb rows, a strided view), the M lanes'
+    masks (one mask broadcast with stride 0, or with ``weighted`` each lane's
+    own class-weighted copy; with ``zero_lane`` lane M // 2 all zero), and a
+    state a lane (coef with margins of spread ``scale``, t from 3 up)."""
+    rows = B * n_mb if n_mb else B
+    x, y, mask, _, _ = sgd_inputs(torch, rows, d, K, loss, seed, device, scale)
+    if n_mb:
+        x, y, mask = x.view(-1, n_mb, d)[:, 5], y.view(-1, n_mb, K)[:, 5], \
+            mask.view(-1, n_mb)[:, 5]
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    if weighted or zero_lane:
+        cls = (y[:, 0] > 0).float() if K == 1 else torch.argmax(y, dim=1).float()
+        w = 0.5 + torch.rand(M, 1, generator=gen, device=device) * (1.0 + cls[None, :]) \
+            if weighted else torch.ones(M, 1, device=device)
+        masks = (mask[None, :] * w).contiguous()
+        if zero_lane:
+            masks[M // 2] = 0.0
+    else:
+        masks = mask[None, :].expand(M, mask.shape[0])
+    coef = scale * torch.randn(M, d, K, generator=gen, device=device) / d ** 0.5
+    intercept = 0.1 * torch.randn(M, K, generator=gen, device=device)
+    t = 3.0 + torch.arange(M, device=device, dtype=torch.float32) % 7
+    return x, y.contiguous() if n_mb is None else y, masks, coef, intercept, t
+
+
+def hold_cohort(torch, cohort, sgd, case, hypers, what, loss, penalty="l2",
+                schedule="optimal", fit_intercept=True):
+    """11a: K5 against its plain version taken in float64 on the same
+    inputs, lane by lane as ``hold_sgd`` holds K4: each lane's mean loss and
+    count to rtol COHORT_TOL, its coef and intercept to
+    COHORT_TOL·eta·max|g| plus 2^-22 of each element (the float32 rounding
+    of c − eta·g), with hinge's rows within 1e-5 of its kink allowed their
+    jump of dℓ; t equal; a repeat from the same state the same bits.
+    Returns (the largest absolute difference, the kernel's new coef)."""
+    x, y, masks, coef, intercept, t = case
+    d64 = torch.float64
+    c64, b64, t64, h64 = coef.to(d64), intercept.to(d64), t.to(d64), hypers.to(d64)
+    out64 = torch.empty((masks.shape[0], 2), dtype=d64, device=x.device)
+    kw = dict(loss=loss, penalty=penalty, schedule=schedule, fit_intercept=fit_intercept)
+    cohort.cohort_step_ref(x.to(d64), y.to(d64), masks.to(d64), c64, b64, t64, h64, out=out64,
+                           **kw)
+    runs = []
+    for _ in range(2):
+        c32, b32, t32 = coef.clone(), intercept.clone(), t.clone()
+        out = cohort.cohort_step(x, y, masks, c32, b32, t32, hypers, **kw)
+        runs.append((c32, b32, t32, out))
+    torch.cuda.synchronize()
+    c32, b32, t32, out = runs[0]
+    if not all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])):
+        raise AssertionError(f"K5 {what}: a repeat gave other bits")
+    eta = sgd.learning_rate(schedule, t.to(d64), h64.T)  # (M,)
+    g = torch.cat([(coef.to(d64) - c64).flatten(1), (intercept.to(d64) - b64)], 1) / eta[:, None]
+    gmax = g.abs().amax(1)
+    count = torch.clamp(out64[:, 1], min=1.0)
+    allow = torch.zeros_like(eta)
+    if loss == "hinge":
+        z = y.to(d64)[None] * (torch.matmul(x.to(d64), coef.to(d64)) + intercept.to(d64)[:, None])
+        near = ((z - 1.0).abs() <= 1e-5 * (1.0 + z.abs())) & (masks[:, :, None] > 0)
+        allow = eta * near.flatten(1).sum(1) * float(masks.max()) * float(x.abs().max()) / count
+    err = 0.0
+    for got, want in ((c32.flatten(1), c64.flatten(1)), (b32, b64)):
+        diff = (got.to(d64) - want).abs()
+        tol = (COHORT_TOL * eta * gmax + allow)[:, None] + 2.0 ** -22 * want.abs()
+        if not bool((diff <= tol).all()):
+            worst = float((diff / tol).max())
+            lane = int((diff / tol).amax(1).argmax())
+            raise AssertionError(f"K5 update {what}: {worst:.3g}x its tolerance at lane {lane} "
+                                 f"(max|Δ| {float(diff.max()):.3g})")
+        err = max(err, float(diff.max()))
+    if not torch.equal(t32.to(d64), t64):
+        raise AssertionError(f"K5 {what}: t {t32.tolist()} against {t64.tolist()}")
+    dl = (out.to(d64) - out64).abs()
+    if not bool((dl <= COHORT_TOL * out64.abs()).all()):
+        raise AssertionError(f"K5 {what}: (loss, count) off by {dl.amax(0).tolist()} "
+                             f"(plain {out64[:4].tolist()}...)")
+    return max(err, float(dl[:, 0].max())), c32
+
+
+def cohort_edge_cases():
+    """11a: (label, B, d, K, M, loss, options) of every case held."""
+    big = SGD_ROWS
+    return [
+        ("M=1 K=1 B=2^20+3", big + 3, SGD_D, 1, 1, "log_loss", {}),
+        ("M=2 K=3 d=1 l1", 4099, 1, 3, 2, "hinge", {"penalty": "l1"}),
+        ("M=5 K=10 d=130 elasticnet invscaling", 20011, 130, 10, 5, "squared_hinge",
+         {"penalty": "elasticnet", "schedule": "invscaling"}),
+        ("M=34 K=1 no penalty constant", big + 3, SGD_D, 1, 34, "modified_huber",
+         {"penalty": None, "schedule": "constant"}),
+        ("M=81 K=1 (the search's brackets)", big, SGD_D, 1, 81, "log_loss", {}),
+        ("M=81 K=1 weighted lanes, lane 40 all zero", big + 3, SGD_D, 1, 81, "log_loss",
+         {"weighted": True, "zero_lane": True}),
+        ("M·K=810 (81 lanes of 10 classes) adaptive", (1 << 17) + 5, SGD_D, 10, 81, "log_loss",
+         {"schedule": "adaptive"}),
+        ("B=37 K=3 no intercept", 37, SGD_D, 3, 5, "hinge", {"fit_intercept": False}),
+        ("strided rows 5::16 M=9", 65536, SGD_D, 1, 9, "log_loss", {"n_mb": 16}),
+        ("squared_error M=9 weighted", 65539, SGD_D, 1, 9, "squared_error",
+         {"weighted": True}),
+        ("huber M=27 d=130 l1 adaptive", 20011, 130, 1, 27, "huber",
+         {"penalty": "l1", "schedule": "adaptive", "scale": 3.0}),
+        ("M=34 K=3 d=130 margins past ±80", 20011, 130, 3, 34, "modified_huber",
+         {"scale": 60.0, "weighted": True}),
+        ("M=2 K=1 d=1", 4099, 1, 1, 2, "log_loss", {"schedule": "invscaling"}),
+    ]
+
+
+def compare_cohort(torch, device):
+    """11a: every edge case held against the float64 plain version; then K5
+    at M = 1 against K4's ``sgd_update`` on the same inputs (each within
+    its tolerance of the float64 plain version, so within twice it of each
+    other).  Returns the largest absolute difference over the cases."""
+    from dask_ml_tpu_torch.ops import cohort, sgd
+
+    worst = 0.0
+    cases = cohort_edge_cases()
+    for i, (label, B, d, K, M, loss, opts) in enumerate(cases):
+        opts = dict(opts)
+        inputs = {k: opts.pop(k) for k in ("weighted", "zero_lane", "scale", "n_mb") if k in opts}
+        case = cohort_inputs(torch, B, d, K, M, loss, 300 + i, device, **inputs)
+        hypers = cohort_hypers(torch, M, device, loss, opts.get("schedule", "optimal"))
+        err, c_k5 = hold_cohort(torch, cohort, sgd, case, hypers, label, loss, **opts)
+        worst = max(worst, err)
+        if M == 1:
+            hold_k4_lane(torch, sgd, case, hypers, c_k5, label, loss, opts)
+        del case
+    log(f"phase 11a: K5 held against its plain version (float64) at {len(cases)} shapes, rtol "
+        f"{COHORT_TOL}, each twice with the same bits; largest absolute difference {worst:.3g}")
+    return worst
+
+
+def hold_k4_lane(torch, sgd, case, hypers, c_k5, label, loss, opts):
+    """11a: K5's one lane against K4's ``sgd_update`` from the same state."""
+    x, y, masks, coef, intercept, t = case
+    schedule = opts.get("schedule", "optimal")
+    c4, b4, t4 = coef[0].clone(), intercept[0].clone(), t[0].clone()
+    sgd.sgd_update(x, y, masks[0], c4, b4, t4, hypers[0], loss=loss,
+                   penalty=opts.get("penalty", "l2"), schedule=schedule)
+    gap = float((c4 - c_k5[0]).abs().max())
+    eta = float(sgd.learning_rate(schedule, t[0].double(), hypers[0].double()))
+    g = float((coef[0].double() - c4.double()).abs().max()) / eta
+    lim = 2 * (COHORT_TOL * eta * g + 2.0 ** -22 * float(c4.abs().max()))
+    gate(gap <= lim, f"K5 at M=1 is {gap} from K4's sgd_update (limit {lim})", phase=11)
+    log(f"phase 11a: K5 at M=1 against K4's sgd_update on {label}: max|Δcoef| {gap:.3g} "
+        f"(limit {lim:.3g})")
+
+
+def search_standin(torch, n, d, seed, device):
+    """BASELINE ``configs[4]``'s data on the card: X and w standard normal,
+    y = [X·w + logistic noise > 0] (float labels 0 and 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn(d, generator=gen, device=device)
+    X = torch.randn(n, d, generator=gen, device=device)
+    u = torch.rand(n, generator=gen, device=device).clamp_(1e-7, 1 - 1e-7)
+    y = (X @ w + torch.log(u / (1.0 - u)) > 0).float()
+    return X, y, w
+
+
+def search_estimator():
+    """11b's search (BASELINE ``configs[4]``): 200 alphas, l2, max_iter 81
+    (143 models in 5 brackets), 2^20-row blocks and test split."""
+    import numpy as np
+
+    from dask_ml_tpu_torch import HyperbandSearchCV, SGDClassifier
+
+    return HyperbandSearchCV(SGDClassifier(tol=None, random_state=0),
+                             {"alpha": np.logspace(-7, 0, 200), "penalty": ["l2"]},
+                             max_iter=SEARCH_MAX_ITER, test_size=SEARCH_CHUNK,
+                             chunk_size=SEARCH_CHUNK, random_state=0)
+
+
+class LaunchesBySize:
+    """Counts the cohorts' K5 steps by cohort size (M, K) inside a ``with``
+    block, by wrapping ``Cohort._advance`` (one launch each; the wrapper's
+    own count is untouched)."""
+
+    def __enter__(self):
+        from dask_ml_tpu_torch.model_selection._packing import Cohort
+
+        self.cls, self.real, self.counts = Cohort, Cohort._advance, {}
+
+        def counted(cohort, xb, yb, masks):
+            key = (masks.shape[0], yb.shape[1])
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return self.real(cohort, xb, yb, masks)
+
+        Cohort._advance = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._advance = self.real
+
+
+def search_main_path(torch, device, card):
+    """11b: the search at BASELINE ``configs[4]`` through K5 (cohorts) and
+    K4 (single models), every count set to 0 just before the fit and read
+    just after.  Gates: ``metadata_ == metadata``; K5 launched and its plain
+    version never (nor K4's); ``DISPATCH_STATS["dispatches"]`` equal to K5's
+    launches and at most a quarter of ``models_stepped``; ``best_score_`` at
+    least 0.98 of the true w's accuracy on the test split; the cosine of
+    ``best_estimator_.coef_`` to w at least 0.99.  Returns (X, y, w, the
+    search, K5's launches by cohort size)."""
+    import warnings
+
+    from dask_ml_tpu_torch.core import shard_rows
+    from dask_ml_tpu_torch.model_selection import _packing, train_test_split
+    from dask_ml_tpu_torch.ops import cohort, sgd
+
+    t0 = time.perf_counter()
+    X, y, w = search_standin(torch, SEARCH_ROWS, SEARCH_D, 11, device)
+    torch.cuda.synchronize()
+    log(f"phase 11b: search stand-in {SEARCH_ROWS}x{SEARCH_D} on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    sX, sy = shard_rows(X), shard_rows(y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cohort.cohort_step.launches = cohort.cohort_step_ref.calls = 0
+    reset_sgd_counts(sgd)
+    _packing.reset_dispatch_stats()
+    with warnings.catch_warnings(record=True) as caught, LaunchesBySize() as by_size:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            hb = search_estimator().fit(sX, sy, classes=[0.0, 1.0])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    k5, k5_plain = cohort.cohort_step.launches, cohort.cohort_step_ref.calls
+    k4, k4_plain = sgd.sgd_update.launches, plain_sgd_calls(sgd)
+    stats = dict(_packing.DISPATCH_STATS)
+    syncs = sum("synchroniz" in str(m.message) for m in caught)
+    peak = torch.cuda.max_memory_allocated()
+    _, X_test, _, y_test = train_test_split(sX, sy, test_size=SEARCH_CHUNK, random_state=0)
+    acc_true = float(torch.mean(((X_test.unpad() @ w > 0).float() == y_test.unpad()).float()))
+    coef = torch.from_numpy(hb.best_estimator_.coef_[0]).to(device)
+    cos = cosine(torch, coef, w)
+    sizes = ", ".join(f"M={m}: {n}" for (m, _), n in sorted(by_size.counts.items(),
+                                                           reverse=True))
+    log(f"phase 11b: HyperbandSearchCV fit {fit_s:.3f} s on the host clock: "
+        f"{hb.metadata_['n_models']} models in {len(hb.metadata_['brackets'])} brackets, "
+        f"{hb.metadata_['partial_fit_calls']} partial_fit calls, {hb._n_rounds} rounds; "
+        f"K5 launches {k5} ({sizes}), K4 launches {k4} (single models), plain-version calls "
+        f"{k5_plain} + {k4_plain}; DISPATCH_STATS {stats}; host syncs {syncs}; peak allocated "
+        f"{peak / 2**30:.3f} GiB (base {base / 2**30:.3f}); best_score_ {hb.best_score_:.6f} "
+        f"(the true w's {acc_true:.6f}), best alpha {hb.best_params_['alpha']:.4g}, cosine of "
+        f"best coef to w {cos:.6f} [{card}]")
+    gate(hb.metadata_ == hb.metadata, f"metadata_ {hb.metadata_} != metadata {hb.metadata}",
+         phase=11)
+    gate(k5 > 0 and k5_plain == 0 and k4_plain == 0,
+         f"K5 launched {k5} times, its plain version {k5_plain}, K4's {k4_plain}", phase=11)
+    gate(stats["dispatches"] == k5 and 4 * stats["dispatches"] <= stats["models_stepped"],
+         f"dispatches {stats['dispatches']} against K5's {k5} launches and "
+         f"{stats['models_stepped']} model-steps", phase=11)
+    gate(hb.best_score_ >= 0.98 * acc_true,
+         f"best_score_ {hb.best_score_} below 0.98 of the true w's {acc_true}", phase=11)
+    gate(cos >= 0.99, f"cosine of best_estimator_.coef_ to w {cos}", phase=11)
+    del X_test, y_test
+    return X, y, w, sX, sy, hb, dict(by_size.counts)
+
+
+def search_profile(torch, sX, sy, card):
+    """11b: one more fit under ``torch.profiler``: the device's busy and
+    idle share over the fit and the device time by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        search_estimator().fit(sX, sy, classes=[0.0, 1.0])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = kernel_name(e.name)
+            ms, count = per_name.get(name, (0.0, 0))
+            per_name[name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    if not per_name:
+        log(f"phase 11b: profiled fit {wall_ms:.3f} ms; device time: not measured (the "
+            f"profiler recorded no device event) [{card}]")
+        return
+    busy = sum(ms for ms, _ in per_name.values())
+    log(f"phase 11b: profiled fit {wall_ms:.3f} ms on the host clock, device busy {busy:.3f} "
+        f"ms: idle share {(wall_ms - busy) / wall_ms:.4f} [{card}]")
+    for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  device {ms:10.4f} ms {count:6d}x  {name[:100]}")
+
+
+class PlainK5:
+    """K5's wrapper replaced by its plain version (on the card, as a check
+    only) inside a ``with`` block."""
+
+    def __init__(self, cohort):
+        self.cohort = cohort
+
+    def __enter__(self):
+        self.kernel = self.cohort.cohort_step
+        self.cohort.cohort_step = self.cohort.cohort_step_ref
+        return self
+
+    def __exit__(self, *exc):
+        self.cohort.cohort_step = self.kernel
+
+
+def standalone_cohort(torch, sX, sy, card):
+    """11c: a Cohort of 81 SGDClassifiers (alpha over 1e-7..1, as the
+    search's grid) stepped over the search's first 8 training blocks
+    through K5 and through the plain version: each lane's coef within
+    1e-4·‖coef‖∞ of the plain one's; then 3 of its members replayed alone
+    through K4 ``partial_fit`` on the same blocks, within the same."""
+    import numpy as np
+
+    from dask_ml_tpu_torch import SGDClassifier
+    from dask_ml_tpu_torch.model_selection import train_test_split
+    from dask_ml_tpu_torch.model_selection._incremental import BaseIncrementalSearchCV
+    from dask_ml_tpu_torch.model_selection._packing import Cohort
+    from dask_ml_tpu_torch.ops import cohort
+
+    X_train, _, y_train, _ = train_test_split(sX, sy, test_size=SEARCH_CHUNK, random_state=0)
+    search = BaseIncrementalSearchCV(None, None, chunk_size=SEARCH_CHUNK)
+    blocks = search._to_blocks(X_train, y_train)[:8]
+    alphas = np.logspace(-7, 0, 81)
+
+    def make():
+        return [SGDClassifier(alpha=a, tol=None, random_state=0) for a in alphas]
+
+    fits = []
+    for plain in (False, True):
+        models = make()
+        c = Cohort(models, classes=[0.0, 1.0])
+        t0 = time.perf_counter()
+        with (PlainK5(cohort) if plain else contextlib.nullcontext()):
+            for Xb, yb in blocks:
+                c.step(Xb, yb)
+            c.finalize()
+            torch.cuda.synchronize()
+        fits.append((models, 1e3 * (time.perf_counter() - t0)))
+    (kern, kern_ms), (plain, plain_ms) = fits
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(kern, plain)):
+        gap = float(np.abs(a.coef_ - b.coef_).max())
+        scale = float(np.abs(b.coef_).max())
+        gate(gap <= 1e-4 * scale and a.t_ == b.t_ == 8,
+             f"11c lane {i}: {gap} from the plain version (‖coef‖∞ {scale}), t_ {a.t_}",
+             phase=11)
+        worst = max(worst, gap / scale)
+    replay = []
+    for i in (0, 40, 80):
+        solo = SGDClassifier(alpha=alphas[i], tol=None, random_state=0)
+        for Xb, yb in blocks:
+            solo.partial_fit(Xb, yb, classes=[0.0, 1.0])
+        gap = float(np.abs(solo.coef_ - kern[i].coef_).max())
+        scale = float(np.abs(solo.coef_).max())
+        gate(gap <= 1e-4 * scale, f"11c member {i} alone through K4 is {gap} from its lane "
+             f"(‖coef‖∞ {scale})", phase=11)
+        replay.append(gap / scale)
+    log(f"phase 11c: a Cohort of 81 over 8 blocks of {SEARCH_CHUNK}x{SEARCH_D}: through K5 "
+        f"{kern_ms:.2f} ms, through the plain version {plain_ms:.2f} ms; largest lane gap "
+        f"{worst:.3g}·‖coef‖∞; members 0, 40, 80 alone through K4: "
+        f"{', '.join(f'{g:.3g}' for g in replay)}·‖coef‖∞ [{card}]")
+
+
+def cohort_table(torch, device, by_size, hb_sX, hb_sy, card):
+    """11d: K5 at each (M, K) of COHORT_TIMES on a 2^20 x 64 block: held
+    against its float64 plain version, then timed (CUDA events over 20
+    launches) beside its plain version (3 runs), its bound from these
+    inputs and the matmul + elementwise + matmul sequence (informational:
+    no one PyTorch call computes the step); and ``packed_accuracy`` of 81
+    models on the 2^20-row test split.  Returns the ``kernels`` entries of
+    the shapes the main path launched, with their launches."""
+    from dask_ml_tpu_torch import SGDClassifier
+    from dask_ml_tpu_torch.model_selection import train_test_split
+    from dask_ml_tpu_torch.model_selection._packing import Cohort
+    from dask_ml_tpu_torch.ops import cohort, sgd
+
+    out = []
+    for M, K in COHORT_TIMES:
+        case = cohort_inputs(torch, SGD_ROWS, SGD_D, K, M, "log_loss", 500 + M, device)
+        hypers = cohort_hypers(torch, M, device, "log_loss", "optimal")
+        err, _ = hold_cohort(torch, cohort, sgd, case, hypers, f"11d M={M} K={K}", "log_loss")
+        x, y, masks, coef, intercept, t = case
+        kw = dict(loss="log_loss", penalty="l2", schedule="optimal")
+        c, b, tt = coef.clone(), intercept.clone(), t.clone()
+        ms = time_ms(torch, lambda: cohort.cohort_step(x, y, masks, c, b, tt, hypers, **kw), 20)
+        plain_ms = time_ms(torch, lambda: cohort.cohort_step_ref(x, y, masks, c, b, tt, hypers,
+                                                                 **kw), 3)
+        cols = coef.permute(1, 0, 2).reshape(SGD_D, M * K).contiguous()
+        bcols = intercept.reshape(M * K)
+
+        def library():
+            z = y.repeat(1, M) * torch.addmm(bcols, x, cols)
+            return torch.mm(x.T, -torch.sigmoid(-z) * y.repeat(1, M) * masks[0][:, None])
+
+        lib_ms = time_ms(torch, library, 20)
+        B = x.shape[0]
+        nbytes = B * SGD_D * 4 + B * K * 4 + B * 4 + 2 * M * (SGD_D + 1) * K * 4 + 3 * M * 4
+        flops = 4 * B * SGD_D * M * K
+        b_ms, b_by = bound_ms(nbytes, flops)
+        log(f"phase 11d: K5 at M={M}, K={K}, {B} x {SGD_D}: {ms:.4f} ms, {flops / ms / 1e6:.1f} "
+            f"GFLOP/s, {b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
+            f"ms by {b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; the PyTorch "
+            f"sequence, informational: {lib_ms:.4f} ms) [{card}]")
+        if by_size.get((M, K)):
+            out.append({"name": f"cohort_step_M{M}_K{K}", "route": "cuda",
+                        "source": "dask_ml_tpu_torch/csrc/cohort.cu",
+                        "replaces": "dask_ml_tpu/model_selection/_packing.py:117",
+                        "launches": by_size[(M, K)], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+        del case, x, y, masks, cols
+    _, X_test, _, y_test = train_test_split(hb_sX, hb_sy, test_size=SEARCH_CHUNK,
+                                            random_state=0)
+    models = [SGDClassifier(alpha=a, tol=None) for a in torch.logspace(-7, 0, 81).tolist()]
+    c = Cohort(models, classes=[0.0, 1.0])
+    acc_ms = time_ms(torch, lambda: c.packed_accuracy(X_test, y_test), 20)
+    log(f"phase 11d: packed_accuracy of 81 models on the {SEARCH_CHUNK}-row test split: "
+        f"{acc_ms:.4f} ms a call (one (81,) read included) [{card}]")
+    return out
+
+
+def search_phase(torch, device, card):
+    """Phase 11 end to end; returns K5's lines of the table."""
+    compare_cohort(torch, device)
+    X, y, w, sX, sy, hb, by_size = search_main_path(torch, device, card)
+    search_profile(torch, sX, sy, card)
+    standalone_cohort(torch, sX, sy, card)
+    out = cohort_table(torch, device, by_size, sX, sy, card)
+    del X, y, sX, sy
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     yardstick = None
     if "--k4-yardstick" in sys.argv:
@@ -3186,6 +3669,9 @@ def main() -> int:
 
     # 10. the streamed SGD through K4: SGDClassifier, SGDRegressor, Incremental
     out += sgd_phase(torch, device, card)
+
+    # 11. the search through K5: HyperbandSearchCV over SGD cohorts
+    out += search_phase(torch, device, card)
 
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

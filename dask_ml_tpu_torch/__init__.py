@@ -16,13 +16,18 @@ from .decomposition import PCA, IncrementalPCA, TruncatedSVD
 from .linalg import randomized_svd, tsqr, tsqr_svd
 from .linear_model import (
     LinearRegression, LogisticRegression, PoissonRegression, SGDClassifier, SGDRegressor)
+from .model_selection import (
+    HyperbandSearchCV, IncrementalSearchCV, InverseDecaySearchCV, SuccessiveHalvingSearchCV,
+    train_test_split)
 from .wrappers import Incremental, ParallelPostFit
 
-__all__ = ["Incremental", "IncrementalPCA", "KMeans", "LinearRegression", "LogisticRegression",
+__all__ = ["HyperbandSearchCV", "Incremental", "IncrementalPCA", "IncrementalSearchCV",
+           "InverseDecaySearchCV", "KMeans", "LinearRegression", "LogisticRegression",
            "PCA", "ParallelPostFit", "PoissonRegression", "SGDClassifier", "SGDRegressor",
-           "TruncatedSVD", "get_device", "incremental_pca_from_reference",
+           "SuccessiveHalvingSearchCV", "TruncatedSVD", "get_device",
+           "incremental_pca_from_reference",
            "kmeans_from_reference", "linear_regression_from_reference",
            "logistic_regression_from_reference", "pca_from_reference",
            "poisson_regression_from_reference", "randomized_svd", "set_device", "shard_rows",
            "sgd_classifier_from_reference", "sgd_regressor_from_reference",
-           "truncated_svd_from_reference", "tsqr", "tsqr_svd"]
+           "train_test_split", "truncated_svd_from_reference", "tsqr", "tsqr_svd"]

@@ -68,18 +68,26 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
     - ``class_weight="balanced"`` with ``lbfgs``, ``max_iter=5``;
     - the scanned minibatch SGD fit, ``SGDClassifier(max_iter=2, tol=None,
       batch_size=n // 4)``, which must take more steps than epochs
-      (``t_ > 2``) and reach a training accuracy of 0.8.
+      (``t_ > 2``) and reach a training accuracy of 0.8;
+    - a packed cohort of 4 ``SGDClassifier``s (constant schedule, eta0
+      0.2, alpha 1e-4 to 1e-1) stepped 3 times through K5, every member's
+      ``t_`` then 3 (on one device: the port has no model axis);
+    - ``HyperbandSearchCV`` over ``SGDClassifier(tol=None)`` and 30 alphas,
+      ``max_iter=9``, whose ``metadata_`` must equal its ``metadata`` and
+      whose best score must reach 0.7.
 
     Not run yet, each waiting for its ROADMAP item: ring pairwise
-    distances and MiniBatchKMeans ([port-rest]), the packed SGD cohort on
-    a data × model mesh, Hyperband and the packed C-grid ([port-search]),
-    and the multi-process run ([port-multi]).  Prints the sections it ran
-    and returns their names.
+    distances and MiniBatchKMeans ([port-rest]), the packed C-grid
+    (``lambda_sweep``, [port-search]'s second slice), and the
+    multi-process run ([port-multi]).  Prints the sections it ran and
+    returns their names.
     """
     from .cluster import KMeans
     from .core.sharded import shard_rows
     from .decomposition import PCA
     from .linear_model import LogisticRegression, SGDClassifier
+    from .model_selection import HyperbandSearchCV
+    from .model_selection._packing import Cohort
 
     ran = []
     with use_device(device, n_shards=n_shards):
@@ -135,6 +143,24 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
         acc = float(msgd.score(sX, sy))
         assert acc >= 0.8, f"scanned-minibatch SGD failed to converge (acc={acc})"
         ran.append("scanned minibatch SGD")
+
+        models = [SGDClassifier(alpha=a, learning_rate="constant", eta0=0.2)
+                  for a in (1e-4, 1e-3, 1e-2, 1e-1)]
+        cohort = Cohort(models, classes=[0, 1])
+        for _ in range(3):
+            cohort.step(X, y)
+        cohort.finalize()
+        assert all(m.t_ == 3 for m in models), [m.t_ for m in models]
+        ran.append("packed SGD cohort")
+
+        hb = HyperbandSearchCV(SGDClassifier(tol=None, random_state=0),
+                               {"alpha": np.logspace(-5, 1, 30)}, max_iter=9, random_state=0,
+                               chunk_size=max(n // 4, 8))
+        hb.fit(X, y, classes=[0, 1])
+        assert hb.metadata_["n_models"] == hb.metadata["n_models"]
+        assert hb.metadata_["partial_fit_calls"] == hb.metadata["partial_fit_calls"]
+        assert hb.best_score_ >= 0.7, f"Hyperband best_score_ {hb.best_score_} < 0.7"
+        ran.append("Hyperband")
         dev = sX.data.device
     print(f"dryrun_multichip({n_shards}) on {dev}: {', '.join(ran)} OK")
     return ran

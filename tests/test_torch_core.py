@@ -168,6 +168,12 @@ def test_port_imports_none_of_jax_reference_or_sklearn_at_run_time():
         "for est in (p.PCA(n_components=2), p.TruncatedSVD(n_components=2),\n"
         "            p.IncrementalPCA(n_components=2, batch_size=16)):\n"
         "    assert est.fit(xt).transform(xt).shape == (64, 2)\n"
+        "Xs = np.random.RandomState(2).randn(600, 4).astype(np.float32)\n"
+        "ys = (Xs[:, 0] + 0.3 * Xs[:, 1] > 0).astype(np.int64)\n"
+        "hb = p.HyperbandSearchCV(p.SGDClassifier(tol=None, random_state=0),\n"
+        "                         {'alpha': np.logspace(-5, 0, 20)}, max_iter=9,\n"
+        "                         random_state=0, chunk_size=100).fit(Xs, ys, classes=[0, 1])\n"
+        "assert hb.metadata_ == hb.metadata and hb.best_score_ > 0.7\n"
         "from dask_ml_tpu_torch.entry import entry\n"
         "fn, args = entry()\n"
         "assert fn(*args).shape == (256,)\n"

@@ -2,7 +2,8 @@
 repository's ``__graft_entry__.py``, on the CPU: ``entry()``'s forward on
 its example arguments within 1e-6 of the reference's, and
 ``dryrun_multichip`` at 8 logical shards, its scanned-SGD section's
-``t_ > 2`` check among them."""
+``t_ > 2`` check and the packed cohort's and Hyperband's sections among
+them."""
 
 import os
 
@@ -48,7 +49,7 @@ def test_dryrun_multichip_runs_its_sections(capsys, monkeypatch):
     ran = dryrun_multichip(8, device="cpu")
     assert ran == ["binary ADMM", "bf16 lbfgs", "KMeans init=random", "PCA via TSQR",
                    "packed OvR ADMM", "multinomial lbfgs", "class_weight balanced",
-                   "scanned minibatch SGD"]
+                   "scanned minibatch SGD", "packed SGD cohort", "Hyperband"]
     out = capsys.readouterr().out
     assert "dryrun_multichip(8) on cpu" in out and "packed OvR ADMM" in out
     assert "DASK_ML_TPU_TORCH_PACK" not in os.environ
