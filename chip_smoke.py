@@ -8,7 +8,10 @@ Run from the root of a checkout, with no arguments:
 ``python3 chip_smoke.py --k4-yardstick ROOT`` instead times K4's step and
 loss (10c) and profiles the minibatch fits' epochs (10e) on the package
 under ROOT, e.g. a parent commit unpacked there, to compare two trees in
-one call.
+one call.  ``python3 chip_smoke.py --k5-yardstick ROOT`` likewise holds and
+times K5 at every (M, K) of 11d, then runs 11b's search once on the host
+clock and once under ``torch.profiler`` (K5's device time, the idle share),
+on the package under ROOT.
 
 Phases, in order; any failure exits non-zero:
 
@@ -178,10 +181,13 @@ Phases, in order; any failure exits non-zero:
    ``torch.profiler`` (idle share, device time by kernel).  11c: a Cohort
    of 81 over the first 8 training blocks through K5 and through the
    plain version (each lane within 1e-4·‖coef‖∞), and 3 members replayed
-   alone through K4.  11d: K5 at the search's cohort sizes on a 2^20 x 64
-   block (CUDA events over 20 launches) beside its plain version, its bound
-   and the matmul + elementwise + matmul sequence; ``packed_accuracy`` of
-   81 models.  Then the ``kernels`` line, the card line and the result.
+   alone through K4.  11d: K5 at every cohort size the search launches
+   (M in {2, 3, 5, 8, 9, 11, 15, 27, 34, 81} at K = 1) and at (8, 10) on a
+   2^20 x 64 block, each held as in 11a, then timed (CUDA events over 20
+   launches enqueued behind a device sleep, so that the host's call does
+   not pace them) beside its plain version, its bound and the matmul +
+   elementwise + matmul sequence, with a ``kernels`` entry for each size
+   the search launched; ``packed_accuracy`` of 81 models.  Then the ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -309,7 +315,10 @@ SEARCH_D = 64
 SEARCH_CHUNK = 1 << 20
 SEARCH_MAX_ITER = 81
 COHORT_TOL = 1e-5
-COHORT_TIMES = ((81, 1), (27, 1), (9, 1), (5, 1), (8, 10))  # (M, K) of 11d at 2^20 x 64
+# (M, K) of 11d at 2^20 x 64: every cohort size 11b's search launches (all at
+# K = 1), and (8, 10), a multi-class cohort off its path
+COHORT_TIMES = ((2, 1), (3, 1), (5, 1), (8, 1), (9, 1), (11, 1), (15, 1), (27, 1), (34, 1),
+                (81, 1), (8, 10))
 
 
 def log(msg: str) -> None:
@@ -335,8 +344,12 @@ def ptxas_lines(report):
             kern = re.search(r"\d([a-z_]+_kernel)", mangled)
             tile = re.findall(r"L[bi](\d+)E", mangled)
             family = re.search(r"\d(Logistic|Normal|Poisson)E", mangled)  # K2's functor
+            loss = re.search(r"\d(LogLoss|Hinge|SquaredHinge|ModifiedHuber|SquaredError|Huber)E",
+                             mangled)  # K4's and K5's
             if family:
                 tile = [family.group(1), "bf16" if "nv_bfloat16" in mangled else "f32"] + tile
+            elif loss:
+                tile = [loss.group(1)] + tile
             name = (kern.group(1) if kern else mangled) + (f"<{','.join(tile)}>" if tile else "")
         elif "registers" in line or "spill" in line:
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
@@ -533,6 +546,22 @@ def time_ms(torch, fn, reps):
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(torch, fn, reps):
+    """``time_ms`` with the device kept busy (a sleep kernel) while the reps
+    are enqueued, so that a call shorter than its host side is timed on the
+    device, back to back, and not at the host's pace."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -3432,10 +3461,18 @@ def search_profile(torch, sX, sy, card):
             f"profiler recorded no device event) [{card}]")
         return
     busy = sum(ms for ms, _ in per_name.values())
+    k5 = [(ms, n) for name, (ms, n) in per_name.items() if name in K5_KERNELS]
     log(f"phase 11b: profiled fit {wall_ms:.3f} ms on the host clock, device busy {busy:.3f} "
-        f"ms: idle share {(wall_ms - busy) / wall_ms:.4f} [{card}]")
+        f"ms: idle share {(wall_ms - busy) / wall_ms:.4f}; K5 {sum(ms for ms, _ in k5):.3f} ms "
+        f"in {sum(n for _, n in k5)} kernels [{card}]")
     for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  device {ms:10.4f} ms {count:6d}x  {name[:100]}")
+
+
+# K5's kernels (csrc/cohort.cu; record_kernel was the record kernel's name
+# before the ring path)
+K5_KERNELS = ("record_kernel", "ring_kernel", "tile_kernel", "lanes_kernel", "update_kernel",
+              "finish_kernel")
 
 
 class PlainK5:
@@ -3512,14 +3549,49 @@ def standalone_cohort(torch, sX, sy, card):
         f"{', '.join(f'{g:.3g}' for g in replay)}·‖coef‖∞ [{card}]")
 
 
+def cohort_entry(torch, cohort, sgd, device, M, K, card, launches=None):
+    """11d: K5 at (M, K) on a 2^20 x 64 block: held against its float64
+    plain version, then timed (``queued_ms`` over 20 launches) beside its
+    plain version (3 runs), its bound from these inputs and the matmul +
+    elementwise + matmul sequence (informational: no one PyTorch call
+    computes the step).  Returns its ``kernels`` entry."""
+    case = cohort_inputs(torch, SGD_ROWS, SGD_D, K, M, "log_loss", 500 + M, device)
+    hypers = cohort_hypers(torch, M, device, "log_loss", "optimal")
+    err, _ = hold_cohort(torch, cohort, sgd, case, hypers, f"11d M={M} K={K}", "log_loss")
+    x, y, masks, coef, intercept, t = case
+    kw = dict(loss="log_loss", penalty="l2", schedule="optimal")
+    c, b, tt = coef.clone(), intercept.clone(), t.clone()
+    ms = queued_ms(torch, lambda: cohort.cohort_step(x, y, masks, c, b, tt, hypers, **kw), 20)
+    plain_ms = time_ms(torch, lambda: cohort.cohort_step_ref(x, y, masks, c, b, tt, hypers,
+                                                             **kw), 3)
+    cols = coef.permute(1, 0, 2).reshape(SGD_D, M * K).contiguous()
+    bcols = intercept.reshape(M * K)
+
+    def library():
+        z = y.repeat(1, M) * torch.addmm(bcols, x, cols)
+        return torch.mm(x.T, -torch.sigmoid(-z) * y.repeat(1, M) * masks[0][:, None])
+
+    lib_ms = time_ms(torch, library, 20)
+    B = x.shape[0]
+    nbytes = B * SGD_D * 4 + B * K * 4 + B * 4 + 2 * M * (SGD_D + 1) * K * 4 + 3 * M * 4
+    flops = 4 * B * SGD_D * M * K
+    b_ms, b_by = bound_ms(nbytes, flops)
+    log(f"phase 11d: K5 at M={M}, K={K}, {B} x {SGD_D}: {ms:.4f} ms, {flops / ms / 1e6:.1f} "
+        f"GFLOP/s, {b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
+        f"ms by {b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; the PyTorch "
+        f"sequence, informational: {lib_ms:.4f} ms) [{card}]")
+    return {"name": f"cohort_step_M{M}_K{K}", "route": "cuda",
+            "source": "dask_ml_tpu_torch/csrc/cohort.cu",
+            "replaces": "dask_ml_tpu/model_selection/_packing.py:117",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
 def cohort_table(torch, device, by_size, hb_sX, hb_sy, card):
-    """11d: K5 at each (M, K) of COHORT_TIMES on a 2^20 x 64 block: held
-    against its float64 plain version, then timed (CUDA events over 20
-    launches) beside its plain version (3 runs), its bound from these
-    inputs and the matmul + elementwise + matmul sequence (informational:
-    no one PyTorch call computes the step); and ``packed_accuracy`` of 81
-    models on the 2^20-row test split.  Returns the ``kernels`` entries of
-    the shapes the main path launched, with their launches."""
+    """11d: ``cohort_entry`` at each (M, K) of COHORT_TIMES, and
+    ``packed_accuracy`` of 81 models on the 2^20-row test split.  Returns
+    the ``kernels`` entries of the shapes the main path launched, with
+    their launches."""
     from dask_ml_tpu_torch import SGDClassifier
     from dask_ml_tpu_torch.model_selection import train_test_split
     from dask_ml_tpu_torch.model_selection._packing import Cohort
@@ -3527,39 +3599,9 @@ def cohort_table(torch, device, by_size, hb_sX, hb_sy, card):
 
     out = []
     for M, K in COHORT_TIMES:
-        case = cohort_inputs(torch, SGD_ROWS, SGD_D, K, M, "log_loss", 500 + M, device)
-        hypers = cohort_hypers(torch, M, device, "log_loss", "optimal")
-        err, _ = hold_cohort(torch, cohort, sgd, case, hypers, f"11d M={M} K={K}", "log_loss")
-        x, y, masks, coef, intercept, t = case
-        kw = dict(loss="log_loss", penalty="l2", schedule="optimal")
-        c, b, tt = coef.clone(), intercept.clone(), t.clone()
-        ms = time_ms(torch, lambda: cohort.cohort_step(x, y, masks, c, b, tt, hypers, **kw), 20)
-        plain_ms = time_ms(torch, lambda: cohort.cohort_step_ref(x, y, masks, c, b, tt, hypers,
-                                                                 **kw), 3)
-        cols = coef.permute(1, 0, 2).reshape(SGD_D, M * K).contiguous()
-        bcols = intercept.reshape(M * K)
-
-        def library():
-            z = y.repeat(1, M) * torch.addmm(bcols, x, cols)
-            return torch.mm(x.T, -torch.sigmoid(-z) * y.repeat(1, M) * masks[0][:, None])
-
-        lib_ms = time_ms(torch, library, 20)
-        B = x.shape[0]
-        nbytes = B * SGD_D * 4 + B * K * 4 + B * 4 + 2 * M * (SGD_D + 1) * K * 4 + 3 * M * 4
-        flops = 4 * B * SGD_D * M * K
-        b_ms, b_by = bound_ms(nbytes, flops)
-        log(f"phase 11d: K5 at M={M}, K={K}, {B} x {SGD_D}: {ms:.4f} ms, {flops / ms / 1e6:.1f} "
-            f"GFLOP/s, {b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
-            f"ms by {b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; the PyTorch "
-            f"sequence, informational: {lib_ms:.4f} ms) [{card}]")
-        if by_size.get((M, K)):
-            out.append({"name": f"cohort_step_M{M}_K{K}", "route": "cuda",
-                        "source": "dask_ml_tpu_torch/csrc/cohort.cu",
-                        "replaces": "dask_ml_tpu/model_selection/_packing.py:117",
-                        "launches": by_size[(M, K)], "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
-        del case, x, y, masks, cols
+        entry = cohort_entry(torch, cohort, sgd, device, M, K, card, by_size.get((M, K)))
+        if entry["launches"]:
+            out.append(entry)
     _, X_test, _, y_test = train_test_split(hb_sX, hb_sy, test_size=SEARCH_CHUNK,
                                             random_state=0)
     models = [SGDClassifier(alpha=a, tol=None) for a in torch.logspace(-7, 0, 81).tolist()]
@@ -3567,7 +3609,32 @@ def cohort_table(torch, device, by_size, hb_sX, hb_sy, card):
     acc_ms = time_ms(torch, lambda: c.packed_accuracy(X_test, y_test), 20)
     log(f"phase 11d: packed_accuracy of 81 models on the {SEARCH_CHUNK}-row test split: "
         f"{acc_ms:.4f} ms a call (one (81,) read included) [{card}]")
+    missing = sorted(set(by_size) - set(COHORT_TIMES))
+    gate(not missing, f"the search launched K5 at {missing}, not timed in 11d", phase=11)
     return out
+
+
+def k5_yardstick(torch, device, card):
+    """``--k5-yardstick ROOT``: 11d's K5 entries and 11b's search (one fit
+    on the host clock, then one under ``torch.profiler``) on the package
+    under ROOT (a parent's tree, or this one), so that two trees are timed
+    in one call on one card."""
+    from dask_ml_tpu_torch.core import shard_rows
+    from dask_ml_tpu_torch.ops import _build, cohort, sgd
+
+    log(f"k5 yardstick: {cohort.__file__}")
+    _build.build(["cohort", "sgd"])
+    for M, K in COHORT_TIMES:
+        cohort_entry(torch, cohort, sgd, device, M, K, card)
+    X, y, _ = search_standin(torch, SEARCH_ROWS, SEARCH_D, 11, device)
+    sX, sy = shard_rows(X), shard_rows(y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    search_estimator().fit(sX, sy, classes=[0.0, 1.0])
+    torch.cuda.synchronize()
+    log(f"k5 yardstick: HyperbandSearchCV fit {time.perf_counter() - t0:.3f} s on the host "
+        f"clock [{card}]")
+    search_profile(torch, sX, sy, card)
 
 
 def search_phase(torch, device, card):
@@ -3584,9 +3651,10 @@ def search_phase(torch, device, card):
 
 def main() -> int:
     yardstick = None
-    if "--k4-yardstick" in sys.argv:
-        yardstick = sys.argv[sys.argv.index("--k4-yardstick") + 1]
-        sys.path.insert(0, yardstick)
+    for flag in ("--k4-yardstick", "--k5-yardstick"):
+        if flag in sys.argv:
+            yardstick = flag
+            sys.path.insert(0, sys.argv[sys.argv.index(flag) + 1])
     import torch
 
     if not torch.cuda.is_available():
@@ -3604,8 +3672,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     set_device(device)
-    if yardstick is not None:
+    if yardstick == "--k4-yardstick":
         k4_yardstick(torch, device, card)
+        return 0
+    if yardstick == "--k5-yardstick":
+        k5_yardstick(torch, device, card)
         return 0
 
     # 2. build every kernel source, in parallel

@@ -6,14 +6,17 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 cohort_variants.py [NAME ...]
 
 Builds ``dask_ml_tpu_torch/csrc/cohort.cu`` ("current") and each named
-variant of it (a text edit, listed in ``VARIANTS``), all with ``nvcc`` at
-once into ``dask_ml_tpu_torch/_build/variants/``, prints each library's
-registers and spills for the record kernel, then times each through
-``ops/cohort.py``'s wrapper, in turns (the list forward, then backward),
-at the search's block (2^20 x 64) and the cohort sizes of ``chip_smoke.py``
-phase 11d (CUDA events over 20 calls).  Each variant is held against the
-float64 plain version first, as phase 11a holds K5 (``hold_cohort``), at
-each shape.  Without a card it exits 1.
+variant of it (a text edit of one of the ring path's shape constants or
+of its plan, listed in ``VARIANTS``), all with ``nvcc`` at once into
+``dask_ml_tpu_torch/_build/variants/``, prints each library's registers and
+spills for the record kernels, then times each through ``ops/cohort.py``'s
+wrapper, in turns (the list forward, then backward), at the search's block
+(2^20 x 64) and the cohort sizes of ``chip_smoke.py`` phase 11d
+(``queued_ms`` over 20 calls).  Each variant is held against the float64
+plain version first, as phase 11a holds K5 (``hold_cohort``), at each
+shape; one that fails its hold is reported and not timed.  The skeletons
+(``SKELETONS``) drop a part of the work and are timed without a hold.
+Without a card it exits 1.
 """
 
 from __future__ import annotations
@@ -27,33 +30,43 @@ REPO = Path(__file__).resolve().parent
 SRC = REPO / "dask_ml_tpu_torch" / "csrc" / "cohort.cu"
 OUT = REPO / "dask_ml_tpu_torch" / "_build" / "variants"
 ROWS, D = 1 << 20, 64
-SHAPES = ((81, 1), (27, 1), (9, 1), (2, 1), (8, 10))
 
-_UNCAP = ("__global__ void __launch_bounds__(T, 2) record_kernel(",
-          "__global__ void __launch_bounds__(T) record_kernel(")
-_SIMPLE = ("""#pragma unroll
-  for (int k0 = 0; k0 < PER; k0 += XB) {
-    float v[XB];
-#pragma unroll
-    for (int k = 0; k < XB; ++k) {""", """#pragma unroll 1
-  for (int k0 = 0; k0 < PER; k0 += XB) {
-    float v[XB];
-#pragma unroll 1
-    for (int k = 0; k < XB; ++k) {""")
+
+def _switch(name, old, new):
+    return (f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
+
+
 # name: (what it changes, [(text of the current source, its replacement)])
 VARIANTS = {
-    "uncapped": ("registers not capped (190: one block a SM)", [_UNCAP]),
-    "xb8": ("x's loads 8 at a time", [("constexpr int PER = R * DC / T, XB = 16;",
-                                       "constexpr int PER = R * DC / T, XB = 8;")]),
-    "xb4": ("x's loads 4 at a time", [("constexpr int PER = R * DC / T, XB = 16;",
-                                       "constexpr int PER = R * DC / T, XB = 4;")]),
-    "serial": ("x's staging loop not unrolled (a load, then its store)", [_SIMPLE]),
+    "s3": ("three stages in the ring, not two", [_switch("RING_S", 2, 3)]),
+    "r64": ("64 rows a tile, not 128 (2 rows a group where CT <= 8)",
+            [_switch("RING_R", 128, 64)]),
+    "noloss": ("skeleton: the loss terms replaced by (margin, y*epsilon)",
+               [("const Terms tr = L::terms(v[u] + cc.x, ys[row * K + k], cc.y);",
+                 "const Terms tr = {v[u] + cc.x, ys[row * K + k] * cc.y};")]),
+    "nograd": ("skeleton: the gradient's products dropped (its mask*dl loads kept)",
+               [("for (int u = 0; u < TC; ++u) g[f][u] = fmaf(xr[f], wv[u], g[f][u]);",
+                 "for (int u = 0; u < TC; ++u) g[f][u] += wv[u];")]),
+    "noshfl": ("skeleton: the margins' shuffle sums dropped",
+               [("      halve<V / 2>(v, lane, 4);\n      halve<V / 4>(v, lane, 2);\n"
+                 "      halve<V / 8>(v, lane, 1);\n", "")]),
+    "nofin": ("skeleton: the ring path's records alone (no finish)",
+              [("  coop_finish(a);\n}", "}")]),
+    "ct16": ("CT = 16 at M*K = 5..8, not 8", [_switch("CT8_MAX_C", 8, 4)]),
+    "no12": ("CT = 16 (four slices of 4) at M*K = 9..12, not 12 (four of 3)",
+             [_switch("CT12_MAX_C", 12, 8)]),
+    "tile": ("M*K > 16 on the tile path (256 x 16 tiles), not the ring's column tiles",
+             [("  if (d <= DC && K <= RING_MAX_K) {",
+               "  if (d <= DC && K <= RING_MAX_K && C <= 16) {")]),
 }
+
+
+SKELETONS = ("noloss", "nograd", "noshfl", "nofin")
 
 
 def build(names):
     """Every named source compiled with nvcc at once; prints the record
-    kernel's registers and spills; returns {name: library path}."""
+    kernels' registers and spills; returns {name: library path}."""
     sys.path.insert(0, str(REPO))
     import chip_smoke
     from dask_ml_tpu_torch.ops import _build
@@ -77,7 +90,7 @@ def build(names):
         if proc.returncode:
             raise SystemExit(f"nvcc failed on {name}:\n{err}")
         for line in sorted(set(chip_smoke.ptxas_lines(err))):
-            if "record_kernel" in line:
+            if "LogLoss" in line and "registers" in line:
                 print(f"{name}: {line}")
         out[name] = so
     return out
@@ -99,29 +112,39 @@ def main() -> int:
     device = torch.device("cuda")
     set_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = cs.COHORT_TIMES
     cases = {(M, K): cs.cohort_inputs(torch, ROWS, D, K, M, "log_loss", 500 + M, device)
-             for M, K in SHAPES}
+             for M, K in shapes}
     hypers = {(M, K): cs.cohort_hypers(torch, M, device, "log_loss", "optimal")
-              for M, K in SHAPES}
+              for M, K in shapes}
     kw = dict(loss="log_loss", penalty="l2", schedule="optimal")
-    held = set()
+    held, failed = set(), set()
     for name in names + names[::-1]:
+        if name in failed:
+            continue
         _build._libs["cohort"] = ctypes.CDLL(str(libs[name]))
         cohort._lib = None
         cohort._plans.clear()
         cohort._scratch.clear()
         times = []
-        for key in SHAPES:
+        for key in shapes:
             x, y, masks, coef, intercept, t = cases[key]
-            if name not in held:
-                cs.hold_cohort(torch, cohort, sgd, cases[key], hypers[key],
-                               f"{name} M={key[0]} K={key[1]}", "log_loss")
+            if name not in held and name not in SKELETONS:
+                try:
+                    cs.hold_cohort(torch, cohort, sgd, cases[key], hypers[key],
+                                   f"{name} M={key[0]} K={key[1]}", "log_loss")
+                except (AssertionError, RuntimeError) as exc:
+                    print(f"{name}: not held, not timed: {exc}", flush=True)
+                    failed.add(name)
+                    break
             c, b, tt = coef.clone(), intercept.clone(), t.clone()
-            times.append(cs.time_ms(torch, lambda: cohort.cohort_step(
+            times.append(cs.queued_ms(torch, lambda: cohort.cohort_step(
                 x, y, masks, c, b, tt, hypers[key], **kw), 20))
+        if name in failed:
+            continue
         held.add(name)
-        print(f"{name:12s} " + ", ".join(f"M={M} K={K} {ms:.4f}" for (M, K), ms in
-                                        zip(SHAPES, times)) + f" ms [{card}]", flush=True)
+        print(f"{name:8s} " + ", ".join(f"M={M} K={K} {ms:.4f}" for (M, K), ms in
+                                       zip(shapes, times)) + f" ms [{card}]", flush=True)
     return 0
 
 

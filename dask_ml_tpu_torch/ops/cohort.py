@@ -30,7 +30,7 @@ from .sgd import CLASSIFIER_LOSSES, HYPER_KEYS, LOSSES, PENALTIES, SCHEDULES, le
     row_losses
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_PLAN_WORDS = 4
+_PLAN_WORDS = 6
 _lib = None
 _plans: dict = {}
 #: one scratch buffer a device for the block records, grown to the largest

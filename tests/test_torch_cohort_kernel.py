@@ -138,3 +138,59 @@ def test_strided_rows_margins_past_80_and_one_lane_like_k4(cuda):
     g = float((coef[0].double() - c4.double()).abs().max()) / eta
     assert float((c4 - c5[0]).abs().max()) <= 2 * (TOL * eta * g + 2.0 ** -22 * float(
         c4.abs().max()))
+
+
+# The ring path's rows a tile (csrc/cohort.cu RING_R) and its column tiles:
+# CT = 4 at M*K <= 4, 8 at <= 8, 12 at <= 12, else 16, tiled across the
+# grid past 16
+RING_R = 128
+EDGE_COHORTS = [(4, 1), (5, 1), (8, 1), (9, 1), (12, 1), (13, 1), (16, 1), (17, 1), (2, 2),
+                (4, 2), (3, 3), (4, 3), (8, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", EDGE_COHORTS)
+def test_column_tile_edges_against_plain(cuda, M, K):
+    _hold(_inputs(4099, 64, K, M, "log_loss", 40 + M * K, cuda), "log_loss")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [2, 9])
+@pytest.mark.parametrize("B", [RING_R - 1, RING_R, RING_R + 1])
+def test_ragged_tiles_against_plain(cuda, B, M):
+    _hold(_inputs(B, 64, 1, M, "hinge", B + M, cuda), "hinge")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [3, 8, 11])
+def test_one_row_past_the_grids_tiles_against_plain(cuda, M):
+    # every block takes two tiles and one block one more, of one row
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _hold(_inputs(2 * sms * RING_R + 1, 64, 1, M, "log_loss", M, cuda), "log_loss")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("M", [2, 5, 9])
+def test_widths_against_plain(cuda, d, M):
+    _hold(_inputs(3001, d, 1, M, "modified_huber", d + M, cuda), "modified_huber")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(3, 1), (6, 1), (13, 1), (27, 1), (4, 3)])
+def test_strided_rows_and_lane_masks_with_a_zero_lane_against_plain(cuda, M, K):
+    x, y, masks, coef, intercept, t, hypers = _inputs(4 * 2053, 64, K, M, "log_loss", 70 + M,
+                                                      cuda, weighted=True)
+    assert bool((masks[M // 2] == 0).all())
+    _hold((x[1::4], y[1::4], masks[:, 1::4], coef, intercept, t, hypers), "log_loss")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [0, 1])
+def test_more_column_tiles_than_resident_blocks_against_plain(cuda, extra):
+    # the ring path's cooperative grid takes a block at least a column tile
+    # of 16 and holds two blocks a SM: one column more than that takes the
+    # tile path, not a cooperative launch the card cannot hold
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    M = 16 * 2 * sms + extra
+    _hold(_inputs(300, 64, 1, M, "log_loss", 11 + extra, cuda), "log_loss")

@@ -110,6 +110,54 @@ def test_cohort_step_ref_matches_packed_step(loss, penalty, schedule):
         np.testing.assert_array_equal(b.numpy(), intercept)
 
 
+# (M, K) at the kernel's column-tile edges, M*K in {4, 5, 8, 9, 16, 17}: the
+# plain version's lane axis is what the kernel tiles, so hold it there too
+EDGE_COHORTS = [(4, 1), (2, 2), (5, 1), (8, 1), (4, 2), (9, 1), (3, 3), (16, 1), (8, 2),
+                (17, 1)]
+
+
+@pytest.mark.parametrize("M,K", EDGE_COHORTS)
+def test_cohort_step_ref_matches_packed_step_at_column_tile_edges(M, K):
+    """Tolerance as above: each lane's loss rtol 1e-5, coef and intercept
+    to 1e-5·eta·max|g| plus 2^-22 of each element, t equal."""
+    rng = np.random.RandomState(100 * M + K)
+    B, d, loss = 131, 7, "log_loss" if K == 1 else "hinge"
+    x = rng.standard_normal((B, d)).astype(np.float32)
+    y = -np.ones((B, K), np.float32)
+    if K == 1:
+        y[x @ rng.standard_normal(d) > 0] = 1.0
+    else:
+        y[np.arange(B), rng.randint(0, K, B)] = 1.0
+    masks = rng.uniform(0.2, 2.0, (M, B)).astype(np.float32)
+    masks[M // 2] = 0.0
+    coef = (0.5 * rng.standard_normal((M, d, K))).astype(np.float32)
+    intercept = (0.1 * rng.standard_normal((M, K))).astype(np.float32)
+    t = (3.0 + np.arange(M)).astype(np.float32)
+    hypers = np.stack([np.logspace(-4, -2, M), np.linspace(0.01, 0.05, M), np.full(M, 0.25),
+                       np.linspace(20, 40, M), np.full(M, 0.15), np.full(M, 0.1),
+                       np.full(M, 1.0)], 1).astype(np.float32)
+    kw = dict(loss=loss, penalty="l2", schedule="optimal", fit_intercept=True)
+    h_ref = {k: jnp.asarray(hypers[:, i]) for i, k in enumerate(k4.HYPER_KEYS)}
+    states = {"coef": jnp.asarray(coef), "intercept": jnp.asarray(intercept),
+              "t": jnp.asarray(t)}
+    new, losses = ref_packing._packed_step_impl(states, jnp.asarray(x), jnp.asarray(y),
+                                                jnp.asarray(masks), h_ref, **kw)
+    c, b, tt = torch.tensor(coef), torch.tensor(intercept), torch.tensor(t)
+    out = k5.cohort_step(torch.tensor(x), torch.tensor(y), torch.tensor(masks), c, b, tt,
+                         torch.tensor(hypers), **kw)
+    np.testing.assert_allclose(out[:, 0].numpy(), np.asarray(losses), rtol=TOL)
+    for m in range(M):
+        h = {k: v[m] for k, v in h_ref.items()}
+        eta = float(ref_sgd._learning_rate("optimal", jnp.float32(t[m]), h))
+        c_ref = np.asarray(new["coef"][m], np.float64)
+        b_ref = np.asarray(new["intercept"][m], np.float64)
+        g = np.abs(coef[m].astype(np.float64) - c_ref).max() / eta
+        for got, want in ((c[m], c_ref), (b[m], b_ref)):
+            tol = TOL * eta * g + 2.0 ** -22 * np.abs(want) + 1e-12
+            assert np.all(np.abs(got.numpy() - want) <= tol), (m, np.abs(got.numpy() - want).max())
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(new["t"]))
+
+
 def test_cohort_step_takes_a_broadcast_mask_and_rejects_bad_input():
     x, y, masks, coef, intercept, t, hypers = _lanes(1, "log_loss")
     args = [torch.tensor(a) for a in (x, y)]
