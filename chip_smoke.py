@@ -187,7 +187,37 @@ Phases, in order; any failure exits non-zero:
    launches enqueued behind a device sleep, so that the host's call does
    not pace them) beside its plain version, its bound and the matmul +
    elementwise + matmul sequence, with a ``kernels`` entry for each size
-   the search launched; ``packed_accuracy`` of 81 models.  Then the ``kernels`` line, the card line and the result.
+   the search launched; ``packed_accuracy`` of 81 models.
+12. The host-fed stream (``configs[3]``'s second slice): files and datasets
+   through the input pipeline (``pipeline/``: a prefetch thread, page-locked
+   buffers, a side stream) to K4.  A raw float32 file of 32 blocks of
+   2^18 x 64 (2 GiB, bench.py's ``streamed_loader_*_262144x64`` block) is
+   written from a seeded numpy generator to a temporary directory, after a
+   check of its free space.  12a: ``_partial.fit(SGDClassifier(random_state=0),
+   ((xb, xb[:, 0] > 0.5) for xb in io.stream_binary_blocks(...)),
+   prefetch_depth=d, classes=[0, 1])`` at d = 0 and 2 in turns (0, 2, 2, 0),
+   each with ms a block, rows/s, MB/s and the pipeline's split; gates: every
+   state equal to a serial in-memory ``partial_fit`` loop over the same
+   blocks, K4 once a block, every staged host buffer page-locked.  12b: the
+   same rows and labels as a dataset (``data.write_dataset``, 8 shards of
+   2^18-row blocks, zlib as by default, then uncompressed), then
+   ``Incremental(SGDClassifier(random_state=0))`` over
+   ``ShardedDataset(key=0, epochs=2, readers=4)`` at depths 0 and 2 (64
+   blocks; gate: equal states).  12c: a depth-2 fit of 12 blocks under
+   ``torch.profiler``: the idle share, the host-to-device copies a block,
+   their streams against K4's and their overlap, the runtime calls of each
+   host thread (the exported trace's system thread ids); gates: every kernel
+   launch on the consumer thread, the other threads' calls copies, events
+   and allocations only, the device's kernels K4's, the copies from
+   page-locked memory.  12d: the stage's parts alone (a page-locked and a
+   pageable 64 MiB copy; ``read_binary`` of a block from the page cache into
+   a fresh array, a reused one and a page-locked buffer; the copy into
+   page-locked memory; the labels, the encode, the pad and the stager's put
+   of a block; K4 at 2^18 x 64 held and timed beside its bound) and the
+   stream's floor max(parse, H2D, K4).  12e:
+   ``IncrementalPCA(10, batch_size=2**18)`` over a 2^22 x 64 host array with
+   the prefetch knob at 0 and 2 (gate: equal ``components_``).  Then the
+   ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -320,6 +350,17 @@ COHORT_TOL = 1e-5
 COHORT_TIMES = ((2, 1), (3, 1), (5, 1), (8, 1), (9, 1), (11, 1), (15, 1), (27, 1), (34, 1),
                 (81, 1), (8, 10))
 
+
+# phase 12: the host-fed stream (BASELINE configs[3], second slice)
+HOST_ROWS = 1 << 18  # bench.py's streamed_loader_*_262144x64 block
+HOST_D = 64
+HOST_BLOCKS = 32  # a 2 GiB raw float32 file
+HOST_SEED = 12
+HOST_SHARDS = 8
+HOST_EPOCHS = 2
+HOST_PROFILE = 12  # blocks of 12c's profiled depth-2 fit, after a warm block
+HOST_READS = 5  # 12d's timed reads of one block from the page cache
+IPCA_HOST_ROWS = 1 << 22
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -3649,6 +3690,465 @@ def search_phase(torch, device, card):
     return out
 
 
+def host_block(i):
+    """Block ``i`` of the host stream: float32 standard normal from a numpy
+    generator seeded by (HOST_SEED, i)."""
+    import numpy as np
+
+    return np.random.default_rng([HOST_SEED, i]).standard_normal((HOST_ROWS, HOST_D),
+                                                                  dtype=np.float32)
+
+
+def host_labels(xb):
+    return xb[:, 0] > 0.5
+
+
+def host_files(tmp):
+    """12a's raw file (HOST_BLOCKS blocks written a block at a time), after a
+    check that the directory holds it and 12b's dataset; returns its path."""
+    import os
+    import shutil
+
+    nbytes = HOST_BLOCKS * HOST_ROWS * HOST_D * 4
+    free = shutil.disk_usage(tmp).free
+    need = int(2.1 * nbytes)  # the raw file and the dataset (zlib barely shrinks noise)
+    gate(free >= need, f"{tmp} has {free} bytes free; the raw file and the dataset need "
+         f"{need}", phase=12)
+    path = os.path.join(tmp, "stream.f32")
+    t0 = time.perf_counter()
+    with open(path, "wb") as fh:
+        for i in range(HOST_BLOCKS):
+            host_block(i).tofile(fh)
+    log(f"phase 12: wrote {HOST_BLOCKS} blocks of {HOST_ROWS}x{HOST_D} float32 "
+        f"({nbytes / 2**30:.2f} GiB) to {path} in {time.perf_counter() - t0:.2f} s "
+        f"({free / 2**30:.1f} GiB were free)")
+    return path
+
+
+def host_fit(torch, sgd, fit, depth, n_blocks, what):
+    """One streamed fit from the host through ``fit(clf, depth)``, the K4
+    counts set to 0 just before it and read just after: (clf, wall ms a
+    block, the pipeline report, K4 launches, plain-version calls)."""
+    from dask_ml_tpu_torch import SGDClassifier
+    from dask_ml_tpu_torch.pipeline import pipeline_report
+
+    torch.cuda.synchronize()
+    reset_sgd_counts(sgd)
+    t0 = time.perf_counter()
+    clf = fit(SGDClassifier(random_state=0), depth)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = sgd.sgd_update.launches, plain_sgd_calls(sgd)
+    rep = pipeline_report()
+    ms = 1e3 * wall / n_blocks
+    split = ", ".join(f"{k[:-2]} {1e3 * rep[k] / n_blocks:.3f}" for k in
+                      ("parse_s", "transfer_s", "compute_s", "stall_s", "hidden_s"))
+    log(f"phase {what} at depth {depth}: {n_blocks} blocks in {1e3 * wall:.1f} ms, {ms:.3f} "
+        f"ms/block, {n_blocks * HOST_ROWS / wall:.6g} rows/s, "
+        f"{n_blocks * HOST_ROWS * HOST_D * 4 / wall / 1e6:.1f} MB/s of x; a block: {split} ms; "
+        f"K4 launches {launches}, plain-version calls {plain}; host buffers "
+        f"{rep['host_buffers']} ({rep['pinned_buffers']} page-locked), t_ {clf.t_}")
+    return clf, ms, rep, launches, plain
+
+
+def same_state(a, b):
+    return (bool((a.coef_ == b.coef_).all()) and bool((a.intercept_ == b.intercept_).all())
+            and a.t_ == b.t_)
+
+
+def binary_stream(torch, sgd, path, card):
+    """12a: ``_partial.fit`` over ``io.stream_binary_blocks`` at depths 0 and
+    2, in turns (0, 2, 2, 0); gates: depth 2's state equals depth 0's and a
+    serial in-memory ``partial_fit`` loop over the same blocks (made anew
+    from the seed), K4 launched once a block, every staged host buffer
+    page-locked.  Returns (depth-2 launches, depth-2 ms/block, depth-0
+    ms/block, the depth-2 report)."""
+    from dask_ml_tpu_torch import SGDClassifier, _partial, io
+
+    def fit(clf, depth):
+        blocks = ((xb, host_labels(xb)) for xb in io.stream_binary_blocks(path, HOST_ROWS, HOST_D))
+        return _partial.fit(clf, blocks, prefetch_depth=depth, classes=[0, 1])
+
+    runs = {0: [], 2: []}
+    for depth in (0, 2, 2, 0):
+        runs[depth].append(host_fit(torch, sgd, fit, depth, HOST_BLOCKS, "12a"))
+    serial = SGDClassifier(random_state=0)
+    for i in range(HOST_BLOCKS):
+        xb = host_block(i)
+        serial.partial_fit(xb, host_labels(xb), classes=[0, 1])
+    for depth, fits in runs.items():
+        for clf, _, rep, launches, plain in fits:
+            gate(same_state(clf, serial), f"12a: the depth-{depth} fit's state differs from the "
+                 "serial in-memory loop's", phase=12)
+            gate(launches == HOST_BLOCKS and plain == 0,
+                 f"12a: K4 launched {launches} times, its plain version {plain}", phase=12)
+            if depth:
+                gate(rep["staged"] and rep["host_buffers"] > 0
+                     and rep["pinned_buffers"] == rep["host_buffers"],
+                     f"12a: {rep['pinned_buffers']} of {rep['host_buffers']} staged host "
+                     "buffers page-locked", phase=12)
+    acc = float((serial.predict(xb) == host_labels(xb)).mean())
+    gate(acc > 0.95, f"12a: train accuracy {acc} on the last block", phase=12)
+    ms2 = [r[1] for r in runs[2]]
+    ms0 = [r[1] for r in runs[0]]
+    log(f"phase 12a: depth 2 {ms2[0]:.3f}, {ms2[1]:.3f} ms/block; depth 0 {ms0[0]:.3f}, "
+        f"{ms0[1]:.3f} ms/block; the states of both depths equal the serial in-memory loop's "
+        f"(t_ {serial.t_}, last block's accuracy {acc:.4f}) [{card}]")
+    return runs[2][0][3], min(ms2), min(ms0), runs[2][-1][2]
+
+
+def dataset_stream(torch, sgd, path, tmp, card):
+    """12b: 12a's rows and labels as a sharded dataset (``data.write_dataset``,
+    HOST_SHARDS shards of HOST_ROWS-row blocks; zlib, the default, and
+    uncompressed), then ``Incremental`` over ``ShardedDataset(key=0,
+    epochs=HOST_EPOCHS, readers=4)`` at depths 0 and 2; gates: equal
+    states at both depths and both compressions, K4 once a block.  Returns
+    {compression: depth-2 ms/block}."""
+    import os
+
+    import numpy as np
+
+    from dask_ml_tpu_torch import Incremental, data
+
+    X = np.fromfile(path, dtype=np.float32).reshape(-1, HOST_D)
+    y = host_labels(X).astype(np.int32)
+    out, states = {}, []
+    for compression in ("zlib", "none"):
+        where = os.path.join(tmp, f"ds_{compression}")
+        t0 = time.perf_counter()
+        m = data.write_dataset(where, X, y, shards=HOST_SHARDS, block_rows=HOST_ROWS,
+                               compression=compression)
+        log(f"phase 12b: wrote {m!r}, {compression}, in {time.perf_counter() - t0:.2f} s")
+        n_blocks = HOST_EPOCHS * m.n_blocks
+
+        def fit(clf, depth):
+            ds = data.ShardedDataset(where, key=0, epochs=HOST_EPOCHS, readers=4)
+            return Incremental(clf, prefetch_depth=depth).fit(ds, classes=[0, 1]).estimator_
+
+        runs = {d: host_fit(torch, sgd, fit, d, n_blocks, f"12b ({compression})")
+                for d in (0, 2)}
+        states += [runs[0][0], runs[2][0]]
+        for depth, (_, _, _, launches, plain) in runs.items():
+            gate(launches == n_blocks and plain == 0,
+                 f"12b: K4 launched {launches} times at depth {depth}, its plain version "
+                 f"{plain}", phase=12)
+        out[compression] = runs[2][1]
+        log(f"phase 12b ({compression}): {n_blocks} blocks: depth 2 {runs[2][1]:.3f} ms/block, "
+            f"depth 0 {runs[0][1]:.3f} ms/block [{card}]")
+        del runs
+        for name in os.listdir(where):
+            os.unlink(os.path.join(where, name))
+    gate(all(same_state(states[0], st) for st in states[1:]),
+         "12b: the dataset fits' states differ between depths or compressions", phase=12)
+    return out
+
+
+def overlap_us(a, b):
+    """Total time two lists of (start, end) intervals overlap."""
+    total = 0.0
+    for s0, e0 in a:
+        for s1, e1 in b:
+            total += max(0.0, min(e0, e1) - max(s0, s1))
+    return total
+
+
+def union_us(spans):
+    total, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def host_profile(torch, sgd, path, tmp, card):
+    """12c: a depth-2 fit of HOST_PROFILE blocks of the file under
+    ``torch.profiler``, after one warm block: the device's idle share, the
+    host-to-device copies a block, their streams against K4's and how long
+    they overlap K4, and the host thread of every runtime call (read from
+    the exported trace, whose ``tid`` is the system thread id).  Gates:
+    every kernel launch on the consumer thread, the staging worker's calls
+    copies, events and page-locked allocations only, every device kernel
+    K4's, the copies from page-locked memory."""
+    import json
+    import os
+    import threading
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dask_ml_tpu_torch import SGDClassifier, _partial, io
+    from dask_ml_tpu_torch.pipeline import staging
+
+    clf = SGDClassifier(random_state=0)
+    xb = host_block(0)
+    clf.partial_fit(xb, host_labels(xb), classes=[0, 1])
+    workers, launchers = set(), set()
+    put, update = staging.Stager.put, sgd.sgd_update
+
+    def traced_put(self, arrays):
+        workers.add(threading.get_native_id())
+        return put(self, arrays)
+
+    def traced_update(*args, **kwargs):
+        launchers.add(threading.get_native_id())
+        return update(*args, **kwargs)
+
+    traced_update.launches = 0
+    consumer = threading.get_native_id()
+    blocks = ((xb, host_labels(xb)) for xb in io.stream_binary_blocks(
+        path, HOST_ROWS, HOST_D, n_rows=(HOST_PROFILE + 1) * HOST_ROWS))
+    next(blocks)  # the warm block
+    torch.cuda.synchronize()
+    staging.Stager.put, sgd.sgd_update = traced_put, traced_update
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _partial.fit(clf, blocks, prefetch_depth=2)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+    finally:
+        staging.Stager.put, sgd.sgd_update = put, update
+    update.launches += traced_update.launches
+    trace = os.path.join(tmp, "phase12c_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    calls = {}  # system thread id -> {runtime call: count}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            calls.setdefault(e.get("tid"), {}).setdefault(e["name"], 0)
+            calls[e.get("tid")][e["name"]] += 1
+
+    def who(tid):
+        return "consumer" if tid == consumer else "worker" if tid in workers else \
+            "not the consumer"
+
+    for tid, by_name in sorted(calls.items(), key=lambda kv: str(kv[0])):
+        log(f"  host thread {tid} ({who(tid)}): " + ", ".join(
+            f"{c} {k}" for c, k in sorted(by_name.items(), key=lambda kv: -kv[1])))
+    launch = {tid for tid, by_name in calls.items() if any("Launch" in c for c in by_name)}
+    gate(launch == {consumer}, f"12c: kernel launches on threads "
+         f"{sorted((t, who(t)) for t in launch)}, the consumer is {consumer}", phase=12)
+    others = {c for tid in calls if tid != consumer for c in calls[tid]}
+    gate(others and all(("Memcpy" in c or "Event" in c or "Alloc" in c or "Malloc" in c or c in
+                         ("cudaStreamIsCapturing", "cudaPointerGetAttributes", "cudaGetDevice",
+                          "cudaSetDevice", "cudaStreamGetCaptureInfo")) for c in others),
+         f"12c: threads but the consumer made runtime calls {sorted(others)}", phase=12)
+    gate(launchers == {consumer}, f"12c: K4 called on threads {launchers}", phase=12)
+    n = HOST_PROFILE
+    copy_calls = sum(k for tid in calls if tid != consumer
+                     for c, k in calls[tid].items() if "Memcpy" in c)
+    launch_calls = sum(k for c, k in calls.get(consumer, {}).items() if "Launch" in c)
+    gate(copy_calls == 3 * n, f"12c: {copy_calls} copy calls off the consumer for {n} blocks",
+         phase=12)
+    dev = [(e.time_range.start, e.time_range.end, e.name,
+            getattr(e, "device_resource_id", None))
+           for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        log(f"phase 12c: profiled depth-2 fit {wall_us / 1e3:.3f} ms; device time: not "
+            f"measured (the profiler recorded no device event) [{card}]")
+        return None
+    h2d = [(s, e, sid) for s, e, name, sid in dev if "HtoD" in name]
+    kernels = [(s, e, name, sid) for s, e, name, sid in dev if "Memcpy" not in name
+               and "Memset" not in name]
+    k4 = [(s, e, sid) for s, e, name, sid in kernels
+          if kernel_name(name) in ("warp_kernel", "finalize_kernel", "row_kernel")]
+    gate(len(k4) == len(kernels), "12c: kernels other than K4's in the window: "
+         f"{sorted({kernel_name(k[2]) for k in kernels})}", phase=12)
+    pinned = sum("Pinned" in name for _, _, name, _ in dev if "HtoD" in name)
+    busy = union_us([(s, e) for s, e, _, _ in dev])
+    h2d_us = sum(e - s for s, e, _ in h2d)
+    ov = overlap_us([(s, e) for s, e, _ in h2d], [(s, e) for s, e, _ in k4])
+    dropped = "" if (len(h2d), len(k4)) == (copy_calls, launch_calls) else (
+        f" (the profiler recorded {len(h2d)} of {copy_calls} copies and {len(k4)} of "
+        f"{launch_calls} kernels: it dropped device events, so the device times are low and "
+        "the idle share high)")
+    log(f"phase 12c: profiled depth-2 fit of {n} blocks: {wall_us / 1e3:.3f} ms on the host "
+        f"clock ({wall_us / 1e3 / n:.3f} ms/block); device busy {busy / 1e3:.3f} ms, idle share "
+        f"{(wall_us - busy) / wall_us:.4f}; HtoD copies {len(h2d)} ({pinned} from page-locked "
+        f"memory), {h2d_us / 1e3 / max(len(h2d), 1) * copy_calls / n:.4f} ms a block, on "
+        f"streams {sorted({str(s) for _, _, s in h2d})}; K4 kernels {len(k4)}, "
+        f"{sum(e - s for s, e, _ in k4) / 1e3 / max(len(k4), 1) * launch_calls / n:.4f} ms a "
+        f"block (each the mean of the recorded ones times the calls a block), on streams "
+        f"{sorted({str(s) for _, _, s in k4})}; copies overlapping K4 for {ov / 1e3:.4f} ms"
+        f"{dropped} [{card}]")
+    gate(h2d and pinned == len(h2d),
+         f"12c: {pinned} of {len(h2d)} recorded HtoD copies from page-locked memory", phase=12)
+    return {"idle": (wall_us - busy) / wall_us, "dropped": bool(dropped)}
+
+
+def stage_parts(torch, xb, device):
+    """12d: the worker's stage of one block in parts (host clock, medians of
+    HOST_READS, the device synced between): the labels ``xb[:, 0] > 0.5``,
+    the ±1 encode, the bucket pad, the stager's put (with the copy into
+    page-locked memory, and from a source buffer) and the whole
+    ``_pf_stage``."""
+    import numpy as np
+
+    from dask_ml_tpu_torch import SGDClassifier
+    from dask_ml_tpu_torch.pipeline import staging
+    from dask_ml_tpu_torch.programs import pad_block
+
+    clf = SGDClassifier(random_state=0)
+    clf._set_classes([0, 1])
+    stager = staging.Stager(device, 4)
+    with staging.reading_for(stager):
+        src = staging.host_empty(xb.shape, np.float32)
+    src[...] = xb
+    times = {k: [] for k in ("labels", "encode", "pad", "put", "put_source", "pf_stage")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        times[name].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    for _ in range(HOST_READS):
+        labels = timed("labels", lambda: host_labels(xb))
+        targets = timed("encode", lambda: clf._encode_targets(labels))
+        _, _, mask = timed("pad", lambda: pad_block(xb, targets))
+        timed("put", lambda: stager.put((xb, targets, mask)))
+        timed("put_source", lambda: stager.put((src, targets, mask)))
+        timed("pf_stage", lambda: clf._pf_stage(xb, labels, stager=stager))
+    torch.cuda.synchronize()
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def host_yardstick(torch, sgd, path, device, card):
+    """12d: the stage's parts alone: a page-locked and a pageable 64 MiB
+    host-to-device copy (CUDA events, 20 copies); ``read_binary`` of a block
+    from the page cache into a fresh array, and into a buffer a stream lends
+    (reused pageable, and page-locked); the copy of a block into page-locked
+    memory (host clock, medians of HOST_READS); and K4 at (HOST_ROWS,
+    HOST_D), K=1 (10c's entry at this shape: held, timed, its bound).
+    Returns (the kernels entry, the floor max(parse, H2D, K4) in ms, with
+    the parse a read into page-locked memory as the depth-2 worker reads,
+    and the parts)."""
+    import numpy as np
+
+    from dask_ml_tpu_torch import io
+    from dask_ml_tpu_torch.pipeline import staging
+
+    n = HOST_ROWS * HOST_D
+    pinned = torch.empty(n, pin_memory=True)
+    pageable = torch.empty(n)
+    dst = torch.empty(n, device=device)
+    h2d = time_ms(torch, lambda: dst.copy_(pinned, non_blocking=True), 20)
+    h2d_pageable = time_ms(torch, lambda: dst.copy_(pageable), 20)
+    shape = (HOST_ROWS, HOST_D)
+    lenders = {"reused": staging.Stager("cpu", 2), "pinned": staging.Stager(device, 2)}
+    times = {"fresh": [], "reused": [], "pinned": [], "copy": [], "np_copy": []}
+    for i in range(HOST_READS):
+        off = 4 * n * (i + 3)
+        t0 = time.perf_counter()
+        xb = io.read_binary(path, shape, offset_bytes=off)
+        times["fresh"].append(1e3 * (time.perf_counter() - t0))
+        for name, lender in lenders.items():  # the buffers a stream lends its reads
+            with staging.reading_for(lender):
+                t0 = time.perf_counter()
+                io.read_binary(path, shape, offset_bytes=off)
+                times[name].append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        pinned.view(shape).copy_(torch.from_numpy(xb))
+        times["copy"].append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        pinned.view(shape).numpy()[...] = xb
+        times["np_copy"].append(1e3 * (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    med.update(stage_parts(torch, xb, device))
+    parse = med["pinned"]  # the depth-2 worker reads into the stream's page-locked buffers
+    case = sgd_inputs(torch, HOST_ROWS, HOST_D, 1, "log_loss", 12, device)
+    entry = sgd_table_entry(torch, sgd, case, sgd_hyper(torch, device), "sgd_update_host_block",
+                            "update", card)
+    floor = max(parse, h2d, entry["ms"])
+    log(f"phase 12d: a {4 * n / 2**20:.0f} MiB block: host-to-device {h2d:.4f} ms from "
+        f"page-locked memory ({4 * n / h2d / 1e6:.1f} GB/s), {h2d_pageable:.4f} ms pageable; "
+        f"read_binary from the page cache into a fresh array {med['fresh']:.3f} ms "
+        f"({4 * n / med['fresh'] / 1e6:.1f} GB/s), into a reused one {med['reused']:.3f} ms, "
+        f"into a page-locked buffer {med['pinned']:.3f} ms; the copy into page-locked memory "
+        f"{med['copy']:.3f} ms (PyTorch, {torch.get_num_threads()} threads), {med['np_copy']:.3f} "
+        f"ms (numpy); the worker's stage of a block: labels {med['labels']:.3f}, encode "
+        f"{med['encode']:.3f}, pad {med['pad']:.3f}, put {med['put']:.3f} (from a source buffer "
+        f"{med['put_source']:.3f}), all of _pf_stage {med['pf_stage']:.3f} ms; K4 "
+        f"{entry['ms']:.4f} ms; the stream's floor max(parse into page-locked memory, H2D, "
+        f"K4) {floor:.3f} ms/block; the worker's chain (parse, labels, _pf_stage from a source "
+        f"buffer) {parse + med['labels'] + med['pf_stage'] - med['put'] + med['put_source']:.3f} "
+        f"ms [{card}]")
+    return entry, floor, dict(med, parse=parse, h2d=h2d)
+
+
+def ipca_host_stream(torch, path, card):
+    """12e: ``IncrementalPCA(10, batch_size=HOST_ROWS)`` over an
+    IPCA_HOST_ROWS x HOST_D host array (the file's first rows) with the
+    prefetch knob at 0 and at 2; gate: equal ``components_``."""
+    import os
+
+    import numpy as np
+
+    from dask_ml_tpu_torch import IncrementalPCA
+    from dask_ml_tpu_torch.pipeline import DEPTH_ENV, pipeline_report
+
+    X = np.fromfile(path, dtype=np.float32, count=IPCA_HOST_ROWS * HOST_D).reshape(-1, HOST_D)
+    fits, old = {}, os.environ.get(DEPTH_ENV)
+    try:
+        for depth in ("0", "2", "2", "0"):
+            os.environ[DEPTH_ENV] = depth
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est = IncrementalPCA(n_components=10, batch_size=HOST_ROWS).fit(X)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            rep = pipeline_report()
+            fits.setdefault(depth, []).append((est, ms))
+            log(f"phase 12e: IncrementalPCA(10, batch_size={HOST_ROWS}) over "
+                f"{IPCA_HOST_ROWS}x{HOST_D} at depth {depth}: {ms:.1f} ms ({rep['blocks']} "
+                f"batches; a batch: parse {1e3 * rep['parse_s'] / rep['blocks']:.3f}, transfer "
+                f"{1e3 * rep['transfer_s'] / rep['blocks']:.3f}, stall "
+                f"{1e3 * rep['stall_s'] / rep['blocks']:.3f} ms; host buffers "
+                f"{rep['host_buffers']}, {rep['pinned_buffers']} page-locked) [{card}]")
+    finally:
+        if old is None:
+            os.environ.pop(DEPTH_ENV, None)
+        else:
+            os.environ[DEPTH_ENV] = old
+    ref = fits["0"][0][0]
+    for depth, runs in fits.items():
+        for est, _ in runs:
+            gate(bool(torch.equal(est.components_, ref.components_))
+                 and bool(torch.equal(est.singular_values_, ref.singular_values_)),
+                 f"12e: the depth-{depth} components_ differ from depth 0's", phase=12)
+    return min(ms for _, ms in fits["2"]), min(ms for _, ms in fits["0"])
+
+
+def host_stream_phase(torch, device, card):
+    """Phase 12 end to end; returns K4's entry at this phase's block."""
+    import tempfile
+
+    from dask_ml_tpu_torch.ops import sgd
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = host_files(tmp)
+        launches, ms2, ms0, rep = binary_stream(torch, sgd, path, card)
+        ds_ms = dataset_stream(torch, sgd, path, tmp, card)
+        profiled = host_profile(torch, sgd, path, tmp, card)
+        entry, floor, parts = host_yardstick(torch, sgd, path, device, card)
+        ipca2, ipca0 = ipca_host_stream(torch, path, card)
+    log(f"phase 12: binary stream {ms2:.3f} ms/block at depth 2 ({ms0:.3f} at depth 0), "
+        f"dataset stream {ds_ms['zlib']:.3f} ms/block at depth 2 ({ds_ms['none']:.3f} "
+        f"uncompressed), against the floor {floor:.3f} "
+        f"ms/block (parse {parts['parse']:.3f}, H2D {parts['h2d']:.4f}, K4 {entry['ms']:.4f}); "
+        f"idle share "
+        f"{'not measured' if profiled is None else format(profiled['idle'], '.4f')}"
+        f"{' (an upper bound: the profiler dropped events)' if profiled and profiled['dropped'] else ''}; "
+        f"IncrementalPCA {ipca2:.1f} ms at depth 2, {ipca0:.1f} ms at depth 0 [{card}]")
+    return [dict(entry, launches=launches)]
+
+
 def main() -> int:
     yardstick = None
     for flag in ("--k4-yardstick", "--k5-yardstick"):
@@ -3743,6 +4243,9 @@ def main() -> int:
 
     # 11. the search through K5: HyperbandSearchCV over SGD cohorts
     out += search_phase(torch, device, card)
+
+    # 12. the host-fed stream: files and datasets through the input pipeline to K4
+    out += host_stream_phase(torch, device, card)
 
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

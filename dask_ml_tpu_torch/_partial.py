@@ -2,10 +2,13 @@
 ``dask_ml_tpu/_partial.py`` (reference: ``dask_ml/_partial.py``).
 
 The model's state stays where it is (the device, for the port's
-estimators) and the data streams through it a block at a time.  This is
-the serial loop; the reference's prefetch pipeline, whose results are the
-same at every depth, is the second slice of [port-stream], as are sharded
-datasets.
+estimators) and the data streams through it a block at a time, through
+the input pipeline (:mod:`.pipeline`): block *k+1*'s slice or read and its
+staging run on a prefetch thread while block *k*'s step runs
+(``DASK_ML_TPU_TORCH_PREFETCH_DEPTH``; 0 is the serial loop).  The
+results are the same at every depth.  ``x`` may be an array, an iterator
+of blocks (``io.stream_csv_blocks``, ``io.stream_binary_blocks``, any
+generator of ``X`` or ``(X, y)``) or a sharded dataset (:mod:`.data`).
 """
 
 from __future__ import annotations
@@ -19,16 +22,6 @@ from .core.sharded import ShardedRows, unshard
 from .utils import check_chunks, check_random_state
 
 logger = logging.getLogger(__name__)
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: [port-stream], second slice)")
-
-
-def _check_depth(prefetch_depth):
-    if prefetch_depth not in (None, 0):
-        raise _not_ported("prefetch (prefetch_depth > 0)")
 
 
 def _row_chunks(n: int, chunk_size: int):
@@ -55,36 +48,38 @@ def _host_rows(a):
     return a if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-def _stream(model, blocks, kwargs):
-    for bx, by in blocks:
-        if by is None:
-            model.partial_fit(bx, **kwargs)
-        else:
-            model.partial_fit(bx, by, **kwargs)
-    return model
-
-
 def fit(model, x, y=None, *, chunk_size: int | None = None, shuffle_blocks=False,
         random_state=None, prefetch_depth: int | None = None, **kwargs):
-    """Stream row chunks of (x, y) through ``model.partial_fit`` in order.
+    """Stream row chunks of (x, y) through ``model.partial_fit`` in order,
+    through :func:`~.pipeline.stream_partial_fit` at ``prefetch_depth``
+    (default: the ``DASK_ML_TPU_TORCH_PREFETCH_DEPTH`` knob, else 2).
 
     ``shuffle_blocks`` permutes the chunks' visit order with a numpy
     ``RandomState`` (:func:`check_random_state`), as the reference does, so
     both packages visit the same blocks in the same order.  ``chunk_size``
     defaults to ``DEFAULT_STREAM_CHUNK`` (a bucket rung).  ``x`` may be an
-    iterator of blocks (each ``X`` or ``(X, y)``): then ``y`` must be None
-    and ``shuffle_blocks`` is ignored.  Returns ``model``.
+    iterator of blocks (each ``X`` or ``(X, y)``) or a sharded dataset
+    (targets ride its columns): then ``y`` must be None and
+    ``shuffle_blocks`` is ignored (a dataset owns its key-derived shuffle).
+    Returns ``model``.
     """
-    _check_depth(prefetch_depth)
+    from .pipeline import stream_partial_fit
+
     if hasattr(x, "iter_blocks"):
-        raise _not_ported("a sharded dataset source")
+        if y is not None:
+            raise ValueError("with a sharded dataset, y must ride the dataset's columns, "
+                             "not be passed separately")
+        if shuffle_blocks:
+            logger.debug("shuffle_blocks ignored for a dataset source")
+        return stream_partial_fit(model, x, depth=prefetch_depth, fit_kwargs=kwargs)
     if hasattr(x, "__next__"):
         if y is not None:
             raise ValueError("with an iterator of blocks, y must ride the stream as "
                              "(X, y) tuples, not be passed separately")
         if shuffle_blocks:
             logger.debug("shuffle_blocks ignored for an iterator source")
-        return _stream(model, _iter_block_pairs(x), kwargs)
+        return stream_partial_fit(model, _iter_block_pairs(x), depth=prefetch_depth,
+                                  fit_kwargs=kwargs)
 
     xv = _host_rows(x)
     if chunk_size is None:
@@ -103,7 +98,19 @@ def fit(model, x, y=None, *, chunk_size: int | None = None, shuffle_blocks=False
     if shuffle_blocks:
         check_random_state(random_state).shuffle(spans)
     blocks = ((xv[lo:hi], None if yv is None else yv[lo:hi]) for lo, hi in spans)
-    return _stream(model, blocks, kwargs)
+    return stream_partial_fit(model, blocks, depth=prefetch_depth, fit_kwargs=kwargs)
+
+
+def _x_only(stream):
+    """The feature blocks of a dataset stream (inference drops the targets);
+    closes the stream's readers on exit."""
+    try:
+        for blk in stream:
+            yield blk[0] if isinstance(blk, tuple) else blk
+    finally:
+        close = getattr(stream, "close", None)
+        if close is not None:
+            close()
 
 
 def _to_host(out):
@@ -128,24 +135,30 @@ def stage_predict_block(xb, policy):
 
 def predict(model, x, *, chunk_size: int = 100_000, prefetch_depth: int | None = None):
     """Chunked predict (reference ``_partial.predict``).  ``x`` may be an
-    iterator of blocks.  The port's estimators get the bucket policy on the
-    way in: ragged blocks are padded and their predictions sliced back."""
+    iterator of blocks or a sharded dataset (its X column).  Blocks are
+    pulled and bucket-padded on the prefetch thread (``prefetch_depth``);
+    the port's estimators get the pad, and their predictions are sliced
+    back."""
     from .base import TorchEstimator
+    from .pipeline import prefetch_blocks
     from .programs import resolve_policy
 
-    _check_depth(prefetch_depth)
     if hasattr(x, "iter_blocks"):
-        raise _not_ported("a sharded dataset source")
-    if hasattr(x, "__next__"):
+        blocks = _x_only(x.iter_blocks())
+    elif hasattr(x, "__next__"):
         blocks = x
     else:
         xv = _host_rows(x)
         blocks = (xv[lo:hi] for lo, hi in _row_chunks(xv.shape[0], chunk_size))
     policy = resolve_policy()
     bucketed = policy.kind != "off" and isinstance(model, TorchEstimator)
+
+    def _stage(xb):
+        return stage_predict_block(xb, policy) if bucketed else (xb, None)
+
     outs = []
-    for xb in blocks:
-        xb, n = stage_predict_block(xb, policy) if bucketed else (xb, None)
+    for xb, n in prefetch_blocks(blocks, depth=prefetch_depth, stage=_stage,
+                                 label="partial_predict"):
         p = _to_host(model.predict(xb))
         outs.append(p if n is None else p[:n])
     return np.concatenate(outs)

@@ -84,3 +84,22 @@ def use_device(device=None, n_shards=None):
         yield entry[0]
     finally:
         stack.pop()
+
+
+def current_scope() -> tuple:
+    """This thread's ``use_device`` scopes, innermost last, to hand to a
+    thread that works for it (:func:`adopt_scope`)."""
+    return tuple(_stack())
+
+
+@contextlib.contextmanager
+def adopt_scope(scope):
+    """Run a ``with`` block under scopes taken by :func:`current_scope` on
+    another thread."""
+    stack = _stack()
+    depth = len(stack)
+    stack.extend(scope)
+    try:
+        yield
+    finally:
+        del stack[depth:]

@@ -3,14 +3,15 @@
 
 The model state (components, singular values, running mean and variance,
 the running sample count) stays on the device; each batch is one
-rank-update (:func:`_update_fn`) with no host read.  The reference's
-prefetch pipeline (``stream_partial_fit``) is a plain loop over the
-batches here until ``pipeline/`` is ported (ROADMAP [port-stream]), and
-``fit_checkpoint`` raises until [port-planes].
+rank-update (:func:`_update_fn`) with no host read.  ``fit`` streams a
+host X's batches through the input pipeline (``stream_partial_fit``):
+batch *i+1*'s slice and staging overlap batch *i*'s update; a device X is
+sliced where it lies.  ``fit_checkpoint`` raises until [port-planes].
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..base import ComponentsOutMixin, TorchEstimator, TransformerMixin
@@ -18,6 +19,7 @@ from ..core.mesh import get_device
 from ..core.sharded import ShardedRows, host_to_device
 from ..linalg.tsqr import blocked_gram, host_read
 from ..metrics.pairwise import fp32_matmul
+from ..pipeline.staging import Staged, ready
 from ..preprocessing.data import _like_input, _masked_or_plain
 from ..utils import check_array, svd_flip
 from .pca import model_covariance, model_precision
@@ -100,6 +102,10 @@ class IncrementalPCA(ComponentsOutMixin, TransformerMixin, TorchEstimator):
         device = value.device if isinstance(value, torch.Tensor) else get_device()
         self._n_seen_ = torch.as_tensor(value, dtype=torch.int64, device=device).clone()
 
+    def _device(self):
+        comps = getattr(self, "components_", None)
+        return comps.device if comps is not None else get_device()
+
     @staticmethod
     def _batch(X, check_input):
         if check_input:
@@ -112,9 +118,33 @@ class IncrementalPCA(ComponentsOutMixin, TransformerMixin, TorchEstimator):
             x = host_to_device(X)
         return x if x.is_floating_point() else x.to(torch.float32)
 
+    def _pf_stage(self, X, y=None, check_input=True, stager=None, **kwargs):
+        """Validate and cast ONE host batch and put it on the device: staged
+        by ``stager`` on the prefetch worker, or uploaded here.  None for a
+        device-resident batch (a ``ShardedRows`` or a tensor), which
+        ``partial_fit`` takes where it lies."""
+        if kwargs or isinstance(X, (ShardedRows, torch.Tensor)):
+            return None
+        if check_input:
+            X = check_array(X)
+        xh = np.asarray(X)
+        if xh.dtype == np.float64 or not np.issubdtype(xh.dtype, np.floating):
+            xh = xh.astype(np.float32)  # cast on the host, as host_to_device does
+        return stager.put((xh,)) if stager is not None else host_to_device(xh)
+
     def partial_fit(self, X, y=None, check_input=True):
-        """One rank-update on the batch ``X``."""
-        x = self._batch(X, check_input)
+        """One rank-update on the batch ``X``: :meth:`_pf_stage` (or the
+        device batch as it is), then :meth:`_pf_consume`."""
+        x = self._pf_stage(X, check_input=check_input)
+        if x is None:
+            x = self._batch(X, check_input)
+        return self._pf_consume(x)
+
+    def _pf_consume(self, x):
+        """One rank-update on a batch on the device, or staged on it (the
+        consumer thread)."""
+        if isinstance(x, Staged):
+            (x,) = ready(x)
         d = x.shape[1]
         k = self.n_components or min(x.shape[0], d)
         if not hasattr(self, "components_"):
@@ -144,22 +174,33 @@ class IncrementalPCA(ComponentsOutMixin, TransformerMixin, TorchEstimator):
     def fit(self, X, y=None):
         """Stream X through ``partial_fit`` in row spans of ``batch_size``
         (default 5·d); a last span shorter than the rank is dropped, as
-        scikit-learn's ``gen_batches`` walk does."""
+        scikit-learn's ``gen_batches`` walk does.  A host X goes through
+        ``stream_partial_fit`` at the ``DASK_ML_TPU_TORCH_PREFETCH_DEPTH``
+        knob's depth (else 2), the same result at every depth; a device X is
+        sliced where it lies."""
+        from ..pipeline import stream_partial_fit
+
         if self.fit_checkpoint is not None:
             raise NotImplementedError(
                 "IncrementalPCA(fit_checkpoint=...) is not ported yet "
                 "(ROADMAP: [port-planes])")
         if hasattr(self, "components_"):
             del self.components_  # refit from scratch
-        x = self._batch(X, check_input=True)
+        if isinstance(X, (ShardedRows, torch.Tensor)):
+            x = self._batch(X, check_input=True)
+        else:
+            x = np.asarray(check_array(X))
         n, d = x.shape
         batch = self.batch_size or 5 * d
         k = self.n_components or min(batch, n, d)
+        spans = []
         for start in range(0, n, batch):
             stop = min(start + batch, n)
             if stop - start < k:
                 break
-            self.partial_fit(x[start:stop], check_input=False)
+            spans.append((start, stop))
+        stream_partial_fit(self, ((x[a:b], None) for a, b in spans),
+                           fit_kwargs={"check_input": False}, label="incremental_pca_fit")
         return self
 
     def transform(self, X):

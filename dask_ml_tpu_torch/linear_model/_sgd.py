@@ -16,10 +16,12 @@ same padded shapes.
 
 By design the held-out split of ``early_stopping`` is drawn from a
 ``torch.Generator`` (:func:`_validation_split`), where the reference draws
-from ``jax.random``.  Not ported yet, and raising ``NotImplementedError``:
-``fit_checkpoint`` ([port-planes]), a bfloat16 X (bf16 K4), and the staged
-prefetch protocol (``_pf_stage``, compile-ahead), which is the second slice
-of [port-stream].
+from ``jax.random``.  The staged protocol of the input pipeline
+(:func:`~..pipeline.stream_partial_fit`): ``_pf_stage`` encodes, pads and
+stages a host block on the prefetch worker, ``_pf_consume`` runs its K4
+step on the consumer, and ``partial_fit`` is the two in turn.  Not ported
+yet, and raising ``NotImplementedError``: ``fit_checkpoint``
+([port-planes]) and a bfloat16 X (bf16 K4).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..core.mesh import get_device, get_n_shards
 from ..core.prng import as_generator
 from ..core.sharded import ShardedRows, as_sharded, unshard
 from ..ops import sgd as k4
+from ..pipeline.staging import ready
 from ..programs import DEFAULT_BUCKETS, pad_block
 from ..utils import check_max_iter, safe_denominator
 
@@ -288,10 +291,14 @@ class _BaseSGD(TorchEstimator):
             return xd, torch.from_numpy(t).to(xd.device), X.mask
         return self._prep_block_host(X, targets)
 
-    def _prep_block_host(self, X, targets):
-        """Bucket-pad a host block and upload it to the estimator's device."""
+    def _prep_block_host(self, X, targets, stager=None):
+        """Bucket-pad a host block and put it on the device: uploaded here, or
+        staged by ``stager`` (:class:`~..pipeline.staging.Stager`, on the
+        prefetch worker).  Host work and copies only: no kernel."""
         X, targets, mask = pad_block(np.asarray(X, dtype=np.float32),
                                      np.asarray(targets, dtype=np.float32))
+        if stager is not None:
+            return stager.put((X, targets, mask))
         device = self._device()
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                      for a in (X, targets, mask))
@@ -304,13 +311,33 @@ class _BaseSGD(TorchEstimator):
         return loss
 
     def _pf_consume(self, staged):
-        """The device step on a prepared block ``(xb, yb, mask)``: the shared
-        tail of ``partial_fit``.  ``_loss_`` is the block's mean loss, a 0-d
-        device tensor."""
-        xb, yb, mask = staged
+        """The device step on a prepared block ``(xb, yb, mask)``, or on one
+        :meth:`_pf_stage` staged: the shared tail of ``partial_fit``, on the
+        consumer thread.  ``_loss_`` is the block's mean loss, a 0-d device
+        tensor."""
+        xb, yb, mask = ready(staged)
         self._ensure_state(xb.shape[1], xb.device)
         self._loss_ = self._step_block(xb, yb, mask)
         return self
+
+    def _pf_stage_ok(self, X, y, sample_weight, kwargs) -> bool:
+        """Whether a block may be staged on the worker: host blocks only (a
+        ``ShardedRows`` or a tensor steps where it lies, on the consumer), and
+        no weights or other keywords (those keep the serial path)."""
+        return not (kwargs or sample_weight is not None or y is None
+                    or isinstance(X, (ShardedRows, torch.Tensor))
+                    or isinstance(y, (ShardedRows, torch.Tensor)))
+
+    def _warm_step(self, xshape, k) -> bool:
+        """The reference builds the step's program ahead for a new block
+        shape here.  K4 is built once, at its first use, for every shape, so
+        there is nothing to build: returns False."""
+        return False
+
+    def _pf_warm(self, shape, classes=None) -> bool:
+        """Shape-based twin of :meth:`_warm_step` for a search unit's next
+        block; nothing to build either: returns False."""
+        return False
 
     @staticmethod
     def _n_real(X) -> int:
@@ -436,6 +463,24 @@ class SGDClassifier(ClassifierMixin, _BaseSGD):
             classes = np.arange(len(self.classes_))
         return effective_mask(mask, idx, sample_weight=sample_weight, class_weight=cwd,
                               classes=classes, n_samples=n_real)
+
+    def _pf_stage(self, X, y, classes=None, sample_weight=None, stager=None, **kwargs):
+        """Encode (±1 one-vs-all), bucket-pad and stage ONE host block on the
+        prefetch worker; the staged ``(xb, yb, mask)`` for :meth:`_pf_consume`,
+        or None to decline the block (device-resident input, weights), which
+        then takes serial ``partial_fit``.  ``classes_``: the first writer
+        wins, and every writer (this, or a declined block's ``partial_fit``)
+        sets it from the same ``classes`` keyword, so all write one value."""
+        if not self._pf_stage_ok(X, y, sample_weight, kwargs):
+            return None
+        if getattr(self, "class_weight", None) is not None:
+            return None  # the weighted mask is a device computation: serial path
+        self._validate()
+        if not hasattr(self, "classes_"):
+            if classes is None:
+                raise ValueError("classes must be passed on the first partial_fit call")
+            self._set_classes(classes)
+        return self._prep_block_host(X, self._encode_targets(np.asarray(y)), stager)
 
     def partial_fit(self, X, y, classes=None, sample_weight=None, **kwargs):
         self._validate()
@@ -573,6 +618,11 @@ class SGDRegressor(RegressorMixin, _BaseSGD):
             if isinstance(X, ShardedRows):
                 return y.data.to(torch.float32).reshape(-1, 1)
             y = unshard(y)
+        return self._targets_host(y)
+
+    @staticmethod
+    def _targets_host(y):
+        """Host targets as a float32 column: the staged protocol's entry."""
         return np.asarray(y, dtype=np.float32).reshape(-1, 1)
 
     def _ensure_state(self, n_features: int, device=None):
@@ -586,6 +636,14 @@ class SGDRegressor(RegressorMixin, _BaseSGD):
         from ..utils import effective_mask
 
         return effective_mask(mask, sample_weight=sample_weight, n_samples=self._n_real(X))
+
+    def _pf_stage(self, X, y, sample_weight=None, stager=None, **kwargs):
+        """The regressor's twin of :meth:`SGDClassifier._pf_stage`: a float32
+        target column, bucket pad and staging, or None to decline."""
+        if not self._pf_stage_ok(X, y, sample_weight, kwargs):
+            return None
+        self._validate()
+        return self._prep_block_host(X, self._targets_host(y), stager)
 
     def partial_fit(self, X, y, sample_weight=None, **kwargs):
         self._validate()

@@ -16,10 +16,13 @@ scored by one packed product.
 
 The port runs the reference's serialized round loop (its loop under
 ``DASK_ML_TPU_SEARCH_CONCURRENCY=off``): a round's cohorts in the order of
-their keys, then its single models by id, one after another, each model's
-calls one ``partial_fit`` at a time.  Not ported yet: ``checkpoint=``
-([port-planes]), the concurrent orchestrator, the prefetched staged
-streams, the fault-retry budget and the trace spans.
+their keys, then its single models by id, one after another.  A single
+model's burst of more than one call streams its blocks through the input
+pipeline (``stream_partial_fit`` at the ``DASK_ML_TPU_TORCH_PREFETCH_DEPTH``
+knob's depth) when the model has the staged protocol, else one
+``partial_fit`` a call.  Not ported yet: ``checkpoint=`` ([port-planes]),
+the concurrent orchestrator, the cohorts' staged protocol, the fault-retry
+budget and the trace spans.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 from ..base import TorchEstimator, clone
 from ..core.sharded import ShardedRows, unshard
 from ..metrics.scorer import check_scoring
+from ..pipeline import resolve_depth, stream_partial_fit
 from ..utils import check_random_state
 from ._sampling import ParameterGrid, ParameterSampler
 from ._split import train_test_split
@@ -199,11 +203,33 @@ class BaseIncrementalSearchCV(TorchEstimator):
                 return host_block_cache[block_idx]
             return Xb, yb
 
+        prefetch_depth = resolve_depth(None)
+
+        def _warm_unit(model, calls0):
+            """The reference builds a unit's step program ahead from its next
+            block's shape; the port's ``_pf_warm`` has nothing to build."""
+            warm = getattr(model, "_pf_warm", None)
+            Xw = blocks[calls0 % n_blocks][0]
+            if warm is not None and not isinstance(Xw, ShardedRows) and hasattr(Xw, "shape"):
+                warm(Xw.shape, classes=(fit_params or {}).get("classes"))
+
         def train_one(ident, n_calls):
             model, meta = models[ident]
-            for _ in range(n_calls):
-                Xb, yb = block_for(model, meta["partial_fit_calls"] % n_blocks)
-                model, meta = _partial_fit((model, meta), Xb, yb, fit_params)
+            calls0 = meta["partial_fit_calls"]
+            _warm_unit(model, calls0)
+            if n_calls > 1 and prefetch_depth > 0 and hasattr(model, "_pf_stage"):
+                t0 = time.time()
+                stream_partial_fit(
+                    model, (block_for(model, (calls0 + j) % n_blocks) for j in range(n_calls)),
+                    depth=prefetch_depth, fit_kwargs=fit_params, label="search_ingest")
+                meta = dict(meta)
+                meta["partial_fit_calls"] += n_calls
+                # one call's time, as the serial path records
+                meta["partial_fit_time"] = (time.time() - t0) / n_calls
+            else:
+                for _ in range(n_calls):
+                    Xb, yb = block_for(model, meta["partial_fit_calls"] % n_blocks)
+                    model, meta = _partial_fit((model, meta), Xb, yb, fit_params)
             meta = _score((model, meta), X_test, y_test, scorer)
             meta["elapsed_wall_time"] = time.time() - start_time
             models[ident] = (model, meta)

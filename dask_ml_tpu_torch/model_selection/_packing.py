@@ -13,9 +13,8 @@ launches against the model-steps they covered, as the reference counts its
 dispatches.
 
 The port runs on one device: there is no model axis to shard the stack
-over.  Not ported yet: the staged streaming protocol (``_pf_stage``,
-``_pf_consume``) and compile-ahead (``warm``), which come with the second
-slice of [port-stream].
+over.  Not ported yet: the staged streaming protocol (``_pf_stage`` raises,
+``_pf_consume``) and compile-ahead (``warm``), ROADMAP [port-search] item 3.
 """
 
 from __future__ import annotations
@@ -132,6 +131,12 @@ class Cohort:
         DISPATCH_STATS["dispatches"] += 1
         DISPATCH_STATS["models_stepped"] += len(self.models)
         return self
+
+    def _pf_stage(self, X, y, classes=None, sample_weight=None, stager=None, **kwargs):
+        """The reference stages a cohort's block on the prefetch worker; not
+        ported yet: a cohort takes its blocks through :meth:`step`."""
+        raise NotImplementedError("the cohort's staged protocol (Cohort._pf_stage) is not "
+                                  "ported yet (ROADMAP: [port-search] item 3)")
 
     def step(self, X, y):
         """Advance every model of the cohort by one block: one launch."""

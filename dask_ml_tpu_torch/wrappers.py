@@ -5,8 +5,9 @@
 data in row chunks; with one of the port's estimators and a
 ``ShardedRows`` input, inference is one call on the device.
 ``Incremental`` streams row blocks through ``partial_fit``
-(``_partial.fit``).  A string ``scoring`` and sharded datasets are not
-ported yet and raise ``NotImplementedError``.
+(``_partial.fit``, through the input pipeline at ``prefetch_depth``) from
+an array, an iterator of blocks or a sharded dataset.  A string
+``scoring`` is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -81,8 +82,9 @@ class ParallelPostFit(TorchEstimator):
     def predict_blocks(self, X, method="predict", chunk_size=100_000):
         """Yield each chunk's inference result (host arrays; sparse outputs
         stay sparse) instead of concatenating them.  ``X`` may be an array,
-        a tensor, a ``ShardedRows``, a scipy sparse matrix or an iterable of
-        row blocks."""
+        a tensor, a ``ShardedRows``, a scipy sparse matrix, a sharded dataset
+        (its readers feed inference; the targets are dropped) or an iterable
+        of row blocks."""
         import scipy.sparse
 
         est = self._postfit_estimator
@@ -93,7 +95,9 @@ class ParallelPostFit(TorchEstimator):
             return out if scipy.sparse.issparse(out) else _partial._to_host(out)
 
         if hasattr(X, "iter_blocks"):
-            raise _partial._not_ported("a sharded dataset source")
+            for xb in _partial._x_only(X.iter_blocks()):
+                yield _as_block(fn(xb))
+            return
         if native:
             X = as_sharded(X)
         if isinstance(X, ShardedRows):
@@ -144,8 +148,10 @@ class Incremental(ParallelPostFit):
     """Fit by sequential ``partial_fit`` over row chunks (reference:
     ``wrappers.py :: Incremental``: ``shuffle_blocks``, ``random_state``,
     ``assume_equal_chunks``).  ``chunk_size=None`` resolves at use to
-    ``DEFAULT_STREAM_CHUNK``; ``prefetch_depth`` other than None or 0 is the
-    second slice of [port-stream] and raises."""
+    ``DEFAULT_STREAM_CHUNK``, and ``prefetch_depth=None`` to the
+    ``DASK_ML_TPU_TORCH_PREFETCH_DEPTH`` knob (else 2): the next block's
+    read and staging overlap the current block's step, with the same result
+    at every depth."""
 
     def __init__(self, estimator=None, scoring=None, shuffle_blocks=True, random_state=None,
                  assume_equal_chunks=True, predict_meta=None, predict_proba_meta=None,

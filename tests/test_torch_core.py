@@ -130,7 +130,10 @@ def test_port_and_chip_smoke_import_none_of_jax_reference_or_sklearn_ast():
                    "solvers/lbfgs_core.py", "solvers/algorithms.py", "linear_model/glm.py",
                    "linear_model/utils.py", "convert.py", "ops/multiclass.py", "entry.py",
                    "linalg/tsqr.py", "linalg/randomized.py", "decomposition/pca.py",
-                   "decomposition/truncated_svd.py", "decomposition/incremental_pca.py"):
+                   "decomposition/truncated_svd.py", "decomposition/incremental_pca.py",
+                   "io.py", "data/__init__.py", "data/format.py", "data/manifest.py",
+                   "data/shuffle.py", "data/readers.py", "pipeline/__init__.py",
+                   "pipeline/core.py", "pipeline/staging.py", "pipeline/stats.py"):
         assert f"dask_ml_tpu_torch/{module}" in scanned, module
     found = []
     for path in files:
@@ -174,6 +177,16 @@ def test_port_imports_none_of_jax_reference_or_sklearn_at_run_time():
         "                         {'alpha': np.logspace(-5, 0, 20)}, max_iter=9,\n"
         "                         random_state=0, chunk_size=100).fit(Xs, ys, classes=[0, 1])\n"
         "assert hb.metadata_ == hb.metadata and hb.best_score_ > 0.7\n"
+        "import tempfile\n"
+        "from dask_ml_tpu_torch import data, io\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    Xs.tofile(tmp + '/x.f32')\n"
+        "    blocks = ((xb, xb[:, 0] > 0) for xb in io.stream_binary_blocks(tmp + '/x.f32', 256, 4))\n"
+        "    assert p.Incremental(p.SGDClassifier()).fit(blocks, classes=[0, 1]).estimator_.t_ == 3\n"
+        "    data.write_dataset(tmp + '/ds', Xs, ys, shards=2, block_rows=256)\n"
+        "    inc = p.Incremental(p.SGDClassifier()).fit(data.ShardedDataset(tmp + '/ds'),\n"
+        "                                               classes=[0, 1])\n"
+        "    assert inc.estimator_.t_ == 3\n"
         "from dask_ml_tpu_torch.entry import entry\n"
         "fn, args = entry()\n"
         "assert fn(*args).shape == (256,)\n"

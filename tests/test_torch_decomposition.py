@@ -24,7 +24,8 @@ Tolerances, each array to rtol 1e-5 with an atol of 1e-5 of its largest
   scipy-sparse input equal to the dense one to 1e-6; ``fit_streamed``
   against the reference's to rtol 1e-6 (both are float64 host numpy).
 - ``IncrementalPCA``: three ``partial_fit`` batches, then ``fit`` with a
-  dropped tail; a model carried over by ``incremental_pca_from_reference``
+  dropped tail, and ``fit`` through the input pipeline at depth 2 (bitwise
+  equal to depth 0, then held to the reference at the rtol below); a model carried over by ``incremental_pca_from_reference``
   after two batches against the reference after a third; all to the
   rtol above, ``n_samples_seen_`` equal.  Over a chain of 33 updates the
   two packages' float32 roundings part by more (1.3e-5 of the largest
@@ -272,6 +273,30 @@ def test_incremental_pca_fit_drops_a_short_tail(n, d, batch, k, seen):
     port = IncrementalPCA(n_components=k, batch_size=batch).fit(X)
     assert port.n_samples_seen_ == ref.n_samples_seen_ == seen
     _hold_ipca(port, ref, X)
+
+
+@pytest.mark.parametrize("source", ["array", "device"])
+def test_incremental_pca_fit_is_the_same_at_every_depth(monkeypatch, source):
+    """``fit`` through ``stream_partial_fit``: a host X's batches staged on the
+    prefetch worker at depth 2 give the bits of depth 0, and both hold the
+    reference's fit to the file's tolerance; a device X (a tensor) is sliced
+    where it lies at either depth."""
+    from dask_ml_tpu_torch.pipeline import DEPTH_ENV, pipeline_report
+
+    X = _data(12, n=1500, d=12, offset=20.0)
+    ref = ref_dd.IncrementalPCA(n_components=4, batch_size=256).fit(X)
+    fits = []
+    for depth in ("0", "2"):
+        monkeypatch.setenv(DEPTH_ENV, depth)
+        Xs = X if source == "array" else torch.from_numpy(X)
+        fits.append(IncrementalPCA(n_components=4, batch_size=256).fit(Xs))
+        report = pipeline_report()
+        assert report["label"] == "incremental_pca_fit" and report["blocks"] == 6
+        assert report["staged"] == (depth == "2")
+    for name in IPCA_ATTRS + ("_mean_sh_", "_anchor_", "_n_seen_"):
+        np.testing.assert_array_equal(_np(getattr(fits[0], name)), _np(getattr(fits[1], name)))
+    assert fits[1].n_samples_seen_ == ref.n_samples_seen_ == 1500
+    _hold_ipca(fits[1], ref, X)
 
 
 def test_incremental_pca_long_update_chain_tracks_float64():

@@ -143,6 +143,33 @@ def test_incremental_search_with_patience_matches_reference():
     _hold(port, ref)
 
 
+def test_single_model_bursts_stream_through_the_pipeline(monkeypatch):
+    """Models of distinct pack keys train alone; with ``fits_per_score=3``
+    each burst of calls goes through ``stream_partial_fit`` (depth 2, the
+    knob's default), with the bits of the serial loop (depth 0) and the
+    reference's records."""
+    from dask_ml_tpu_torch.pipeline import DEPTH_ENV, pipeline_report, reset_pipeline_stats
+
+    X, y = _data(3)
+    params = {"loss": ["hinge", "log_loss", "modified_huber"],
+              "learning_rate": ["constant", "optimal"], "eta0": [0.05]}
+    kw = dict(n_initial_parameters=6, max_iter=9, fits_per_score=3, random_state=1,
+              chunk_size=250, test_size=0.2)
+    ref = ref_ms.IncrementalSearchCV(RefSGDClassifier(tol=None, random_state=0), params, **kw)
+    ref.fit(X, y, classes=[0, 1])
+    fits = []
+    for depth in ("0", "2"):
+        monkeypatch.setenv(DEPTH_ENV, depth)
+        reset_pipeline_stats()
+        fits.append(ms.IncrementalSearchCV(SGDClassifier(tol=None, random_state=0), params,
+                                           **kw).fit(X, y, classes=[0, 1]))
+        streams = pipeline_report().get("cumulative", {}).get("streams", 0)
+        assert (streams > 0) == (depth == "2")
+    _hold(fits[1], ref)
+    assert fits[0].cv_results_["test_score"] == fits[1].cv_results_["test_score"]
+    np.testing.assert_array_equal(fits[0].best_estimator_.coef_, fits[1].best_estimator_.coef_)
+
+
 def test_inverse_decay_search_matches_reference():
     X, y = _data(4)
     kw = dict(n_initial_parameters=8, max_iter=5, decay_rate=1.0, random_state=5,

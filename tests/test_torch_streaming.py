@@ -13,6 +13,8 @@ is held by its shapes, masks, determinism and label balance, not against
 the reference's ``jax.random`` bits.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -195,17 +197,105 @@ def test_parallel_post_fit_takes_a_prefitted_estimator_and_rejects_an_unfitted_o
     np.testing.assert_array_equal(ParallelPostFit(est).predict(X), est.predict(X))
 
 
-def test_second_slice_paths_raise():
+def _unported_retry_budget(tmp_path):
+    from dask_ml_tpu_torch import io
+
+    path = tmp_path / "x.f32"
+    np.zeros((4, 2), np.float32).tofile(path)
+    io.stream_binary_blocks(str(path), 2, 2, retry_budget=object())
+
+
+def _unported_cohort_staging(tmp_path):
+    from dask_ml_tpu_torch.model_selection._packing import Cohort
+
     X, y = _data(6)
-    with pytest.raises(NotImplementedError, match="second slice"):
-        Incremental(SGDClassifier(), prefetch_depth=2).fit(X, y, classes=[0, 1])
+    Cohort([SGDClassifier(alpha=a) for a in (1e-4, 1e-3)], classes=[0, 1])._pf_stage(X, y)
 
-    class _Dataset:
-        def iter_blocks(self):
-            return iter(())
 
-    with pytest.raises(NotImplementedError, match="second slice"):
-        _partial.fit(SGDClassifier(), _Dataset())
+def _unported_fit_checkpoint(tmp_path):
+    X, y = _data(6)
+    SGDClassifier(fit_checkpoint=object()).fit(X, y)
+
+
+@pytest.mark.parametrize("case, item", [(_unported_retry_budget, "[port-planes]"),
+                                        (_unported_cohort_staging, "[port-search] item 3"),
+                                        (_unported_fit_checkpoint, "[port-planes]")])
+def test_the_remaining_unported_options_raise_naming_their_item(tmp_path, case, item):
+    with pytest.raises(NotImplementedError, match=re.escape(item)):
+        case(tmp_path)
+
+
+@pytest.mark.parametrize("est", ["classifier", "regressor"])
+def test_incremental_with_prefetch_matches_the_reference(est):
+    """``prefetch_depth=2``: the port's staged stream against the reference's
+    (the reference at its own depth 2)."""
+    X, y = _data(9)
+    if est == "classifier":
+        make_port, make_ref, fit_kw = SGDClassifier, RefSGDClassifier, {"classes": [0, 1]}
+    else:
+        y = (X @ np.arange(5.0) - 0.5).astype(np.float32)
+        make_port, make_ref, fit_kw = SGDRegressor, RefSGDRegressor, {}
+    kw = dict(chunk_size=300, random_state=4, prefetch_depth=2)
+    port = Incremental(make_port(random_state=0), **kw).fit(X, y, **fit_kw)
+    ref = RefIncremental(make_ref(random_state=0), **kw).fit(X, y, **fit_kw)
+    _hold(port.estimator_, ref.estimator_)
+    serial = Incremental(make_port(random_state=0), **dict(kw, prefetch_depth=0)).fit(
+        X, y, **fit_kw)
+    np.testing.assert_array_equal(port.estimator_.coef_, serial.estimator_.coef_)
+    assert port.estimator_.t_ == serial.estimator_.t_ == 7
+
+
+def test_a_binary_file_streams_like_the_reference(tmp_path):
+    from dask_ml_tpu import io as ref_io
+    from dask_ml_tpu_torch import io
+
+    X, _ = _data(10, n=2300, d=6)
+    path = tmp_path / "x.f32"
+    X.tofile(path)
+
+    def blocks(mod):
+        return ((xb, (xb[:, 0] > 0.1).astype(np.int64))
+                for xb in mod.stream_binary_blocks(str(path), 512, 6))
+
+    port = _partial.fit(SGDClassifier(random_state=0), blocks(io), prefetch_depth=2,
+                        classes=[0, 1])
+    ref = ref_partial.fit(RefSGDClassifier(random_state=0), blocks(ref_io), prefetch_depth=2,
+                          classes=[0, 1])
+    _hold(port, ref)
+    assert port.t_ == 5
+
+
+def test_a_sharded_dataset_feeds_fit_and_predict_blocks_like_the_reference(tmp_path):
+    from dask_ml_tpu import data as ref_data
+    from dask_ml_tpu_torch import data
+
+    X, y = _data(11, n=3000)
+    data.write_dataset(str(tmp_path / "ds"), X, y, shards=3, block_rows=256)
+    kw = dict(key=5, epochs=2)
+    port = _partial.fit(SGDClassifier(random_state=0),
+                        data.ShardedDataset(str(tmp_path / "ds"), readers=4, **kw),
+                        classes=[0, 1])
+    ref = ref_partial.fit(RefSGDClassifier(random_state=0),
+                          ref_data.ShardedDataset(str(tmp_path / "ds"), readers=2, **kw),
+                          classes=[0, 1])
+    _hold(port, ref)
+    assert port.t_ == 2 * 12  # 12 blocks an epoch
+    inc = Incremental(SGDClassifier(random_state=0)).fit(
+        data.ShardedDataset(str(tmp_path / "ds"), readers=2, **kw), classes=[0, 1])
+    np.testing.assert_array_equal(inc.estimator_.coef_, port.coef_)
+    with pytest.raises(ValueError, match="ride the dataset"):
+        _partial.fit(SGDClassifier(), data.ShardedDataset(str(tmp_path / "ds")), y)
+    ppf = ParallelPostFit(port)
+    ref_ppf = RefParallelPostFit(ref)
+    got = list(ppf.predict_blocks(data.ShardedDataset(str(tmp_path / "ds"), shuffle=False)))
+    want = list(ref_ppf.predict_blocks(ref_data.ShardedDataset(str(tmp_path / "ds"),
+                                                               shuffle=False)))
+    assert [len(g) for g in got] == [len(w) for w in want] and sum(map(len, got)) == 3000
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(
+        _partial.predict(port, data.ShardedDataset(str(tmp_path / "ds"), shuffle=False)),
+        np.concatenate(got))
 
 
 def test_stream_classification_blocks_shapes_masks_and_determinism():
