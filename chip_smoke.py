@@ -216,8 +216,34 @@ Phases, in order; any failure exits non-zero:
    of a block; K4 at 2^18 x 64 held and timed beside its bound) and the
    stream's floor max(parse, H2D, K4).  12e:
    ``IncrementalPCA(10, batch_size=2**18)`` over a 2^22 x 64 host array with
-   the prefetch knob at 0 and 2 (gate: equal ``components_``).  Then the
-   ``kernels`` line, the card line and the result.
+   the prefetch knob at 0 and 2 (gate: equal ``components_``).
+13. The grid searches (``model_selection/_search.py``) and the packed C-sweep
+   (``solvers.lambda_sweep``) through K2-OvR over one shared target and its
+   Normal family.  13a: phase 6's HIGGS stand-in (11M x 28 on the card, 8
+   shards), ``GridSearchCV(LogisticRegression(max_iter=10,
+   solver_kwargs={"inner_iter": 30}), {"C": logspace(-3, 4, 8)}, cv=3)``
+   packed (``auto`` on CUDA), refit on: the wall time (host clock after a
+   sync; the refit timed again alone), solves, launches by variant, host
+   syncs, peak memory and ``SWEEP_STATS``; gates: 3 packed folds and none
+   ineligible, no plain version, ``best_score_`` >= 0.98 of the true w's
+   held-out accuracy, the best coef's cosine to w >= 0.99; one more fit
+   under ``torch.profiler`` (idle share, device time by kernel).  13b: the
+   same grid under ``DASK_ML_TPU_TORCH_GRID_PACK=sequential`` (24 fits and
+   a refit), every ``mean_test_score`` within 1e-4 of 13a's, both wall
+   times and their ratio.  13c: ``GridSearchCV(LinearRegression(), {"C":
+   logspace(0, 6, 5)}, cv=3)`` on phase 8's Normal stand-in, packed and
+   sequential, R² within 1e-5.  13d: K2-OvR at the sweep's own shape (x
+   (8, m, 29) of 13a's first train fold, one shared y, B (64, 29)), both
+   families and variants held against their plain versions and against the
+   same kernel on a materialized (8, P, m) copy, then timed (CUDA events,
+   20 launches) on both beside the plain version, the bound by bytes (x,
+   one y, the mask) and the ``torch.bmm`` pair; then ``lambda_sweep("lbfgs")``
+   against 8 sequential ``lbfgs`` solves at bench.py's
+   ``grid_sweep_lbfgs_1000000x28_K8`` (20 iterations, tol 0), in turns.
+   13e: ``GridSearchCV(make_pipeline(PCA(), LogisticRegression()),
+   {"pca__n_components": [8, 16], "logisticregression__C": [0.1, 1, 10]},
+   cv=3)`` on the first 2^22 rows: PCA fitted 2·3 times (+1 for the refit),
+   not 6·3.  Then the ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -361,6 +387,9 @@ HOST_EPOCHS = 2
 HOST_PROFILE = 12  # blocks of 12c's profiled depth-2 fit, after a warm block
 HOST_READS = 5  # 12d's timed reads of one block from the page cache
 IPCA_HOST_ROWS = 1 << 22
+
+# phase 13: the grid searches (13e's pipeline grid runs on the first 2^22 rows)
+PREFIX_ROWS = 1 << 22
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -4149,6 +4178,433 @@ def host_stream_phase(torch, device, card):
     return [dict(entry, launches=launches)]
 
 
+# ----------------------------------------------------------------- phase 13
+OVR_SWEEP_WRAPPERS = ("logistic_ovr_value_and_grad", "logistic_ovr_value",
+                      "normal_ovr_value_and_grad", "normal_ovr_value")
+
+
+def reset_grid_counts(multiclass, logistic, algorithms):
+    for name in OVR_SWEEP_WRAPPERS:
+        getattr(multiclass, name).launches = 0
+    multiclass.logistic_ovr_value_and_grad_ref.calls = 0
+    multiclass.normal_ovr_value_and_grad_ref.calls = 0
+    reset_glm_counts(logistic, algorithms)
+
+
+def grid_search(make, Xs, ys, grid, cv):
+    """A GridSearchCV fit on sharded input (its unshuffled-KFold notice
+    silenced: the rows are in random order)."""
+    import warnings
+
+    from dask_ml_tpu_torch.model_selection import GridSearchCV
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return GridSearchCV(make(), grid, cv=cv).fit(Xs, ys)
+
+
+def timed_search(torch, multiclass, logistic, algorithms, label, make, Xs, ys, grid, strategy,
+                 card):
+    """One search under ``DASK_ML_TPU_TORCH_GRID_PACK=strategy``, every launch
+    and host sync counted, its wall time on the host clock after a sync,
+    split into the folds and the refit (the refit timed again alone: the
+    same fit of the winner on all rows).  Returns (search, launches, wall s)."""
+    from dask_ml_tpu_torch.base import clone
+    from dask_ml_tpu_torch.entry import _env
+    from dask_ml_tpu_torch.model_selection import _search
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_grid_counts(multiclass, logistic, algorithms)
+    _search.reset_sweep_stats()
+    with _env("DASK_ML_TPU_TORCH_GRID_PACK", strategy):
+        t0 = time.perf_counter()
+        gs = grid_search(make, Xs, ys, grid, 3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: getattr(multiclass, name).launches for name in OVR_SWEEP_WRAPPERS}
+    launches.update({name: getattr(logistic, name).launches for name in GLM_WRAPPERS})
+    plain = (multiclass.logistic_ovr_value_and_grad_ref.calls
+             + multiclass.normal_ovr_value_and_grad_ref.calls
+             + logistic.logistic_value_and_grad_ref.calls + logistic.glm_value_and_grad_ref.calls)
+    solves, syncs = algorithms.DISPATCH_COUNTS["solves"], algorithms.HOST_SYNCS["syncs"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stats = {"packed_folds": _search.SWEEP_STATS["packed_folds"],
+             "ineligible": dict(_search.SWEEP_STATS["ineligible"])}
+    t0 = time.perf_counter()
+    clone(make()).set_params(**gs.best_params_).fit(Xs, ys)
+    torch.cuda.synchronize()
+    refit = time.perf_counter() - t0
+    log(f"{label} [{strategy}]: {wall:.3f} s on the host clock (folds ~{wall - refit:.3f} s, "
+        f"refit {refit:.3f} s timed alone), solves {solves}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }, plain-version calls {plain}, host syncs "
+        f"{syncs}, peak memory {peak:.2f} GiB, SWEEP_STATS {stats}; best_params_ "
+        f"{gs.best_params_}, best_score_ {gs.best_score_:.7f} [{card}]")
+    log(f"  mean_test_score {[round(s, 7) for s in gs.cv_results_['mean_test_score']]}")
+    if plain:
+        raise AssertionError(f"{label} [{strategy}] called a plain version {plain} times")
+    if strategy == "packed" and (stats["packed_folds"] != 3 or stats["ineligible"]):
+        raise AssertionError(f"{label}: the packed search's folds ran {stats}")
+    return gs, launches, wall
+
+
+def hold_close(label, a, b, tol):
+    import numpy as np
+
+    gap = float(np.max(np.abs(np.subtract(a, b))))
+    log(f"  {label}: largest |Δ mean_test_score| {gap:.3e} (<= {tol})")
+    if not gap <= tol:
+        raise AssertionError(f"{label}: mean_test_score differs by {gap} > {tol}")
+
+
+def grid_main_path(torch, multiclass, logistic, algorithms, device, card):
+    """13a and 13b: the packed C-grid over LogisticRegression(admm) on the
+    HIGGS stand-in, then the same grid fit a candidate at a time."""
+    import numpy as np
+
+    from dask_ml_tpu_torch.core import shard_rows
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+
+    X, y, w = higgs_standin(torch, HIGGS_ROWS, HIGGS_D, 0, device)
+    sX, sy = shard_rows(X), shard_rows(y)
+    acc_true = float(((X @ w > 0).float() == y).float().mean())
+
+    def make():
+        return LogisticRegression(max_iter=ADMM_ROUNDS, solver_kwargs={"inner_iter": ADMM_INNER})
+
+    grid = {"C": np.logspace(-3, 4, 8)}
+    label = (f"phase 13a: GridSearchCV(LogisticRegression(admm), 8 values of C, cv=3) "
+             f"{HIGGS_ROWS}x{HIGGS_D}")
+    gs, launches, wall_p = timed_search(torch, multiclass, logistic, algorithms, label, make, sX,
+                                        sy, grid, "auto", card)
+    coef = gs.best_estimator_.coef_
+    cos = float(coef @ w / (coef.norm() * w.norm()))
+    log(f"  best_score_ {gs.best_score_:.7f} (>= 0.98 of the true w's held-out accuracy "
+        f"{acc_true:.7f}); best coef's cosine to w {cos:.7f} (>= 0.99)")
+    if not gs.best_score_ >= 0.98 * acc_true:
+        raise AssertionError(f"13a best_score_ {gs.best_score_} < 0.98 * {acc_true}")
+    if not cos >= 0.99:
+        raise AssertionError(f"13a best coef's cosine to w {cos} < 0.99")
+    for name in ("logistic_ovr_value_and_grad", "logistic_ovr_value"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched in the packed search")
+    profiled_admm_fit(torch, algorithms, sX, sy, card,
+                      make=lambda: _Search(make, grid),
+                      label="phase 13a: profiled packed grid search")
+    label_b = "phase 13b: the same grid, a fit a candidate and fold"
+    gs_s, _, wall_s = timed_search(torch, multiclass, logistic, algorithms, label_b, make, sX,
+                                   sy, grid, "sequential", card)
+    log(f"  sequential {wall_s:.3f} s / packed {wall_p:.3f} s = {wall_s / wall_p:.3f}x [{card}]")
+    hold_close("13b against 13a", gs_s.cv_results_["mean_test_score"],
+               gs.cv_results_["mean_test_score"], 1e-4)
+    return sX, sy, len(grid["C"]), launches
+
+
+class _Search:
+    """The packed grid search as ``profiled_admm_fit``'s estimator."""
+
+    def __init__(self, make, grid):
+        self.make, self.grid = make, grid
+
+    def fit(self, X, y):
+        return grid_search(self.make, X, y, self.grid, 3)
+
+
+def grid_regression(torch, multiclass, logistic, algorithms, device, card):
+    """13c: the packed C-grid over LinearRegression on the Normal stand-in,
+    then the same grid a candidate at a time; R² within 1e-5."""
+    import numpy as np
+
+    from dask_ml_tpu_torch.core import shard_rows
+    from dask_ml_tpu_torch.linear_model import LinearRegression
+
+    X, y, _ = glm_standin(torch, "normal", HIGGS_ROWS, HIGGS_D, 5, device)
+    sX, sy = shard_rows(X), shard_rows(y)
+    grid = {"C": np.logspace(0, 6, 5)}
+    label = (f"phase 13c: GridSearchCV(LinearRegression(admm), 5 values of C, cv=3) "
+             f"{HIGGS_ROWS}x{HIGGS_D}")
+    gs, launches, wall_p = timed_search(torch, multiclass, logistic, algorithms, label,
+                                        LinearRegression, sX, sy, grid, "auto", card)
+    for name in ("normal_ovr_value_and_grad", "normal_ovr_value"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched in the packed regression search")
+    gs_s, _, wall_s = timed_search(torch, multiclass, logistic, algorithms, label,
+                                   LinearRegression, sX, sy, grid, "sequential", card)
+    log(f"  sequential {wall_s:.3f} s / packed {wall_p:.3f} s = {wall_s / wall_p:.3f}x [{card}]")
+    hold_close("13c sequential against packed", gs_s.cv_results_["mean_test_score"],
+               gs.cv_results_["mean_test_score"], 1e-5)
+    return sX, sy, len(grid["C"]), launches
+
+
+def ovr_family_magnitudes(torch, family, x, Y, mask, beta):
+    """Σ|terms| of f and of each g element of K2-OvR's ``family`` in
+    float64, shard by shard (lanes k·P + p)."""
+    P, m, d = x.shape
+    K = Y.shape[0]
+    f_mag, g_mag = [], []
+    for p in range(P):
+        xp, mp = x[p].double(), mask[p].double()
+        eta = xp @ beta.view(K, P, d)[:, p].double().T  # (m, K)
+        yp = Y[:, p].double().T
+        if family == "logistic":
+            sp = torch.logaddexp(torch.zeros_like(eta), eta)
+            f_mag.append((mp[:, None] * (sp.abs() + (yp * eta).abs())).sum(0))
+            w = (mp[:, None] * (torch.sigmoid(eta) - yp)).abs()
+        else:
+            f_mag.append((mp[:, None] * 0.5 * (yp - eta) ** 2).sum(0))
+            w = (mp[:, None] * (eta - yp)).abs()
+        g_mag.append(w.T @ xp.abs())
+        del xp, eta, yp, w
+    return torch.stack(f_mag, 1).reshape(-1), torch.stack(g_mag, 1).reshape(-1, d)
+
+
+def hold_ovr_family(torch, multiclass, family, x, Y, mask, beta, what):
+    """Both variants of K2-OvR's ``family`` on ``Y`` (shared or not)
+    against the float64 plain version, within TOL of Σ|terms|; the same f
+    from both; the same bits twice.  Returns the largest absolute
+    differences (value-and-grad, value) and the outputs."""
+    vg = getattr(multiclass, f"{family}_ovr_value_and_grad")
+    v = getattr(multiclass, f"{family}_ovr_value")
+    ref = getattr(multiclass, f"{family}_ovr_value_and_grad_ref")
+    f, g = vg(x, Y, mask, beta)
+    fv = v(x, Y, mask, beta)
+    again = vg(x, Y, mask, beta)
+    torch.cuda.synchronize()
+    if not (torch.equal(f, again[0]) and torch.equal(g, again[1])):
+        raise AssertionError(f"{family} OvR is not deterministic at {what}")
+    if not torch.equal(f, fv):
+        raise AssertionError(f"the two {family} OvR variants give different f at {what}")
+    rf, rg = ref(x.double(), Y.double(), mask.double(), beta.double())
+    f_mag, g_mag = ovr_family_magnitudes(torch, family, x, Y, mask, beta)
+    df, dg = (f.double() - rf).abs(), (g.double() - rg).abs()
+    del rf, rg
+    worst_f, worst_g = float((df / (f_mag + 1e-30)).max()), float((dg / (g_mag + 1e-30)).max())
+    if not (bool((df <= TOL * f_mag + 1e-6).all()) and bool((dg <= TOL * g_mag + 1e-6).all())):
+        raise AssertionError(f"{family} OvR differs from its plain version at {what} "
+                             f"(f {worst_f:.3g}, g {worst_g:.3g} of Σ|terms|)")
+    log(f"  {family} OvR {what}: f within {worst_f:.2e}, g within {worst_g:.2e} of Σ|terms|; "
+        "deterministic")
+    return float(torch.cat([df, dg.reshape(-1)]).max()), float(df.max()), (f, g), (f_mag, g_mag)
+
+
+def sweep_kernel_table(torch, multiclass, cases, launches, card):
+    """13d: K2-OvR at the shapes the sweeps give it: for each (family,
+    sharded X, sharded y, L) of ``cases``, x (8, m, 29) of that search's
+    first train fold, its y as the one shared target and B (L·8, 29), with
+    L the search's number of values of C (13a's 8 for the logistic
+    family, 13c's 5 for the Normal one).  Each variant is held against its
+    plain version and against the same kernel on a materialized (L, 8, m)
+    copy of the target, then timed (CUDA events, 20 launches) on the
+    shared target and on the copy, beside the plain version (3 runs), the
+    bound by bytes (x, one y, the mask) and the ``torch.bmm`` pair
+    (informational)."""
+    import numpy as np
+
+    from dask_ml_tpu_torch.linear_model.utils import add_intercept
+    from dask_ml_tpu_torch.model_selection._split import _take, check_cv
+
+    replaces = {"logistic": "dask_ml_tpu/solvers/families.py:34",
+                "normal": "dask_ml_tpu/solvers/families.py:53"}
+    out = []
+    for family, sX, sy, L in cases:
+        train, _ = next(check_cv(3).split(np.empty((sX.n_samples, 0))))
+        Xi = add_intercept(_take(sX, train))
+        P = HIGGS_SHARDS
+        n, d = Xi.data.shape
+        m = n // P
+        dev = Xi.data.device
+        x3, m2 = Xi.data.view(P, m, d), Xi.mask.view(P, m)
+        shared = _take(sy, train).data.view(P, m).expand(L, P, m)
+        copy = shared.contiguous()
+        gen = torch.Generator(device=dev).manual_seed(13)
+        B = torch.randn(L * P, d, generator=gen, device=dev) / d ** 0.5
+        what = f"({P}, {m}, {d}) L={L}"
+        log(f"phase 13d: K2-OvR {family} at its sweep's shape {what}, one shared target [{card}]")
+        wv = torch.rand(P, m, L, generator=gen, device=dev)
+        bmm_ms = time_ms(torch, lambda: (torch.bmm(x3, B.view(L, P, d).permute(1, 2, 0)),
+                                         torch.bmm(x3.transpose(1, 2), wv)), 20)
+        del wv
+        e_vg, e_v, (f, g), (f_mag, g_mag) = hold_ovr_family(
+            torch, multiclass, family, x3, shared, m2, B, what + " shared")
+        fc, gc = getattr(multiclass, f"{family}_ovr_value_and_grad")(x3, copy, m2, B)
+        gap_f = float(((f - fc).abs().double() / (f_mag + 1e-30)).max())
+        gap_g = float(((g - gc).abs().double() / (g_mag + 1e-30)).max())
+        log(f"  {family} OvR shared against the materialized copy: f within {gap_f:.2e}, "
+            f"g within {gap_g:.2e} of Σ|terms| (<= {TOL}); bitwise equal "
+            f"{torch.equal(f, fc) and torch.equal(g, gc)}")
+        if not (gap_f <= TOL and gap_g <= TOL):
+            raise AssertionError(f"{family} OvR on a shared target differs from the copy")
+        del fc, gc, f_mag, g_mag
+        for grad, err in ((True, e_vg), (False, e_v)):
+            name = f"{family}_ovr_value_and_grad" if grad else f"{family}_ovr_value"
+            fn = getattr(multiclass, name)
+            ref = getattr(multiclass, f"{family}_ovr_value_and_grad_ref")
+            ms = time_ms(torch, lambda: fn(x3, shared, m2, B), 20)
+            ms_copy = time_ms(torch, lambda: fn(x3, copy, m2, B), 20)
+            plain_ms = time_ms(torch, lambda: ref(x3, shared, m2, B, None, grad), 3)
+            nbytes = n * d * 4 + 2 * n * 4 + B.numel() * 4 * (2 if grad else 1) + L * P * 4
+            flops = (4 if grad else 2) * n * d * L
+            b_ms, b_by = bound_ms(nbytes, flops)
+            plan = multiclass._plan(multiclass._load(), dev, 0, P, m, d, L,
+                                    multiclass._FAMILIES[family], True)
+            plan_copy = multiclass._plan(multiclass._load(), dev, 0, P, m, d, L,
+                                         multiclass._FAMILIES[family], False)
+            log(f"{name} (shared target) at {what}: {ms:.4f} ms, {b_ms / ms:.1%} of the bound "
+                f"(the same kernel on a materialized target {ms_copy:.4f} ms; plain "
+                f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.4f} GB, "
+                f"{flops / 1e9:.3f} GFLOP; plan {list(plan)}, on the copy {list(plan_copy)}; "
+                f"informational: torch.bmm pair {bmm_ms:.4f} ms) [{card}]")
+            out.append({"name": f"{name}_shared", "route": "cuda",
+                        "source": "dask_ml_tpu_torch/csrc/multiclass.cu",
+                        "replaces": replaces[family], "launches": launches[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None})
+        del Xi, x3, m2, shared, copy, f, g, B
+    torch.cuda.synchronize()
+    return out
+
+
+def sweep_lane_gaps(label, lams, betas_sweep, betas_seq, held, tol, card):
+    """Print ‖Δβ_k‖∞ / ‖β_k‖∞ lane by lane between the sweep and the
+    sequential solves, and fail where a lane of ``held`` exceeds ``tol``."""
+    gap = (betas_sweep - betas_seq).abs().amax(1)
+    scale = betas_seq.abs().amax(1)
+    rel = (gap / scale).tolist()
+    log(f"  {label}: ‖Δβ_k‖∞ / ‖β_k‖∞ by λ "
+        f"{[(f'{lam:.3g}', f'{r:.3e}') for lam, r in zip(lams.tolist(), rel)]}, ‖β_k‖∞ "
+        f"{[round(b, 4) for b in scale.tolist()]} (held <= {tol} where λ >= {held}) [{card}]")
+    bad = [(float(lam), r) for lam, r in zip(lams, rel) if lam >= held and not r <= tol]
+    if bad:
+        raise AssertionError(f"{label}: the sweep's lanes {bad} differ from the sequential "
+                             f"solves by more than {tol}·‖β_k‖∞")
+
+
+def sweep_yardstick(torch, algorithms, device, card):
+    """13d: ``lambda_sweep("lbfgs")`` against 8 sequential ``lbfgs`` solves at
+    bench.py's ``grid_sweep_lbfgs_1000000x28_K8`` (X (1M, 28) standard
+    normal, y = [X·w > 0], λ = logspace(-4, 1, 8), 20 iterations, tol 0),
+    in turns (sweep, sequential, sequential, sweep) after one warm call of
+    each, each on the host clock after a sync; every lane must run its 20
+    iterations to finite coefficients.  The two arms' β are compared lane
+    by lane.  The targets are separable, so β grows with the iterations
+    and two float32 summation orders (K2-OvR's and K2's) may part within
+    20 fixed iterations: only the lanes with λ >= 0.1 are held there, to
+    1e-3·‖β_k‖∞.  The same X with noisy labels (y = [X·w + ‖w‖·ε > 0], ε
+    standard normal), whose β stays bounded, is the witness: every lane
+    held to 1e-3·‖β_k‖∞.  That is the float32 floor of a line search on
+    these lanes: f ≈ 5e5 is resolved to ~0.03, the Hessian is ≈ 0.2·n·I,
+    so β is pinned only to √(2·0.03 / 2e5) ≈ 5.5e-4, or 6.6e-4·‖β‖∞ (≈ 0.83)."""
+    import numpy as np
+
+    from dask_ml_tpu_torch.core import shard_rows
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    X = torch.randn(AB_ROWS, HIGGS_D, generator=gen, device=device)
+    w = torch.randn(HIGGS_D, generator=gen, device=device)
+    sX, y = shard_rows(X), (X @ w > 0).float()
+    lams = np.logspace(-4, 1, 8).astype(np.float32)
+
+    def sweep(y=y):
+        B, its = algorithms.lambda_sweep("lbfgs", sX, y, lams, max_iter=AB_ITERS, tol=0.0)
+        return B, its.cpu().numpy()
+
+    def sequential(y=y):
+        outs = [algorithms.lbfgs(sX, y, lamduh=float(lam), max_iter=AB_ITERS, tol=0.0,
+                                 line_search="backtrack", return_n_iter=True) for lam in lams]
+        return torch.stack([b for b, _ in outs]), np.asarray([k for _, k in outs])
+
+    times = {"sweep": [], "sequential": []}
+    results = {"sweep": sweep(), "sequential": sequential()}  # warm: plans, allocator
+    for arm in ("sweep", "sequential", "sequential", "sweep"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[arm] = (sweep if arm == "sweep" else sequential)()
+        torch.cuda.synchronize()
+        times[arm].append(time.perf_counter() - t0)
+    its_sw, its_sq = results["sweep"][1], results["sequential"][1]
+    log(f"phase 13d: grid_sweep_lbfgs_{AB_ROWS}x{HIGGS_D}_K8: sweep "
+        f"{[round(t, 4) for t in times['sweep']]} s, 8 sequential lbfgs "
+        f"{[round(t, 4) for t in times['sequential']]} s, ratio "
+        f"{min(times['sequential']) / min(times['sweep']):.3f}x; iterations {its_sw.tolist()} / "
+        f"{its_sq.tolist()} [{card}]")
+    if not (np.all(its_sw == AB_ITERS) and np.all(its_sq == AB_ITERS)):
+        raise AssertionError("a lane of the fixed-work sweep A/B stopped early")
+    if not (bool(torch.isfinite(results["sweep"][0]).all())
+            and bool(torch.isfinite(results["sequential"][0]).all())):
+        raise AssertionError("the fixed-work sweep A/B gave non-finite coefficients")
+    sweep_lane_gaps("separable y", lams, results["sweep"][0], results["sequential"][0], 0.1,
+                    1e-3, card)
+    noisy = (X @ w + w.norm() * torch.randn(AB_ROWS, generator=gen, device=device) > 0).float()
+    (b_sw, it_sw), (b_sq, it_sq) = sweep(noisy), sequential(noisy)
+    log(f"  noisy y: iterations {it_sw.tolist()} / {it_sq.tolist()}")
+    if not np.array_equal(it_sw, it_sq):
+        raise AssertionError("the noisy-label sweep's lanes ran other iterations than the "
+                             "sequential solves")
+    sweep_lane_gaps("noisy y", lams, b_sw, b_sq, 0.0, 1e-3, card)
+
+
+def prefix_cache_search(torch, device, card):
+    """13e: a Pipeline(PCA, LogisticRegression) grid on the first 2^22 rows
+    of the HIGGS stand-in: each PCA is fitted once a (n_components, fold),
+    2·3 times, not once a candidate and fold (6·3)."""
+    from collections import Counter
+
+    from dask_ml_tpu_torch.compose import make_pipeline
+    from dask_ml_tpu_torch.core import shard_rows
+    from dask_ml_tpu_torch.decomposition import PCA
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+
+    X, y, _ = higgs_standin(torch, PREFIX_ROWS, HIGGS_D, 0, device)
+    sX, sy = shard_rows(X), shard_rows(y)
+    grid = {"pca__n_components": [8, 16], "logisticregression__C": [0.1, 1.0, 10.0]}
+    fits = []
+    fit_transform = PCA.fit_transform
+
+    def counted(self, X, y=None):
+        fits.append(self.n_components)
+        return fit_transform(self, X, y)
+
+    PCA.fit_transform = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs = grid_search(lambda: make_pipeline(PCA(), LogisticRegression()), sX, sy, grid, 3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        PCA.fit_transform = fit_transform
+    log(f"phase 13e: GridSearchCV(make_pipeline(PCA(), LogisticRegression()), 6 candidates, "
+        f"cv=3) {PREFIX_ROWS}x{HIGGS_D}: {wall:.3f} s on the host clock, PCA fits "
+        f"{len(fits)} (n_components {sorted(Counter(fits).items())}; 2·3 with the prefix cache, "
+        f"6·3 without), best_params_ {gs.best_params_}, best_score_ {gs.best_score_:.6f} "
+        f"[{card}]")
+    # the folds' prefixes, then the refit's PCA
+    if len(fits) != 2 * 3 + 1:
+        raise AssertionError(f"13e fitted PCA {len(fits)} times, not 2·3 + the refit's 1")
+    if not gs.best_score_ >= 0.7:
+        raise AssertionError(f"13e best_score_ {gs.best_score_} < 0.7")
+
+
+def grid_phase(torch, multiclass, logistic, algorithms, device, card):
+    """Phase 13 end to end; returns its lines of the kernels table."""
+    from dask_ml_tpu_torch.core import use_device
+
+    with use_device(device, n_shards=HIGGS_SHARDS):
+        sX, sy, L, launches = grid_main_path(torch, multiclass, logistic, algorithms, device,
+                                             card)
+        sX_c, sy_c, L_c, launches_c = grid_regression(torch, multiclass, logistic, algorithms,
+                                                      device, card)
+        launches.update({k: v for k, v in launches_c.items() if k.startswith("normal_ovr")})
+        out = sweep_kernel_table(torch, multiclass, [("logistic", sX, sy, L),
+                                                     ("normal", sX_c, sy_c, L_c)],
+                                 launches, card)
+        del sX, sy, sX_c, sy_c
+        torch.cuda.synchronize()
+        sweep_yardstick(torch, algorithms, device, card)
+        prefix_cache_search(torch, device, card)
+    return out
+
+
 def main() -> int:
     yardstick = None
     for flag in ("--k4-yardstick", "--k5-yardstick"):
@@ -4246,6 +4702,9 @@ def main() -> int:
 
     # 12. the host-fed stream: files and datasets through the input pipeline to K4
     out += host_stream_phase(torch, device, card)
+
+    # 13. the grid searches: the packed C-sweep through K2-OvR over one shared target
+    out += grid_phase(torch, multiclass, logistic, algorithms, device, card)
 
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

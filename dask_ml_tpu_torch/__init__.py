@@ -16,15 +16,17 @@ from .decomposition import PCA, IncrementalPCA, TruncatedSVD
 from .linalg import randomized_svd, tsqr, tsqr_svd
 from .linear_model import (
     LinearRegression, LogisticRegression, PoissonRegression, SGDClassifier, SGDRegressor)
+from .compose import Pipeline, make_pipeline
 from .model_selection import (
-    HyperbandSearchCV, IncrementalSearchCV, InverseDecaySearchCV, SuccessiveHalvingSearchCV,
-    train_test_split)
+    GridSearchCV, HyperbandSearchCV, IncrementalSearchCV, InverseDecaySearchCV,
+    RandomizedSearchCV, SuccessiveHalvingSearchCV, train_test_split)
 from .wrappers import Incremental, ParallelPostFit
 
-__all__ = ["HyperbandSearchCV", "Incremental", "IncrementalPCA", "IncrementalSearchCV",
-           "InverseDecaySearchCV", "KMeans", "LinearRegression", "LogisticRegression",
-           "PCA", "ParallelPostFit", "PoissonRegression", "SGDClassifier", "SGDRegressor",
-           "SuccessiveHalvingSearchCV", "TruncatedSVD", "get_device",
+__all__ = ["GridSearchCV", "HyperbandSearchCV", "Incremental", "IncrementalPCA",
+           "IncrementalSearchCV", "InverseDecaySearchCV", "KMeans", "LinearRegression",
+           "LogisticRegression", "PCA", "ParallelPostFit", "Pipeline", "PoissonRegression",
+           "RandomizedSearchCV", "SGDClassifier", "SGDRegressor", "SuccessiveHalvingSearchCV",
+           "TruncatedSVD", "get_device", "make_pipeline",
            "incremental_pca_from_reference",
            "kmeans_from_reference", "linear_regression_from_reference",
            "logistic_regression_from_reference", "pca_from_reference",

@@ -77,14 +77,25 @@ class BaseEstimator:
         return f"{type(self).__name__}({shown})"
 
 
+def _clone_param(v):
+    if isinstance(v, BaseEstimator):
+        return clone(v)
+    if type(v) in (list, tuple):  # a pipeline's steps: (name, estimator) pairs
+        return type(v)(_clone_param(e) for e in v)
+    return copy.deepcopy(v)
+
+
 def clone(estimator):
     """A new unfitted estimator with the same parameters (deep-copied,
-    estimators among them cloned)."""
-    params = {
-        k: clone(v) if isinstance(v, BaseEstimator) else copy.deepcopy(v)
-        for k, v in estimator.get_params(deep=False).items()
-    }
+    estimators among them cloned, also inside lists and tuples)."""
+    params = {k: _clone_param(v) for k, v in estimator.get_params(deep=False).items()}
     return type(estimator)(**params)
+
+
+def is_classifier(estimator) -> bool:
+    """Whether ``estimator`` is a classifier (its ``_estimator_type``, as
+    scikit-learn's ``is_classifier`` reads it)."""
+    return getattr(estimator, "_estimator_type", None) == "classifier"
 
 
 class ClassifierMixin:

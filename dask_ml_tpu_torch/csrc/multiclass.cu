@@ -3,12 +3,20 @@
 //
 // K2-OvR (mode 0) replaces dask_ml_tpu/solvers/families.py :: Logistic.loss
 // (:34) under jax.vmap of solvers/algorithms.py :: packed_solve's `one`
-// (:757-800): K one-vs-rest problems that share x.  For every active lane
-// l = k*P + p (class k, shard p) of B (K*P, d):
+// (:757-800), and Logistic.loss and Normal.loss (:53) under jax.vmap of
+// lambda_sweep (:802): K problems that share x.  For every active lane
+// l = k*P + p (problem k, shard p) of B (K*P, d):
 //   eta_i = x_pi . B_l
-//   f_l   = sum_i mask_pi * (softplus(eta_i) - Y_kpi * eta_i)
-//   g_l   = sum_i mask_pi * (sigmoid(eta_i) - Y_kpi) * x_pi     (GRAD only)
-// with x (P, m, d), Y (K, P, m), mask (P, m).
+//   f_l   = sum_i mask_pi * loss(eta_i, Y_kpi)
+//   g_l   = sum_i mask_pi * dloss/deta(eta_i, Y_kpi) * x_pi     (GRAD only)
+// with x (P, m, d), mask (P, m) and the family's terms (a functor, as K2's
+// in logistic.cu): Logistic softplus(eta) - y*eta and sigmoid(eta) - y,
+// Normal (y - eta)^2/2 and eta - y.  Y is (K, P, m) with a class stride
+// `ystride` in floats: P*m for K targets of their own (one-vs-rest), or 0
+// for one target that all K problems share (a sweep over lambda, whose
+// lanes differ only in beta).  With a shared target ovr_kernel stages one
+// target run a tile, not K: the stage shrinks by (K - 1)*(R + 4) floats and
+// a tile's copies by K - 1 runs.
 //
 // K2-MN (mode 1) replaces families.py :: multinomial's _Multinomial.loss
 // (:85-96) under jax.value_and_grad (lbfgs_core.py:248) and the line
@@ -21,7 +29,8 @@
 // outside [0, K) picks no class, as jax.nn.one_hot does).
 //
 // Bound on an H100: one evaluation must read x once (n*d*4 bytes) plus the
-// targets and the mask (OvR: n*(K + 1)*4, MN: n*8), and does 4*n*d*K flops
+// targets and the mask (OvR: n*(K + 1)*4, n*2*4 with a shared target; MN:
+// n*8), and does 4*n*d*K flops
 // (K dots and K axpys a row).  At the packed fit's shape (P = 8,
 // m = 1.375M, d = 29, K = 4) that is 1.496 GB, 0.447 ms at 3.35 TB/s,
 // against 5.1 GFLOP, 0.076 ms at 67 TFLOP/s; at bench.py's packed A/B
@@ -53,7 +62,7 @@
 //      reading x again).  The S = 256/R threads of a row split the chunks
 //      (SC ways, the same across a warp) and then the features (SF ways,
 //      joined by an xor-shuffle tree); a row's logits stay in the
-//      registers of the thread that computed them, logistic_terms runs
+//      registers of the thread that computed them, the family's terms run
 //      there, each lane's loss is summed in registers across the block's
 //      tiles, and only the weights mask*(sigmoid - Y) go to shared memory,
 //      once, as float4s.
@@ -299,16 +308,27 @@ __device__ __forceinline__ long long beta_at(long long P, int p, int d, int K, i
 }
 
 struct RowTerms {
-  float loss;  // softplus(eta) - y*eta, times the mask
-  float w;     // (sigmoid(eta) - y), times the mask
+  float loss;  // the row's loss term, times the mask
+  float w;     // d loss / d eta, times the mask
 };
 
-__device__ __forceinline__ RowTerms logistic_terms(float eta, float y, float m) {
-  const float e = expf(-fabsf(eta));
-  const float sp = fmaxf(eta, 0.f) + log1pf(e);
-  const float sig = eta >= 0.f ? 1.f / (1.f + e) : e / (1.f + e);
-  return {m * (sp - y * eta), m * (sig - y)};
-}
+// The families of K2-OvR: a row's terms from eta, y and the mask, as K2's
+// (logistic.cu) compute them.
+struct Logistic {
+  __device__ __forceinline__ static RowTerms terms(float eta, float y, float m) {
+    const float e = expf(-fabsf(eta));
+    const float sp = fmaxf(eta, 0.f) + log1pf(e);
+    const float sig = eta >= 0.f ? 1.f / (1.f + e) : e / (1.f + e);
+    return {m * (sp - y * eta), m * (sig - y)};
+  }
+};
+struct Normal {
+  __device__ __forceinline__ static RowTerms terms(float eta, float y, float m) {
+    const float r = y - eta;
+    return {m * (0.5f * r * r), m * (eta - y)};
+  }
+};
+enum { LOGISTIC = 0, NORMAL = 1 };
 
 // The class y picks, or -1 outside [0, K).
 __device__ __forceinline__ int class_index(float y, int K) {
@@ -374,17 +394,23 @@ __host__ __device__ __forceinline__ long long ovr_ring_floats(int R, int d, int 
   return ring > gred ? ring : gred;
 }
 
+// Target runs a stage holds: one a class of the block, or one for all of
+// them where the target is shared.
+__host__ __device__ __forceinline__ int ovr_target_runs(int K, int KB, bool shared) {
+  return shared ? 1 : (K < KB ? K : KB);
+}
+
 // Floats of ovr_kernel's dynamic shared memory: the ring, beta (d, KB) and
 // two (R, KS) weight tables.
-long long ovr_floats(int R, int d, int K, int G) {
-  const int KB = KC * ovr_chunks(K), KY = K < KB ? K : KB;
+long long ovr_floats(int R, int d, int K, int G, bool shared) {
+  const int KB = KC * ovr_chunks(K), KY = ovr_target_runs(K, KB, shared);
   return ovr_ring_floats(R, d, KY, G, KB) + (long long)d * KB + 2LL * R * row_stride(KB);
 }
 
 // Copies tile rows [r0, r0 + rows) of shard p into the stage at buf,
-// completing on bar: x's rows (nx floats from xt), the target runs of the
-// classes in `on` (from yt, class c at yt + c*ystride) and the mask run
-// (from mt).  A run whose source and length are whole 16-byte units is one
+// completing on bar: x's rows (nx floats from xt), the target runs c < KY
+// whose bit is set in `on` (from yt, run c at yt + c*ystride) and the mask
+// run (from mt).  A run whose source and length are whole 16-byte units is one
 // bulk copy issued by thread 0; the others are the threads' cp.async.
 // Thread 0 arrives expecting the bulk bytes, every thread once its
 // cp.async copies have landed: T + 1 arrivals a phase.
@@ -443,12 +469,13 @@ __device__ __forceinline__ void row_dots(float (&acc)[NCH][KC], const float* xr,
 // bpart[(p*blocks + b)*K*(d + 1)]: for class k, (GRAD) g at k*(d+1) + j
 // and f at k*(d+1) + d.  In the forward the S = 256/R threads of a row
 // split the NCT chunks SC = NCT/NCH ways (NCH chunks a thread) and then
-// the features SF = S/SC ways.
-template <int NCT, int NCH, bool GRAD>
+// the features SF = S/SC ways.  Class k's target is Y[k*ystride + p*m + i];
+// ystride 0 (a shared target) stages one run a tile for all the classes.
+template <typename Fam, int NCT, int NCH, bool GRAD>
 __global__ void __launch_bounds__(T, 2) ovr_kernel(
     const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ mask,
     const float* __restrict__ beta, const unsigned char* __restrict__ active, long long P,
-    long long m, int d, int K, int R, int G, float* __restrict__ bpart) {
+    long long m, int d, int K, int R, int G, long long ystride, float* __restrict__ bpart) {
   constexpr int KB = KC * NCT, SC = NCT / NCH, PER_SC = T / SC;
   const int p = blockIdx.y, kbase = blockIdx.z * KB, nk = min(K - kbase, KB);
   unsigned on = 0;  // bit c: class kbase + c is computed
@@ -459,7 +486,12 @@ __global__ void __launch_bounds__(T, 2) ovr_kernel(
   __shared__ __align__(8) unsigned long long bar[STAGES];
   __shared__ float lred[KB * NW];  // (class, warp) loss sums
   constexpr int F = ovr_grad_feats(NCT);
-  const int C = d + 1, KS = row_stride(KB), KY = min(K, KB), yoff = R * d + 4;
+  // the target runs a stage holds (KY), which run class c reads (c * ky),
+  // and the runs to copy (yon: all of the block's on classes', or the one)
+  const bool shared = ystride == 0;
+  const int KY = ovr_target_runs(K, KB, shared), ky = shared ? 0 : 1;
+  const unsigned yon = shared ? 1u : on;
+  const int C = d + 1, KS = row_stride(KB), yoff = R * d + 4;
   const int stage_floats = (int)ovr_stage_floats(R, d, KY);
   float* beta_s = smem + (int)ovr_ring_floats(R, d, KY, G, KB);  // (d, KB)
   float* w_s = beta_s + d * KB;  // 2 x (R, KS): the weights of tile i in half i % 2
@@ -492,15 +524,14 @@ __global__ void __launch_bounds__(T, 2) ovr_kernel(
 
   const float* xl = x + (long long)p * m * d;
   const float* ml = mask + (long long)p * m;
-  const long long ystride = P * m;
-  const float* yl = y + ((long long)kbase * P + p) * m;
+  const float* yl = y + (long long)kbase * ystride + (long long)p * m;
   const long long ntiles = (m + R - 1) / R, step = gridDim.x, t0 = blockIdx.x;
   for (int i = 0; i < STAGES - 1; ++i) {
     const long long t = t0 + i * step;
     if (t < ntiles) {
       const int rows = (int)min((long long)R, m - t * R);
       stage_tile(smem + i * stage_floats, bar + i, xl + t * R * d, rows * d, yl + t * R, ystride,
-                 ml + t * R, rows, R, KY, yoff, on);
+                 ml + t * R, rows, R, KY, yoff, yon);
     }
   }
   // where a tile's rows sit in its stage: R*d and R are multiples of 4, so
@@ -569,8 +600,8 @@ __global__ void __launch_bounds__(T, 2) ovr_kernel(
         for (int c = 0; c < KC; ++c) {
           const int k = k0 + c;
           const bool kon = on >> k & 1;
-          const float yv = buf[yoff + k * (R + 4) + ((y_mis + k * ys_mis) & 3) + r_own];
-          const RowTerms rt = logistic_terms(acc[u][c], yv, mv);
+          const float yv = buf[yoff + k * ky * (R + 4) + ((y_mis + k * ys_mis) & 3) + r_own];
+          const RowTerms rt = Fam::terms(acc[u][c], yv, mv);
           lsum[u][c] += kon ? rt.loss : 0.f;
           w[c] = kon ? rt.w : 0.f;
         }
@@ -584,7 +615,7 @@ __global__ void __launch_bounds__(T, 2) ovr_kernel(
     if (tn < ntiles) {
       const int sn = s == 0 ? STAGES - 1 : s - 1, rn = (int)min((long long)R, m - tn * R);
       stage_tile(smem + sn * stage_floats, bar + sn, xl + tn * R * d, rn * d, yl + tn * R,
-                 ystride, ml + tn * R, rn, R, KY, yoff, on);
+                 ystride, ml + tn * R, rn, R, KY, yoff, yon);
     }
 
     // gradient: group q over rows q_row, q_row + G, ..., F features and
@@ -1213,14 +1244,15 @@ __global__ void __launch_bounds__(T) tiled_kernel(
 }
 
 // Large d*K: block b of shard p takes rows b, b + blocks, ...; each row's
-// logits are dotted a warp a class, its terms computed, and its
-// contribution added to the block's record in global memory (each element
-// by one thread, in row order).  Dynamic shared memory: 3*K floats.
-template <int MODE, bool GRAD>
+// logits are dotted a warp a class, its terms computed (OvR: by Fam, class
+// k's target at Y[k*ystride + p*m + r]), and its contribution added to the
+// block's record in global memory (each element by one thread, in row
+// order).  Dynamic shared memory: 3*K floats.
+template <int MODE, typename Fam, bool GRAD>
 __global__ void __launch_bounds__(T) row_kernel(
     const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ mask,
     const float* __restrict__ beta, const unsigned char* __restrict__ active, long long P,
-    long long m, int d, int K, float* __restrict__ bpart) {
+    long long m, int d, int K, long long ystride, float* __restrict__ bpart) {
   const int p = blockIdx.y;
   if (!shard_on<MODE>(active, P, p, K)) return;
   extern __shared__ float rsm[];
@@ -1242,7 +1274,7 @@ __global__ void __launch_bounds__(T) row_kernel(
     const float yv = MODE == MN ? y[row] : 0.f;
     if (MODE == OVR)
       for (int k = threadIdx.x; k < K; k += T)
-        if (class_on<MODE>(active, P, p, k)) y_s[k] = y[((long long)k * P + p) * m + r];
+        if (class_on<MODE>(active, P, p, k)) y_s[k] = y[(long long)k * ystride + p * m + r];
     for (int k = warp; k < K; k += NW) {
       if (!class_on<MODE>(active, P, p, k)) continue;
       float part = 0.f;
@@ -1255,7 +1287,7 @@ __global__ void __launch_bounds__(T) row_kernel(
     if (MODE == OVR) {
       for (int k = threadIdx.x; k < K; k += T) {
         if (!class_on<MODE>(active, P, p, k)) continue;
-        const RowTerms rt = logistic_terms(e_s[k], y_s[k], mv);
+        const RowTerms rt = Fam::terms(e_s[k], y_s[k], mv);
         l_s[k] = rt.loss;
         e_s[k] = rt.w;
       }
@@ -1375,12 +1407,13 @@ cudaError_t occupancy2(KernGrad kg, KernValue kv, int dev, size_t smem, int* per
 
 // The tiled path's rows a tile, the largest power of two from T down to
 // MIN_R whose shared memory fits the mode's budget (0: none does), and
-// its gradient row groups.
-int tile_rows(int mode, int d, int K, int* G) {
+// its gradient row groups.  OvR's stage holds one target run where the
+// target is shared.
+int tile_rows(int mode, int d, int K, bool shared, int* G) {
   const int f = mode == OVR ? ovr_grad_feats(ovr_chunks(K)) : 1;
   for (int r = T; r >= MIN_R; r >>= 1) {
     const int g = row_groups((d + f - 1) / f, r);
-    const long long bytes = mode == OVR ? 4 * ovr_floats(r, d, K, g)
+    const long long bytes = mode == OVR ? 4 * ovr_floats(r, d, K, g, shared)
                                         : 4 * staged_floats(d, K, r, g, row_groups(1, r));
     if (bytes <= (mode == OVR ? OVR_BUDGET : SMEM_BUDGET)) {
       *G = g;
@@ -1391,16 +1424,18 @@ int tile_rows(int mode, int d, int K, int* G) {
 }
 
 typedef void (*OvrKern)(const float*, const float*, const float*, const float*,
-                        const unsigned char*, long long, long long, int, int, int, int, float*);
+                        const unsigned char*, long long, long long, int, int, int, int, long long,
+                        float*);
 
-// The ovr_kernel instance for nct chunks a block and R rows a tile: the
-// 256/R threads of a row split the chunks min(256/R, nct) ways.
-template <bool GRAD>
+// The ovr_kernel instance of family Fam for nct chunks a block and R rows a
+// tile: the 256/R threads of a row split the chunks min(256/R, nct) ways.
+template <typename Fam, bool GRAD>
 OvrKern ovr_instance(int nct, int R) {
   const int sc = T / R < nct ? T / R : nct, nch = nct / sc;
-  if (nct == 1) return ovr_kernel<1, 1, GRAD>;
-  if (nct == 2) return nch == 1 ? ovr_kernel<2, 1, GRAD> : ovr_kernel<2, 2, GRAD>;
-  return nch == 1 ? ovr_kernel<4, 1, GRAD> : (nch == 2 ? ovr_kernel<4, 2, GRAD> : ovr_kernel<4, 4, GRAD>);
+  if (nct == 1) return ovr_kernel<Fam, 1, 1, GRAD>;
+  if (nct == 2) return nch == 1 ? ovr_kernel<Fam, 2, 1, GRAD> : ovr_kernel<Fam, 2, 2, GRAD>;
+  return nch == 1 ? ovr_kernel<Fam, 4, 1, GRAD>
+                  : (nch == 2 ? ovr_kernel<Fam, 4, 2, GRAD> : ovr_kernel<Fam, 4, 4, GRAD>);
 }
 
 typedef void (*MnKern)(const float*, const float*, const float*, const float*,
@@ -1417,10 +1452,39 @@ MnKern mn_instance(int d, int K) {
   return (K + 7) / 8 == 1 ? one[(d + 7) / 8 - 1] : two[(d + 7) / 8 - 1];
 }
 
-cudaError_t plan_mode(int mode, int dev, long long m, int d, int K, Plan* p, long long* units,
-                      int* per_sm) {
+// OvR's plan for family Fam: ovr_kernel where a tile fits, else row_kernel.
+template <typename Fam>
+cudaError_t plan_ovr(int dev, long long m, int d, int K, bool shared, Plan* p, long long* units,
+                     int* per_sm) {
+  int G = 1;
+  const int R = tile_rows(OVR, d, K, shared, &G);
+  p->G = G;
+  if (R > 0) {
+    const int nct = ovr_chunks(K);
+    p->path = 0;
+    p->R = R;
+    p->aux = nct;
+    p->smem = 4 * ovr_floats(R, d, K, G, shared);
+    *units = (m + R - 1) / R;
+    return occupancy2(ovr_instance<Fam, true>(nct, R), ovr_instance<Fam, false>(nct, R), dev,
+                      (size_t)p->smem, per_sm);
+  }
+  p->path = 1;
+  p->R = 1;
+  p->aux = 1;
+  p->smem = 3 * sizeof(float) * (long long)K;
+  *units = m;
+  return occupancy2(row_kernel<OVR, Fam, true>, row_kernel<OVR, Fam, false>, dev,
+                    (size_t)p->smem, per_sm);
+}
+
+cudaError_t plan_mode(int mode, int family, int dev, long long m, int d, int K, bool shared,
+                      Plan* p, long long* units, int* per_sm) {
+  if (mode == OVR)
+    return family == NORMAL ? plan_ovr<Normal>(dev, m, d, K, shared, p, units, per_sm)
+                            : plan_ovr<Logistic>(dev, m, d, K, shared, p, units, per_sm);
   cudaError_t err;
-  if (mode == MN && d <= MN_MAX_D && K <= MN_MAX_K) {
+  if (d <= MN_MAX_D && K <= MN_MAX_K) {
     // 256-row tiles (two groups a warp) where three of them fit the budget,
     // else 128; as many stages as fit
     const int nn = (K + 7) / 8;
@@ -1439,31 +1503,22 @@ cudaError_t plan_mode(int mode, int dev, long long m, int d, int K, Plan* p, lon
     return err;
   }
   int G = 1;
-  const int R = tile_rows(mode, d, K, &G);
+  const int R = tile_rows(MN, d, K, false, &G);
   p->G = G;
   if (R > 0) {
     p->path = 0;
     p->R = R;
-    if (mode == OVR) {
-      const int nct = ovr_chunks(K);
-      p->aux = nct;
-      p->smem = 4 * ovr_floats(R, d, K, G);
-      err = occupancy2(ovr_instance<true>(nct, R), ovr_instance<false>(nct, R), dev,
-                       (size_t)p->smem, per_sm);
-    } else {
-      p->aux = row_groups(1, R);
-      p->smem = 4 * staged_floats(d, K, R, G, (int)p->aux);
-      err = occupancy2(tiled_kernel<true>, tiled_kernel<false>, dev, (size_t)p->smem, per_sm);
-    }
+    p->aux = row_groups(1, R);
+    p->smem = 4 * staged_floats(d, K, R, G, (int)p->aux);
+    err = occupancy2(tiled_kernel<true>, tiled_kernel<false>, dev, (size_t)p->smem, per_sm);
     *units = (m + R - 1) / R;
   } else {
     p->path = 1;
     p->R = 1;
     p->aux = 1;
     p->smem = 3 * sizeof(float) * (long long)K;
-    const size_t smem = (size_t)p->smem;
-    err = mode == OVR ? occupancy2(row_kernel<OVR, true>, row_kernel<OVR, false>, dev, smem, per_sm)
-                      : occupancy2(row_kernel<MN, true>, row_kernel<MN, false>, dev, smem, per_sm);
+    err = occupancy2(row_kernel<MN, Logistic, true>, row_kernel<MN, Logistic, false>, dev,
+                     (size_t)p->smem, per_sm);
     *units = m;
   }
   return err;
@@ -1476,17 +1531,32 @@ int class_groups(int mode, const Plan& p, int K) {
   return (chunks + (int)p.aux - 1) / (int)p.aux;
 }
 
-template <int MODE>
-void launch(const Plan& p, const float* x, const float* y, const float* mask, const float* beta,
-            const unsigned char* act, long long P, long long m, int d, int K, int grad,
-            float* bpart, cudaStream_t s) {
-  const dim3 grid((unsigned)p.blocks, (unsigned)P, (unsigned)class_groups(MODE, p, K));
+template <typename Fam>
+void launch_ovr(const Plan& p, const float* x, const float* y, const float* mask,
+                const float* beta, const unsigned char* act, long long P, long long m, int d,
+                int K, long long ystride, int grad, float* bpart, cudaStream_t s) {
+  const dim3 grid((unsigned)p.blocks, (unsigned)P, (unsigned)class_groups(OVR, p, K));
   const size_t smem = (size_t)p.smem;
-  if (p.path == 0 && MODE == OVR) {
-    const OvrKern kern = grad ? ovr_instance<true>((int)p.aux, (int)p.R)
-                              : ovr_instance<false>((int)p.aux, (int)p.R);
-    kern<<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, (int)p.R, (int)p.G, bpart);
-  } else if (p.path == 2) {
+  if (p.path == 0) {
+    const OvrKern kern = grad ? ovr_instance<Fam, true>((int)p.aux, (int)p.R)
+                              : ovr_instance<Fam, false>((int)p.aux, (int)p.R);
+    kern<<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, (int)p.R, (int)p.G, ystride,
+                               bpart);
+  } else if (grad) {
+    row_kernel<OVR, Fam, true><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, ystride,
+                                                     bpart);
+  } else {
+    row_kernel<OVR, Fam, false><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K,
+                                                      ystride, bpart);
+  }
+}
+
+void launch_mn(const Plan& p, const float* x, const float* y, const float* mask,
+               const float* beta, const unsigned char* act, long long P, long long m, int d,
+               int K, int grad, float* bpart, cudaStream_t s) {
+  const dim3 grid((unsigned)p.blocks, (unsigned)P, 1u);
+  const size_t smem = (size_t)p.smem;
+  if (p.path == 2) {
     const MnKern kern = grad ? mn_instance<true>(d, K) : mn_instance<false>(d, K);
     kern<<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, (int)p.R, (int)p.G, bpart);
   } else if (p.path == 0) {
@@ -1495,11 +1565,12 @@ void launch(const Plan& p, const float* x, const float* y, const float* mask, co
       tiled_kernel<true><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, R, G, GL, bpart);
     else
       tiled_kernel<false><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, R, G, GL, bpart);
+  } else if (grad) {
+    row_kernel<MN, Logistic, true><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, 0,
+                                                         bpart);
   } else {
-    if (grad)
-      row_kernel<MODE, true><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, bpart);
-    else
-      row_kernel<MODE, false><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, bpart);
+    row_kernel<MN, Logistic, false><<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, 0,
+                                                          bpart);
   }
 }
 
@@ -1511,12 +1582,15 @@ const char* multiclass_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Plans a call of mode (0 OvR, 1 MN) over P shards of m rows, d features
-// and K classes into plan (8 int64s; plan[6] is the floats of scratch it
-// needs), to be passed back to multiclass_value_and_grad.  The plan
-// depends only on (mode, P, m, d, K) and the card, so a lane's sums are
-// taken in the same order whatever the other lanes do.
-int multiclass_plan(int mode, long long P, long long m, int d, int K, void* plan) {
+// Plans a call of mode (0 OvR, 1 MN) and family (OvR: 0 logistic, 1
+// normal; MN: 0) over P shards of m rows, d features and K classes, with
+// OvR's target shared by all K classes (shared != 0: a class stride of 0)
+// or not, into plan (8 int64s; plan[6] is the floats of scratch it
+// needs), to be passed back to multiclass_value_and_grad with the same
+// mode, family and sharing.  The plan depends only on these and the card,
+// so a lane's sums are taken in the same order whatever the other lanes do.
+int multiclass_plan(int mode, int family, long long P, long long m, int d, int K, int shared,
+                    void* plan) {
   Plan* p = (Plan*)plan;
   int dev = 0, sms = 0, per_sm = 1;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1524,7 +1598,7 @@ int multiclass_plan(int mode, long long P, long long m, int d, int K, void* plan
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   long long units = 1;
-  err = plan_mode(mode, dev, m, d, K, p, &units, &per_sm);
+  err = plan_mode(mode, family, dev, m, d, K, shared != 0, p, &units, &per_sm);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) per_sm = 1;
   p->rec = (long long)K * (d + 1);
@@ -1541,24 +1615,29 @@ int multiclass_plan(int mode, long long P, long long m, int d, int K, void* plan
 }
 
 // x (P, m, d), mask (P, m): float32, contiguous, on one device.  Mode 0:
-// y (K, P, m), beta (K*P, d), active (K*P,), f (K*P,), g (K*P, d).  Mode 1:
-// y (P, m) class indices, beta (P, d*K), active (P,), f (P,), g (P, d*K).
-// f and g are written only for active lanes, g only when grad != 0.
-// scratch: plan[6] floats.
-int multiclass_value_and_grad(int mode, const void* x, const void* y, const void* mask,
-                              const void* beta, const void* active, long long P, long long m,
-                              int d, int K, int grad, const void* plan, void* scratch, void* f,
-                              void* g, void* stream) {
+// y (K, P, m) with class stride ystride floats (P*m, or 0 for one target
+// shared by all K classes; each class's (P, m) contiguous), beta (K*P, d),
+// active (K*P,), f (K*P,), g (K*P, d), the terms of `family` (0 logistic,
+// 1 normal).  Mode 1: y (P, m) class indices, beta (P, d*K), active (P,),
+// f (P,), g (P, d*K); family 0, ystride unused.  f and g are written only
+// for active lanes, g only when grad != 0.  plan: multiclass_plan's for
+// the same mode, family and sharing; scratch: plan[6] floats.
+int multiclass_value_and_grad(int mode, int family, const void* x, const void* y,
+                              const void* mask, const void* beta, const void* active,
+                              long long P, long long m, int d, int K, long long ystride, int grad,
+                              const void* plan, void* scratch, void* f, void* g, void* stream) {
   const Plan p = *(const Plan*)plan;
   cudaStream_t s = (cudaStream_t)stream;
   const float *xf = (const float*)x, *yf = (const float*)y, *mf = (const float*)mask,
               *bf = (const float*)beta;
   const unsigned char* act = (const unsigned char*)active;
   float* bpart = (float*)scratch;
-  if (mode == OVR)
-    launch<OVR>(p, xf, yf, mf, bf, act, P, m, d, K, grad, bpart, s);
+  if (mode != OVR)
+    launch_mn(p, xf, yf, mf, bf, act, P, m, d, K, grad, bpart, s);
+  else if (family == NORMAL)
+    launch_ovr<Normal>(p, xf, yf, mf, bf, act, P, m, d, K, ystride, grad, bpart, s);
   else
-    launch<MN>(p, xf, yf, mf, bf, act, P, m, d, K, grad, bpart, s);
+    launch_ovr<Logistic>(p, xf, yf, mf, bf, act, P, m, d, K, ystride, grad, bpart, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int cols = K * (d + 1);

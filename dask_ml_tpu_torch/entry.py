@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -74,19 +75,23 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
       ``t_`` then 3 (on one device: the port has no model axis);
     - ``HyperbandSearchCV`` over ``SGDClassifier(tol=None)`` and 30 alphas,
       ``max_iter=9``, whose ``metadata_`` must equal its ``metadata`` and
-      whose best score must reach 0.7.
+      whose best score must reach 0.7;
+    - the packed C-grid: ``GridSearchCV(LogisticRegression(solver="lbfgs",
+      max_iter=20), {"C": [0.01, 0.1, 1.0, 10.0]}, cv=2)`` under
+      ``DASK_ML_TPU_TORCH_GRID_PACK=packed`` (one ``lambda_sweep`` a fold)
+      and ``sequential`` (a fit a candidate and fold): the packed
+      ``best_score_`` must reach 0.8 and every ``mean_test_score`` agree
+      within 1e-4.
 
     Not run yet, each waiting for its ROADMAP item: ring pairwise
-    distances and MiniBatchKMeans ([port-rest]), the packed C-grid
-    (``lambda_sweep``, [port-search]'s second slice), and the
-    multi-process run ([port-multi]).  Prints the sections it ran and
-    returns their names.
+    distances and MiniBatchKMeans ([port-rest]), and the multi-process run
+    ([port-multi]).  Prints the sections it ran and returns their names.
     """
     from .cluster import KMeans
     from .core.sharded import shard_rows
     from .decomposition import PCA
     from .linear_model import LogisticRegression, SGDClassifier
-    from .model_selection import HyperbandSearchCV
+    from .model_selection import GridSearchCV, HyperbandSearchCV
     from .model_selection._packing import Cohort
 
     ran = []
@@ -161,6 +166,20 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
         assert hb.metadata_["partial_fit_calls"] == hb.metadata["partial_fit_calls"]
         assert hb.best_score_ >= 0.7, f"Hyperband best_score_ {hb.best_score_} < 0.7"
         ran.append("Hyperband")
+
+        grid = {"C": [0.01, 0.1, 1.0, 10.0]}
+        searches = {}
+        for strategy in ("packed", "sequential"):
+            with _env("DASK_ML_TPU_TORCH_GRID_PACK", strategy), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)  # sharded input's unshuffled KFold
+                searches[strategy] = GridSearchCV(
+                    LogisticRegression(solver="lbfgs", max_iter=20), grid, cv=2).fit(sX, sy)
+        gs_p, gs_s = searches["packed"], searches["sequential"]
+        assert gs_p.best_score_ >= 0.8, f"packed grid best_score_ {gs_p.best_score_} < 0.8"
+        gap = np.abs(np.subtract(gs_p.cv_results_["mean_test_score"],
+                                 gs_s.cv_results_["mean_test_score"])).max()
+        assert gap <= 1e-4, f"packed C-sweep is {gap} from the per-candidate fits"
+        ran.append("packed C-grid")
         dev = sX.data.device
     print(f"dryrun_multichip({n_shards}) on {dev}: {', '.join(ran)} OK")
     return ran

@@ -10,9 +10,13 @@ intercept column and exposes ``coef_``/``intercept_``: ``LogisticRegression``
 reference's mixed precision: float32 parameters); what the port does not
 have yet raises ``NotImplementedError`` naming its ROADMAP item
 ([port-admm]): ``fit_checkpoint`` and bf16 X for multi-class fits.
+``_sweep_fit_binary`` and ``_sweep_fit_values`` fit a grid search's values
+of ``C`` as the lanes of one ``lambda_sweep``.
 """
 
 from __future__ import annotations
+
+import inspect
 
 import numpy as np
 import torch
@@ -22,10 +26,14 @@ from ..core.sharded import ShardedRows, as_sharded, unshard
 from ..metrics.pairwise import fp32_matmul
 from ..preprocessing.data import _ingest_float
 from ..solvers import (
-    Logistic, Normal, Poisson, admm, get_regularizer, gradient_descent, lbfgs, multinomial,
-    newton, packed_solve, proximal_grad)
+    Logistic, Normal, Poisson, admm, check_lambda_sweep, get_regularizer, gradient_descent,
+    lambda_sweep, lbfgs, multinomial, newton, packed_solve, proximal_grad)
 from ..utils import host_class_weight_rows, reweight_rows
 from .utils import add_intercept, binary_indicator
+
+# the keyword arguments ``lambda_sweep`` takes besides its data and λs
+_SWEEP_KWARGS = frozenset(inspect.signature(lambda_sweep).parameters) - {
+    "solver", "X", "y", "lams", "family"}
 
 _SOLVERS = {
     "admm": admm,
@@ -91,6 +99,33 @@ class _GLM(TorchEstimator):
         else:
             kwargs["tol"] = self.tol
         return kwargs
+
+    def _sweep_args(self, Cs):
+        """The solver's kwargs for a sweep over ``Cs`` (λ = 1/C a lane,
+        ``lamduh`` left out) and the λs, after ``lambda_sweep``'s argument
+        checks: a ``ValueError`` here is raised before any data is read
+        or any kernel launched.  ``solver_kwargs`` that ``lambda_sweep``
+        does not take (``adaptive_rho``, say) are refused here too."""
+        kwargs = self._solver_call_kwargs()
+        kwargs.pop("lamduh")
+        unknown = sorted(set(kwargs) - _SWEEP_KWARGS)
+        if unknown:
+            raise ValueError(f"lambda_sweep takes no {unknown}")
+        lams = [1.0 / float(c) for c in Cs]
+        check_lambda_sweep(self.solver, lams, family=self.family,
+                           regularizer=kwargs["regularizer"])
+        return kwargs, lams
+
+    def _sweep_fit_values(self, X, y, Cs):
+        """``len(Cs)`` fits of the identity-link family that differ only in
+        ``C``, as the lanes of one ``lambda_sweep`` (reference:
+        ``glm.py :: _sweep_fit_values``); the grid search's packed path
+        calls it, and checks eligibility itself.  Returns betas (K, p)."""
+        kwargs, lams = self._sweep_args(Cs)
+        X = _ingest_x(self, X)
+        Xi = add_intercept(X) if self.fit_intercept else X
+        betas, _ = lambda_sweep(self.solver, Xi, y, lams, family=self.family, **kwargs)
+        return betas
 
     @staticmethod
     def _warm_ok(prev, shape, *, was_multinomial=False, want_multinomial=False,
@@ -160,6 +195,20 @@ class LogisticRegression(ClassifierMixin, _GLM):
 
     family = Logistic
     _multinomial = False  # a fitted softmax model (K > 2)
+
+    def _sweep_fit_binary(self, X, y, Cs, classes):
+        """``len(Cs)`` binary fits that differ only in ``C``, as the lanes
+        of one ``lambda_sweep`` over one 0/1 target (reference: ``glm.py ::
+        _sweep_fit_binary``), 1 where y is ``classes[1]``.  The classes and
+        eligibility (binary labels, no weights, one-vs-rest) are the
+        caller's: the grid search finds both with one read of the fold's
+        labels.  Returns betas (K, p)."""
+        kwargs, lams = self._sweep_args(Cs)
+        X = _ingest_x(self, X)
+        Xi = add_intercept(X) if self.fit_intercept else X
+        betas, _ = lambda_sweep(self.solver, Xi, binary_indicator(as_sharded(y), classes[1]),
+                                lams, family=self.family, **kwargs)
+        return betas
 
     def fit(self, X, y=None, sample_weight=None):
         if self.fit_checkpoint is not None:

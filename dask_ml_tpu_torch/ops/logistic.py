@@ -114,10 +114,12 @@ def logistic_terms(x, y, mask, beta, grad=True):
 
 
 def glm_terms(family, x, y, mask, beta, grad=True):
-    """K2's arithmetic for ``family`` on every lane, in float32 from
-    ``x.float()``: ``(f (P,), g (P, d) or None)``.  Normal's ½ multiplies
-    the masked sum, as the reference's loss does."""
-    x = x.float()
+    """K2's arithmetic for ``family`` on every lane, a bf16 x widened to
+    float32 (other types as they are: float64 for a check in float64):
+    ``(f (P,), g (P, d) or None)``.  Normal's ½ multiplies the masked sum,
+    as the reference's loss does."""
+    if x.dtype == torch.bfloat16:
+        x = x.float()
     if family == "logistic":
         return logistic_terms(x, y, mask, beta, grad)
     eta = torch.einsum("pmd,pd->pm", x, beta)

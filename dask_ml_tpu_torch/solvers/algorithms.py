@@ -23,11 +23,17 @@ classes, and the ADMM loop keeps K consensus vectors, one ρ, one residual
 pair and one round count a class, still reading one flag a loop step for
 all lanes.
 
+``lambda_sweep`` runs L solves of the same (X, y) at L values of λ as the
+lanes of one batched solve (L·P for ``admm``): λ is an (L,) tensor, one
+value a lane, wherever it enters (the penalty and its gradient, the
+prox, Newton's ``H + λI``), and y reaches the lanes as one stride-0 view,
+which K2-OvR stages once a tile for all of them.  Every runner also takes
+a scalar λ, with the bits it always had.
+
 A bfloat16 design matrix stays bf16 (the reference's mixed precision): K2
 reads it as bf16, and β, y, every sum and ADMM's z, u and residuals are
-float32.  Not ported yet (ROADMAP: [port-admm]): ``lambda_sweep``,
-``grid_pack_strategy``, the ``probe_grid`` line search and bf16 X for
-multi-class fits.
+float32.  Not ported yet (ROADMAP: [port-admm]): the ``probe_grid`` line
+search and bf16 X for multi-class fits and sweeps.
 """
 
 from __future__ import annotations
@@ -134,15 +140,23 @@ def _shards(x, yv, mask, n_shards):
     return x.view(P, m, x.shape[1]), yv.view(yv.shape[:-1] + (P, m)), mask.view(P, m)
 
 
+def _lam_col(lam):
+    """λ against a (L, D) batch: a scalar as it is, an (L,) vector as a
+    column, one value a lane."""
+    return lam[:, None] if lam.ndim == 1 else lam
+
+
 def _make_objective(family, reg, x3, y2, m2, lamduh):
     """Total objective of each lane, ``fun(b, active, grad)`` as
-    ``lbfgs_core`` takes it: the family's loss plus the penalty."""
+    ``lbfgs_core`` takes it: the family's loss plus the penalty, λ a
+    scalar tensor or one value a lane (L,)."""
+    lam_g = _lam_col(lamduh)
 
     def obj(b, active, grad):
         if not grad:
             return family.loss(b, x3, y2, m2, active) + reg.penalty(b, lamduh)
         f, g = family.loss_and_grad(b, x3, y2, m2, active)
-        return f + reg.penalty(b, lamduh), g + reg.gradient(b, lamduh)
+        return f + reg.penalty(b, lamduh), g + reg.gradient(b, lam_g)
 
     return obj
 
@@ -161,11 +175,12 @@ def line_search_strategy(requested: str = "auto") -> str:
 
 def _one_shard(x, yv, mask, lamduh, tol):
     """All rows as one shard for the single-lane solvers: ``x3`` (1, n, d),
-    the targets (1, n) or, for L one-vs-rest problems, (L, 1, n), the mask
-    (1, n), and λ and tol as parameter-dtype scalars."""
+    the targets (1, n) or, for L one-vs-rest problems or an L-lane sweep,
+    (L, 1, n), the mask (1, n), tol as a parameter-dtype scalar and λ as
+    one (a float) or one value a lane (an (L,) tensor)."""
     x3, y2, m2 = _shards(x, yv, mask, 1)
     dt, dev = _param_dtype(x), x.device
-    return (x3, y2, m2, torch.tensor(lamduh, dtype=dt, device=dev),
+    return (x3, y2, m2, torch.as_tensor(lamduh, dtype=dt, device=dev),
             torch.tensor(tol, dtype=dt, device=dev))
 
 
@@ -345,7 +360,7 @@ def _newton_run(x, yv, mask, B0, lamduh, max_iter, tol, *, family, reg, line_sea
             w = family.hessian_weights((xf @ beta.T).T) * m1
             H = torch.stack([(xf * w[lane, :, None]).T @ xf for lane in range(L)])
         if reg.smooth:
-            H = H + lam * eye
+            H = H + (lam[:, None, None] if lam.ndim == 1 else lam) * eye
         H = H + 1e-8 * eye
         p = -torch.linalg.solve_ex(H, g)[0]
         t, _, f_new, _ = run_line_search(line_search, obj, beta, f, g, p, 1e-4, 30, running,
@@ -385,9 +400,11 @@ def _admm_run(x3, y, m2, lamduh, rho, abstol, reltol, inner_tol, max_it, z_init,
               family, reg, inner_iter, line_search, adaptive_rho):
     """The reference's ``_admm_run`` with the P shards as lanes, for one
     problem (``y`` (P, m)) or, under ``packed_solve``, K one-vs-rest
-    problems over the same rows (``y`` (K, P, m)): K·P lanes, lane
-    ``k·P + p`` the class k of shard p, with K consensus vectors, ρs,
-    residual pairs and round counts.  A class whose loop has ended keeps
+    problems over the same rows (``y`` (K, P, m)), or, under
+    ``lambda_sweep``, K values of λ (``lamduh`` (K,)) over one target
+    (``y`` a stride-0 (K, P, m) view): K·P lanes, lane ``k·P + p`` the
+    problem k on shard p, with K consensus vectors, ρs, residual pairs and
+    round counts.  A class whose loop has ended keeps
     its state bit for bit and its lanes drop out of every evaluation, as
     a lane of the reference's vmapped ``while_loop`` does; one flag a loop
     step is read for all classes.  ``z_init`` (K, D); returns (z (K, D),
@@ -434,7 +451,7 @@ def _admm_run(x3, y, m2, lamduh, rho, abstol, reltol, inner_tol, max_it, z_init,
         bk = b_new.view(K, P, D)
         b_bar = torch.sum(bk, dim=1) / P
         u_bar = torch.sum(u0.view(K, P, D), dim=1) / P
-        z_new = reg.prox(b_bar + u_bar, lamduh / (rho_c[:, None] * P))
+        z_new = reg.prox(b_bar + u_bar, _lam_col(lamduh) / (rho_c[:, None] * P))
         u_new = u0 + b_new - per_lane(z_new)
         # residual pieces: per-shard sums, then the sum over shards
         primal_sq = torch.sum(torch.sum((bk - z_new[:, None]) ** 2, dim=2), dim=1)
@@ -478,7 +495,8 @@ def _admm_run(x3, y, m2, lamduh, rho, abstol, reltol, inner_tol, max_it, z_init,
 def _admm_solve(x, yv, mask, Z0, P, *, lamduh, rho, abstol, reltol, inner_tol, max_iter,
                 family, reg, inner_iter, line_search, adaptive_rho):
     """``_admm_run`` on the padded rows split into P shards: ``yv`` (n,)
-    and ``Z0`` (1, D), or K one-vs-rest targets (K, n) and (K, D)."""
+    and ``Z0`` (1, D), or K targets (K, n) and (K, D); ``lamduh`` a float,
+    or (K,) one value a problem."""
     dt = _param_dtype(x)
     x3, y2, m2 = _shards(x, yv, mask, P)
 
@@ -486,7 +504,8 @@ def _admm_solve(x, yv, mask, Z0, P, *, lamduh, rho, abstol, reltol, inner_tol, m
         return torch.tensor(v, dtype=dt, device=x.device)
 
     return _admm_run(
-        x3, y2, m2, scalar(lamduh), rho, scalar(abstol), scalar(reltol), float(inner_tol),
+        x3, y2, m2, torch.as_tensor(lamduh, dtype=dt, device=x.device), rho, scalar(abstol),
+        scalar(reltol), float(inner_tol),
         int(max_iter), Z0, family=family, reg=reg, inner_iter=int(inner_iter),
         line_search=line_search, adaptive_rho=adaptive_rho)
 
@@ -628,3 +647,98 @@ def packed_solve(solver: str, X, Y, *, family: type[Family] = Logistic,
         betas = torch.cat([b for b, _ in outs])
         n_its = torch.cat([n for _, n in outs])
     return betas, n_its.cpu().numpy().astype(np.int32)
+
+
+# ------------------------------------------------------ lambda sweep --
+
+_GRID_PACK_ENV = "DASK_ML_TPU_TORCH_GRID_PACK"
+
+
+def grid_pack_strategy(device=None) -> str:
+    """Whether a grid search's C-sweep runs packed (``lambda_sweep``),
+    ``DASK_ML_TPU_TORCH_GRID_PACK`` = ``packed`` | ``sequential`` | ``auto``
+    (reference: ``algorithms.py :: grid_pack_strategy``,
+    ``DASK_ML_TPU_GRID_PACK``).  A knob of its own, apart from
+    ``DASK_ML_TPU_TORCH_PACK``, as in the reference.  ``auto`` (default) is
+    packed on CUDA and sequential on the CPU; ``device`` (default: the
+    active device) is where the rows lie."""
+    v = os.environ.get(_GRID_PACK_ENV, "auto").strip().lower()
+    if v not in ("auto", "packed", "sequential"):
+        raise ValueError(f"{_GRID_PACK_ENV} must be auto|packed|sequential, got {v!r}")
+    if v != "auto":
+        return v
+    device = torch.device(device) if device is not None else get_device()
+    return "packed" if device.type == "cuda" else "sequential"
+
+
+def check_lambda_sweep(solver: str, lams, *, family: type[Family] = Logistic,
+                       regularizer=L2) -> np.ndarray:
+    """The argument checks of :func:`lambda_sweep`, which touch no data and
+    launch nothing; returns ``lams`` as a float64 numpy vector.  Raises
+    ``ValueError`` as the reference's ``lambda_sweep`` does: ``lams`` not
+    1-D, an unknown solver, a penalty that is not smooth under ``lbfgs``,
+    ``gradient_descent`` or ``newton`` (with a nonzero λ), or a
+    matrix-parameter family under ``newton``."""
+    reg = get_regularizer(regularizer)
+    lam = np.asarray(lams, dtype=np.float64)
+    if lam.ndim != 1:
+        raise ValueError(f"lams must be 1-D, got shape {lam.shape}")
+    if solver == "admm":
+        return lam
+    if solver not in _RUNNERS:
+        raise ValueError(f"Unknown solver {solver!r}")
+    if solver in ("lbfgs", "gradient_descent", "newton") and not reg.smooth \
+            and bool(np.any(lam)):
+        raise ValueError(f"{solver} requires a smooth penalty; got {reg.__name__}")
+    if solver == "newton" and getattr(family, "params_per_feature", 1) > 1:
+        raise ValueError("newton does not support matrix-parameter families")
+    return lam
+
+
+def lambda_sweep(solver: str, X, y, lams, *, family: type[Family] = Logistic,
+                 regularizer=L2, max_iter: int = 100, tol: float = 1e-5,
+                 rho: float = 1.0, abstol: float = 1e-4, reltol: float = 1e-2,
+                 inner_iter: int = 50, inner_tol: float = 1e-6, n_shards=None,
+                 line_search: str = "backtrack"):
+    """L solves of the same (X, y) at the L values of ``lams`` as the lanes
+    of one batched solve (reference: ``algorithms.py :: lambda_sweep``, a
+    ``jax.vmap`` over λ): L lanes for ``lbfgs``, ``gradient_descent``,
+    ``proximal_grad`` and ``newton``, L·P for ``admm`` (P = ``n_shards``,
+    default ``core.get_n_shards()``), each lane stopping by its own rules.
+    The line search is ``backtrack`` (lanes in lockstep run one), as the
+    reference forces it.
+
+    y reaches the lanes as one stride-0 view ``(L, P, m)`` of its single
+    copy, padded once beforehand, never as L copies: the objective's
+    evaluations are K2-OvR launches that stage one target run a tile for
+    all the lanes.  Every lane starts from zeros.  The grid search calls
+    this under ``grid_pack_strategy() == "packed"``; there is no sequential
+    fallback here.
+
+    Returns (betas (L, D) tensor, n_iters (L,) int32 tensor) on X's device.
+    """
+    reg = get_regularizer(regularizer)
+    lam_np = check_lambda_sweep(solver, lams, family=family, regularizer=reg)
+    if line_search != "backtrack":
+        logger.info("lambda_sweep forces line_search='backtrack' (requested %r)", line_search)
+    x, yv, mask = _prep(X, y)
+    _no_bf16_multiclass(x)
+    dt, dev = _param_dtype(x), x.device
+    lam = torch.as_tensor(lam_np, dtype=dt, device=dev)
+    L = lam.shape[0]
+    DISPATCH_COUNTS["solves"] += 1
+    P = (get_n_shards() if n_shards is None else int(n_shards)) if solver == "admm" else 1
+    pad = (-x.shape[0]) % P
+    if pad:  # once, before the lanes' view: _shards then concatenates nothing
+        x = torch.cat([x, x.new_zeros(pad, x.shape[1])])
+        yv = torch.cat([yv, yv.new_zeros(pad)])
+        mask = torch.cat([mask, mask.new_zeros(pad)])
+    Y = yv.expand(L, yv.shape[0])
+    B0 = torch.zeros(L, _pdim(x, family), dtype=dt, device=dev)
+    if solver == "admm":
+        return _admm_solve(
+            x, Y, mask, B0, P, lamduh=lam, rho=rho, abstol=abstol, reltol=reltol,
+            inner_tol=inner_tol, max_iter=max_iter, family=family, reg=reg,
+            inner_iter=inner_iter, line_search="backtrack", adaptive_rho=True)
+    extra = {} if solver == "proximal_grad" else {"line_search": "backtrack"}
+    return _RUNNERS[solver](x, Y, mask, B0, lam, max_iter, tol, family=family, reg=reg, **extra)

@@ -7,11 +7,13 @@ a row shard) and take explicit gradients: ``Logistic.loss`` and
 of x per evaluation, or, for K one-vs-rest targets ``y`` (K, P, m) over
 K·P lanes, through K2-OvR (``ops/multiclass.py``), one read of x for all
 K classes; ``multinomial(K)`` goes through K2-MN.  ``Normal`` and
-``Poisson`` go through K2's other two families.  A bfloat16 X (the
-reference's mixed precision) goes through K2 for the binary families; the
-multi-class kernels take float32 only, so a bf16 X with one-vs-rest
-targets or a multinomial family raises (ROADMAP: [port-admm] bf16
-multi-class).
+``Poisson`` go through K2's other two families; ``Normal`` with K targets
+(K, P, m), a packed fit's or a sweep's one shared target, through K2-OvR's
+Normal family.  A bfloat16 X (the reference's mixed precision) goes
+through K2 for the binary families; the multi-class kernels take float32
+only, so a bf16 X with K targets or a multinomial family raises (ROADMAP:
+[port-admm] bf16 multi-class), and so do packed Poisson targets (ROADMAP:
+[port-admm] packed Poisson).
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ def _no_bf16_multiclass(X):
 def _one_target(y, family):
     if y.ndim != 2:
         raise NotImplementedError(
-            f"{family} takes one target a lane, y (P, m); packed one-vs-rest targets "
-            "are the logistic family's (ROADMAP: [port-admm] packed Normal/Poisson)")
+            f"{family} takes one target a lane, y (P, m); packed targets are the "
+            "logistic and normal families' (ROADMAP: [port-admm] packed Poisson)")
 
 
 class Family:
@@ -90,16 +92,22 @@ class Logistic(Family):
 
 
 class Normal(Family):
-    """Gaussian: loss = ½ Σ mask·(y − Xβ)²."""
+    """Gaussian: loss = ½ Σ mask·(y − Xβ)².  A 3-D ``y`` (K, P, m) holds K
+    targets of the same rows (lanes as the logistic family's), evaluated
+    by K2-OvR's Normal family."""
 
     @staticmethod
     def loss(beta, X, y, mask, active=None):
-        _one_target(y, "Normal")
+        if y.ndim == 3:
+            _no_bf16_multiclass(X)
+            return multiclass.normal_ovr_value(X, y, mask, beta, active)
         return logistic.normal_value(X, y, mask, beta, active)
 
     @staticmethod
     def loss_and_grad(beta, X, y, mask, active=None):
-        _one_target(y, "Normal")
+        if y.ndim == 3:
+            _no_bf16_multiclass(X)
+            return multiclass.normal_ovr_value_and_grad(X, y, mask, beta, active)
         return logistic.normal_value_and_grad(X, y, mask, beta, active)
 
     @staticmethod

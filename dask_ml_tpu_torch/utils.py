@@ -48,6 +48,23 @@ def check_array(array):
     return array
 
 
+def check_consistent_length(*arrays):
+    """Raise where the arrays (None skipped; a ShardedRows by its true row
+    count) disagree on their number of rows."""
+    lengths = set()
+    for a in arrays:
+        if a is None:
+            continue
+        if isinstance(a, ShardedRows):
+            n = a.n_samples
+        else:
+            shape = getattr(a, "shape", None)
+            n = shape[0] if shape else len(a)
+        lengths.add(int(n))
+    if len(lengths) > 1:
+        raise ValueError(f"Inconsistent sample counts: {sorted(lengths)}")
+
+
 def safe_denominator(x):
     """0-safe divisor that preserves fractional weight masses: the mask
     doubles as the per-row weight, so sub-unit masses are legitimate and

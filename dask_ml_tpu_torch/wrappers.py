@@ -132,13 +132,14 @@ class ParallelPostFit(TorchEstimator):
 
     def score(self, X, y, compute=True):
         """The estimator's own ``score`` on host rows (``scoring=None``), or
-        ``scoring(self, X, y)`` for a callable."""
-        if isinstance(self.scoring, str):
-            raise NotImplementedError(
-                "a string scoring is not ported yet (ROADMAP: [port-rest] metrics/scorer); "
-                "pass a callable scorer(estimator, X, y)")
+        the scorer that ``metrics.scorer.check_scoring`` gives for
+        ``scoring`` (a callable, or a name: ``accuracy`` and ``r2`` are
+        ported, the other names raise from ``get_scorer``) on this wrapper."""
+        from .metrics.scorer import check_scoring
+
+        scorer = check_scoring(self._postfit_estimator, self.scoring)
         if self.scoring:
-            return self.scoring(self, X, y)
+            return scorer(self, X, y)
         Xh = unshard(X) if isinstance(X, ShardedRows) else X
         yh = unshard(y) if isinstance(y, ShardedRows) else y
         return self._postfit_estimator.score(Xh, yh)

@@ -7,7 +7,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 Builds ``dask_ml_tpu_torch/csrc/multiclass.cu`` ("current"), each named
 variant of it (a text edit, listed in ``VARIANTS``) and, with ``--parent``,
-another copy of the source (an earlier tree's), all with ``nvcc`` at once
+another copy of the source (an earlier tree's whose C interface takes
+the mode, the family and the target's class stride), all with ``nvcc`` at
+once
 into ``dask_ml_tpu_torch/_build/variants/``.  Then it times both K2-MN
 variants of each library through ctypes, in turns (the list forward, then
 backward), at the multinomial fit's (8, 1.375M, 29), K=4 and at
@@ -77,9 +79,9 @@ def build(sources):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{err}")
         lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
-        lib.multiclass_plan.argtypes = [i32, ll, ll, i32, i32, vp]
-        lib.multiclass_value_and_grad.argtypes = [i32, vp, vp, vp, vp, vp, ll, ll, i32, i32, i32,
-                                                  vp, vp, vp, vp, vp]
+        lib.multiclass_plan.argtypes = [i32, i32, ll, ll, i32, i32, i32, vp]
+        lib.multiclass_value_and_grad.argtypes = [i32, i32, vp, vp, vp, vp, vp, ll, ll, i32,
+                                                  i32, ll, i32, vp, vp, vp, vp, vp]
         libs[name] = lib
     return libs
 
@@ -149,15 +151,15 @@ def main() -> int:
         for key, (x, y, mask, B, act, K) in data.items():
             P, m, d = x.shape
             plan = (ctypes.c_longlong * 8)()
-            if lib.multiclass_plan(1, P, m, d, K, plan):
+            if lib.multiclass_plan(1, 0, P, m, d, K, 0, plan):
                 raise RuntimeError(f"{name}: multiclass_plan failed")
             scratch = torch.empty(plan[6], device="cuda")
             f, g = torch.zeros(P, device="cuda"), torch.zeros_like(B)
 
             def call(grad):
                 err = lib.multiclass_value_and_grad(
-                    1, x.data_ptr(), y.data_ptr(), mask.data_ptr(), B.data_ptr(),
-                    act.data_ptr(), P, m, d, K, int(grad), plan, scratch.data_ptr(),
+                    1, 0, x.data_ptr(), y.data_ptr(), mask.data_ptr(), B.data_ptr(),
+                    act.data_ptr(), P, m, d, K, 0, int(grad), plan, scratch.data_ptr(),
                     f.data_ptr(), g.data_ptr(), torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")

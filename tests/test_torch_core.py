@@ -133,7 +133,9 @@ def test_port_and_chip_smoke_import_none_of_jax_reference_or_sklearn_ast():
                    "decomposition/truncated_svd.py", "decomposition/incremental_pca.py",
                    "io.py", "data/__init__.py", "data/format.py", "data/manifest.py",
                    "data/shuffle.py", "data/readers.py", "pipeline/__init__.py",
-                   "pipeline/core.py", "pipeline/staging.py", "pipeline/stats.py"):
+                   "pipeline/core.py", "pipeline/staging.py", "pipeline/stats.py",
+                   "model_selection/_search.py", "model_selection/_split.py",
+                   "compose/__init__.py", "compose/_pipeline.py"):
         assert f"dask_ml_tpu_torch/{module}" in scanned, module
     found = []
     for path in files:
@@ -177,6 +179,13 @@ def test_port_imports_none_of_jax_reference_or_sklearn_at_run_time():
         "                         {'alpha': np.logspace(-5, 0, 20)}, max_iter=9,\n"
         "                         random_state=0, chunk_size=100).fit(Xs, ys, classes=[0, 1])\n"
         "assert hb.metadata_ == hb.metadata and hb.best_score_ > 0.7\n"
+        "gs = p.GridSearchCV(p.make_pipeline(p.PCA(n_components=3), p.LogisticRegression()),\n"
+        "                    {'logisticregression__C': [0.1, 1.0]}, cv=3).fit(Xs, ys)\n"
+        "assert gs.best_score_ > 0.7\n"
+        "import os\n"
+        "os.environ['DASK_ML_TPU_TORCH_GRID_PACK'] = 'packed'\n"
+        "gs = p.GridSearchCV(p.LinearRegression(), {'C': [0.1, 1.0]}, cv=3).fit(Xs, Xs[:, 0])\n"
+        "assert gs.best_score_ > 0.9\n"
         "import tempfile\n"
         "from dask_ml_tpu_torch import data, io\n"
         "with tempfile.TemporaryDirectory() as tmp:\n"

@@ -2,8 +2,9 @@
 repository's ``__graft_entry__.py``, on the CPU: ``entry()``'s forward on
 its example arguments within 1e-6 of the reference's, and
 ``dryrun_multichip`` at 8 logical shards, its scanned-SGD section's
-``t_ > 2`` check and the packed cohort's and Hyperband's sections among
-them."""
+``t_ > 2`` check and the packed C-grid's packed-against-sequential check,
+and the packed cohort's, Hyperband's and the packed C-grid's sections
+among them."""
 
 import os
 
@@ -46,13 +47,16 @@ def test_entry_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 def test_dryrun_multichip_runs_its_sections(capsys, monkeypatch):
     monkeypatch.delenv("DASK_ML_TPU_TORCH_PACK", raising=False)
+    monkeypatch.delenv("DASK_ML_TPU_TORCH_GRID_PACK", raising=False)
     ran = dryrun_multichip(8, device="cpu")
     assert ran == ["binary ADMM", "bf16 lbfgs", "KMeans init=random", "PCA via TSQR",
                    "packed OvR ADMM", "multinomial lbfgs", "class_weight balanced",
-                   "scanned minibatch SGD", "packed SGD cohort", "Hyperband"]
+                   "scanned minibatch SGD", "packed SGD cohort", "Hyperband", "packed C-grid"]
     out = capsys.readouterr().out
     assert "dryrun_multichip(8) on cpu" in out and "packed OvR ADMM" in out
+    assert "packed C-grid" in out
     assert "DASK_ML_TPU_TORCH_PACK" not in os.environ
+    assert "DASK_ML_TPU_TORCH_GRID_PACK" not in os.environ
     assert mesh.get_n_shards() == 1  # the shard count was scoped to the dryrun
 
 
@@ -63,4 +67,16 @@ def test_dryrun_scanned_sgd_section_checks_the_minibatch_path(monkeypatch):
 
     monkeypatch.setattr(_sgd, "_minibatch_views", lambda *a, **k: None)
     with pytest.raises(AssertionError, match=r"minibatch path did not engage \(t_=2.0\)"):
+        dryrun_multichip(8, device="cpu")
+
+
+def test_dryrun_packed_grid_section_checks_packed_against_sequential(monkeypatch):
+    """The eleventh section fails when the packed C-sweep's scores leave the
+    per-candidate fits' by more than 1e-4."""
+    from dask_ml_tpu_torch.model_selection import _search
+
+    real = _search._sweep_accuracy
+    monkeypatch.setattr(_search, "_sweep_accuracy",
+                        lambda *args: real(*args) - 0.01)
+    with pytest.raises(AssertionError, match="packed C-sweep is"):
         dryrun_multichip(8, device="cpu")

@@ -21,7 +21,7 @@ import jax.numpy as jnp
 
 from dask_ml_tpu.solvers import families as ref_families
 from dask_ml_tpu_torch.core import mesh
-from dask_ml_tpu_torch.ops import logistic
+from dask_ml_tpu_torch.ops import logistic, multiclass
 from dask_ml_tpu_torch.solvers import Logistic, Normal, Poisson, multinomial
 
 TOL = 1e-5
@@ -176,8 +176,12 @@ def test_families_route_through_k2_and_refuse_what_it_does_not_take():
     assert torch.equal(Normal.loss(beta, x, y, mask),
                        logistic.glm_value_and_grad_ref("normal", x, y, mask, beta, grad=False)[0])
     Y = torch.stack([y, y])
-    with pytest.raises(NotImplementedError, match="packed Normal/Poisson"):
-        Normal.loss(beta.repeat(2, 1), x, Y, mask)
+    # K targets of the Normal family go through K2-OvR's Normal family
+    f2, g2 = Normal.loss_and_grad(beta.repeat(2, 1), x, Y, mask)
+    rf2, rg2 = multiclass.normal_ovr_value_and_grad_ref(x, Y, mask, beta.repeat(2, 1))
+    assert torch.equal(f2, rf2) and torch.equal(g2, rg2)
+    with pytest.raises(NotImplementedError, match="packed Poisson"):
+        Poisson.loss(beta.repeat(2, 1), x, Y, mask)
     with pytest.raises(NotImplementedError, match="bf16 multi-class"):
         Logistic.loss_and_grad(beta.repeat(2, 1), x.bfloat16(), (Y > 2).float(), mask)
     with pytest.raises(NotImplementedError, match="bf16 multi-class"):

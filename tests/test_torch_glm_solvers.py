@@ -270,8 +270,8 @@ def test_packed_solve_refuses_what_it_does_not_take(monkeypatch):
         solvers.packed_solve("newton", X, Y, family=solvers.multinomial(3))
     with pytest.raises(NotImplementedError, match="bf16 multi-class"):
         solvers.packed_solve("gradient_descent", torch.from_numpy(X).bfloat16(), Y)
-    with pytest.raises(NotImplementedError, match="packed Normal/Poisson"):
-        solvers.packed_solve("lbfgs", X, Y, family=solvers.Normal)
+    with pytest.raises(NotImplementedError, match="packed Poisson"):
+        solvers.packed_solve("lbfgs", X, Y, family=solvers.Poisson)
 
 
 def test_pack_strategy_defaults_to_the_active_device(monkeypatch):

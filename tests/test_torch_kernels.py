@@ -1,5 +1,6 @@
 """The Lloyd kernels, K2 (the logistic, normal and Poisson losses and
-gradients, on float32 or bfloat16 x) and K2-OvR and K2-MN (the
+gradients, on float32 or bfloat16 x) and K2-OvR (its logistic and Normal
+families, on K targets of their own or one shared target) and K2-MN (the
 multi-class losses) against their plain versions, on a card.
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip without a
@@ -500,4 +501,100 @@ def test_multiclass_wrappers_count_their_launches(cuda):
         before = (vg.launches, v.launches, ref.calls)
         vg(x, y, mask, beta)
         v(x, y, mask, beta)
+        assert (vg.launches, v.launches, ref.calls) == (before[0] + 1, before[1] + 1, before[2])
+
+
+# ------------------------------------------- K2-OvR: families, shared target
+
+_OVR_FAMILIES = {
+    "logistic": (multiclass.logistic_ovr_value_and_grad, multiclass.logistic_ovr_value,
+                 multiclass.logistic_ovr_value_and_grad_ref),
+    "normal": (multiclass.normal_ovr_value_and_grad, multiclass.normal_ovr_value,
+               multiclass.normal_ovr_value_and_grad_ref)}
+
+
+def _ovr_family_inputs(family, P, m, d, K, shared, seed, device):
+    """x, mask, beta as ``_multiclass_inputs`` makes them; targets 0/1
+    (logistic) or real (normal), K of their own or one expanded to K."""
+    x, y, mask, beta, lanes = _multiclass_inputs("ovr", P, m, d, K, seed, device)
+    if family == "normal":
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        y = torch.randn(K, P, m, generator=gen, device=device) * 2.0
+    if shared:
+        y = y[0].expand(K, P, m)
+    return x, y, mask, beta, lanes
+
+
+def _ovr_family_magnitudes(family, x, Y, mask, beta):
+    """Σ|terms| of f and of each g element, in float64."""
+    x, Y, mask, beta = x.double(), Y.double(), mask.double(), beta.double()
+    P, m, d = x.shape
+    K = Y.shape[0]
+    eta = torch.einsum("pmd,kpd->kpm", x, beta.view(K, P, d))
+    if family == "logistic":
+        sp = torch.logaddexp(torch.zeros_like(eta), eta)
+        f_mag = (mask * (sp.abs() + (Y * eta).abs())).sum(2).reshape(K * P)
+        w = (mask * (torch.sigmoid(eta) - Y)).abs()
+    else:
+        f_mag = (mask * 0.5 * (Y - eta) ** 2).sum(2).reshape(K * P)
+        w = (mask * (eta - Y)).abs()
+    return f_mag, torch.einsum("kpm,pmd->kpd", w, x.abs()).reshape(K * P, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["logistic", "normal"])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("P,m,d,K", [
+    (1, 1001, 3, 2), (8, 1375, 29, 8), (3, 777, 1, 16), (2, 300, 29, 100), (2, 300, 2000, 4),
+    # off 16-byte boundaries (m = 1, 2, 3 mod 4), fewer rows than a tile,
+    # K = 1 and 5, more gradient columns than threads, the sweep's P = 1
+    (3, 1001, 29, 4), (2, 1002, 28, 16), (4, 1003, 29, 5), (2, 37, 29, 3), (3, 1000, 29, 1),
+    (2, 301, 600, 16), (1, 100003, 28, 8)])
+def test_ovr_families_on_shared_and_own_targets_match_plain_version(cuda, family, shared, P, m,
+                                                                     d, K):
+    """Both families' variants within TOL of the float64 plain version's
+    Σ|terms|, with all lanes and with every third lane inactive (unwritten);
+    the same f from both variants and the same bits twice; a shared target
+    gives what its materialized copy gives, within TOL."""
+    vg, v, ref = _OVR_FAMILIES[family]
+    x, Y, mask, beta, lanes = _ovr_family_inputs(family, P, m, d, K, shared, P * m + d + K,
+                                                 cuda)
+    assert multiclass.shared_target(Y) == (shared and K > 1) or K == 1
+    f_mag, g_mag = _ovr_family_magnitudes(family, x, Y, mask, beta)
+    for active in (None, torch.arange(lanes, device=cuda) % 3 != 1):
+        f, g = vg(x, Y, mask, beta, active)
+        fv = v(x, Y, mask, beta, active)
+        again = vg(x, Y, mask, beta, active)
+        torch.cuda.synchronize()
+        on = torch.ones(lanes, dtype=torch.bool, device=cuda) if active is None else active
+        assert not bool(f[~on].any()) and not bool(g[~on].any()) and not bool(fv[~on].any())
+        assert torch.equal(f, fv)
+        assert torch.equal(f, again[0]) and torch.equal(g, again[1])
+        rf, rg = ref(x.double(), Y.double(), mask.double(), beta.double())
+        assert bool(((f.double() - rf).abs()[on] <= TOL * f_mag[on] + 1e-6).all())
+        assert bool(((g.double() - rg).abs()[on] <= TOL * g_mag[on] + 1e-6).all())
+        if shared:
+            fc, gc = vg(x, Y.contiguous(), mask, beta, active)
+            assert bool(((f - fc).abs()[on].double() <= TOL * f_mag[on] + 1e-6).all())
+            assert bool(((g - gc).abs()[on].double() <= TOL * g_mag[on] + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_ovr_rejects_a_target_that_is_neither_contiguous_nor_shared(cuda):
+    x, Y, mask, beta, _ = _multiclass_inputs("ovr", 2, 100, 5, 3, 1, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        multiclass.normal_ovr_value(x, Y.transpose(1, 2).contiguous().transpose(1, 2), mask,
+                                    beta)
+    with pytest.raises(ValueError, match="contiguous"):
+        multiclass.logistic_ovr_value(x, Y[0][:, ::2].expand(3, 2, 50), mask[:, ::2].contiguous(),
+                                      beta)
+
+
+@pytest.mark.cuda
+def test_ovr_family_wrappers_count_their_launches(cuda):
+    for family, (vg, v, ref) in _OVR_FAMILIES.items():
+        x, Y, mask, beta, _ = _ovr_family_inputs(family, 2, 100, 5, 3, True, 1, cuda)
+        before = (vg.launches, v.launches, ref.calls)
+        vg(x, Y, mask, beta)
+        v(x, Y, mask, beta)
         assert (vg.launches, v.launches, ref.calls) == (before[0] + 1, before[1] + 1, before[2])

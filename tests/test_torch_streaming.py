@@ -185,8 +185,28 @@ def test_parallel_post_fit_predicts_like_the_reference():
     assert port.score(X, y) == pytest.approx(ref.score(X, y), abs=1e-6)
     scorer = lambda est, X_, y_: -1.0  # noqa: E731
     assert ParallelPostFit(SGDClassifier(), scoring=scorer).fit(X, y).score(X, y) == -1.0
-    with pytest.raises(NotImplementedError, match="metrics/scorer"):
-        ParallelPostFit(SGDClassifier(), scoring="accuracy").fit(X, y).score(X, y)
+    # a string scoring goes through check_scoring; names not ported raise there
+    acc = ParallelPostFit(SGDClassifier(**kw), scoring="accuracy").fit(X, y).score(X, y)
+    assert acc == pytest.approx(port.score(X, y), abs=1e-12)
+    with pytest.raises(NotImplementedError, match="port-rest"):
+        ParallelPostFit(SGDClassifier(), scoring="f1").fit(X, y).score(X, y)
+    with pytest.raises(ValueError, match="not a valid scoring value"):
+        ParallelPostFit(SGDClassifier(), scoring="nonsense").fit(X, y).score(X, y)
+
+
+@pytest.mark.parametrize("scoring", ["accuracy", "r2"])
+def test_parallel_post_fit_scores_a_string_scoring_like_the_reference(scoring):
+    X, y = _data(8)
+    kw = dict(max_iter=5, tol=None)
+    if scoring == "r2":
+        y = (X @ np.arange(1.0, 6.0) + 0.1).astype(np.float32)
+        make, make_ref = SGDRegressor, RefSGDRegressor
+    else:
+        make, make_ref = SGDClassifier, RefSGDClassifier
+    port = ParallelPostFit(make(**kw), scoring=scoring).fit(X, y)
+    ref = RefParallelPostFit(make_ref(**kw), scoring=scoring).fit(X, y)
+    _hold(port.estimator_, ref.estimator_)
+    assert port.score(X, y) == pytest.approx(float(ref.score(X, y)), abs=1e-5)
 
 
 def test_parallel_post_fit_takes_a_prefitted_estimator_and_rejects_an_unfitted_one():
