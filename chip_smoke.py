@@ -243,7 +243,37 @@ Phases, in order; any failure exits non-zero:
    13e: ``GridSearchCV(make_pipeline(PCA(), LogisticRegression()),
    {"pca__n_components": [8, 16], "logisticregression__C": [0.1, 1, 10]},
    cv=3)`` on the first 2^22 rows: PCA fitted 2·3 times (+1 for the refit),
-   not 6·3.  Then the ``kernels`` line, the card line and the result.
+   not 6·3.
+14. MiniBatchKMeans through K7 (``csrc/minibatch.cu``), the pairwise
+   distances through K10 (``csrc/pairwise.cu``) and SpectralClustering's
+   Nyström path, on phase 4's blobs (100M x 50, k = 8, made anew).  14a:
+   ``MiniBatchKMeans(n_clusters=8, random_state=0, max_iter=3)`` at the
+   default batch_size (97,656 steps an epoch, one K7b launch each): the wall
+   time, ms an epoch and us a step, ``n_iter_``, ``n_steps_``,
+   ``inertia_/n``, K7b, K1b and reseed counts, peak memory, and one epoch
+   profiled (idle share, device time by kernel); gates as phase 4's.  14b:
+   ``_partial.fit`` of ``MiniBatchKMeans(n_clusters=8, init=14a's
+   centres)`` over 16 host blocks of 2^20 x 50 at prefetch depths 0 and 2,
+   then the same blocks on the card as ``ShardedRows``: ms a block, K1a and
+   K7a launches a block; gates: every run bit-equal, the centres after 8
+   blocks within 1e-4·max|c| of the plain versions'.  14c: K7a at 14b's
+   shape (bit-equal to its plain version), K7b over 1024 steps of the first
+   2^20 rows and over the main path's epoch (centres within 1e-5 and 1e-4 of
+   max|c|, the mean inertia rtol 1e-5), K10 in each epilogue at 14d's and
+   14e's shapes (d² within TOL of ‖x−a‖²+‖y−a‖², flagged counts equal) and
+   on near-duplicates at an offset of 1e3 (the exact recompute on the card,
+   held to the float64 Σ(x−y)²), each timed by CUDA events beside its plain
+   version, its bound and (K10's ``euclid``) ``torch.cdist``.  14d:
+   ``euclidean_distances`` of 2^20 rows against 1024, ``sqeuclidean`` at the
+   same shape, the self ring of 32,768 rows in 8 shards (diagonal exactly 0,
+   symmetric within 1e-5·max) and ``pairwise_distances_argmin_min`` of all
+   rows against 512 through K1b (indices equal the plain version's off
+   near-ties on the first 2^20 rows).  14e:
+   ``SpectralClustering(n_clusters=8, random_state=0)`` (rbf, γ = 1/d,
+   ``n_components=100``) on the first 10M rows: its phases' times, K10, K1a
+   and K1b launches, ``eigenvalues_``; gate: each true blob in one found
+   cluster, a different one each, for at least 99% of its rows.  Then the
+   ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -4605,6 +4635,556 @@ def grid_phase(torch, multiclass, logistic, algorithms, device, card):
     return out
 
 
+MBK_K = 8
+MBK_ITER = 3
+MBK_BATCH = 1024  # MiniBatchKMeans' default batch_size
+MBK_EPOCH_REPS = 3  # K7b launches timed at the full epoch (each ~97,656 steps)
+STREAM_ROWS = 1 << 20
+STREAM_BLOCKS = 16
+STREAM_PLAIN = 8  # 14b's blocks also stepped through the plain versions
+EPOCH_CHECK_STEPS = 1024  # 14c: K7b over one epoch of the first 2^20 rows
+EPOCH_CHECK_START = 12345
+PAIR_ROWS = 1 << 20
+PAIR_M = 1024
+RING_ROWS = 32768
+RING_SHARDS = 8
+ARGMIN_M = 512
+SPECTRAL_ROWS = 10_000_000
+SPECTRAL_M = 100
+SPECTRAL_PHASES = ("affinities", "m x m solves", "embedding", "KMeans")  # its _timer names
+NEAR_DUP_ROWS = 1 << 16
+K10_REPS = 20
+
+
+def reset_minibatch_counts():
+    """Every launch count of phase 14's kernels, and the reseed count, to 0."""
+    from dask_ml_tpu_torch.cluster import minibatch_kmeans
+    from dask_ml_tpu_torch.ops import lloyd, minibatch, pairwise
+
+    for fn in (minibatch.mbk_update, minibatch.mbk_epoch, pairwise.sq_euclidean_safe,
+               lloyd.lloyd_assign, lloyd.lloyd_assign_reduce):
+        fn.launches = 0
+    minibatch.mbk_epoch.stepped = 0
+    minibatch_kmeans._reassign_starved.calls = 0
+
+
+def minibatch_counts():
+    from dask_ml_tpu_torch.cluster import minibatch_kmeans
+    from dask_ml_tpu_torch.ops import lloyd, minibatch, pairwise
+
+    return {"mbk_epoch": minibatch.mbk_epoch.launches,
+            "mbk_epoch_stepped": minibatch.mbk_epoch.stepped,
+            "mbk_update": minibatch.mbk_update.launches,
+            "lloyd_assign_reduce": lloyd.lloyd_assign_reduce.launches,
+            "lloyd_assign": lloyd.lloyd_assign.launches,
+            "sq_euclidean_safe": pairwise.sq_euclidean_safe.launches,
+            "reassign": minibatch_kmeans._reassign_starved.calls}
+
+
+def device_profile(torch, fn):
+    """``fn()`` under ``torch.profiler``: (host-clock ms after a sync, {kernel
+    name: (device ms, count)})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, count = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    return wall_ms, per_name
+
+
+def log_profile(label, wall_ms, per_name, card, top=8):
+    log(f"{label}: {wall_ms:.3f} ms on the host clock [{card}]")
+    if not per_name:
+        log("  device time by kernel: not measured (the profiler recorded no device event)")
+        return
+    busy = sum(ms for ms, _ in per_name.values())
+    for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"  device {ms:12.3f} ms {count:7d}x  {kernel_name(name)}")
+    log(f"  device busy {busy:.3f} ms of {wall_ms:.3f} ms: idle share "
+        f"{(wall_ms - busy) / wall_ms:.4f}")
+
+
+def mbk_main_path(torch, X, truth, card):
+    """14a: ``MiniBatchKMeans(n_clusters=8, random_state=0, max_iter=3)`` on
+    the blobs at the default batch_size, every count set to 0 just before
+    the fit and read just after; gates as phase 4's.  Then one epoch as the
+    fit runs it (the reseed check, K7b, the scalar read) under
+    ``torch.profiler``.  Returns (the estimator, the counts)."""
+    from dask_ml_tpu_torch.cluster import MiniBatchKMeans, minibatch_kmeans
+
+    n, d = X.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_minibatch_counts()
+    t0 = time.perf_counter()
+    est = MiniBatchKMeans(n_clusters=MBK_K, random_state=0, max_iter=MBK_ITER).fit(X)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    counts = minibatch_counts()
+    steps = n // MBK_BATCH
+    log(f"phase 14a: MiniBatchKMeans({MBK_K}, max_iter={MBK_ITER}) fit on {n}x{d} in "
+        f"{t_fit:.3f} s (host clock after a sync; {1e3 * t_fit / est.n_iter_:.3f} ms an epoch, "
+        f"{1e6 * t_fit / est.n_steps_:.3f} us a step with the init and the final labels); "
+        f"n_iter_ {est.n_iter_}, n_steps_ {est.n_steps_}, inertia_/n {est.inertia_ / n:.4f}; "
+        f"K7b launches {counts['mbk_epoch']} (stepped epochs {counts['mbk_epoch_stepped']}), "
+        f"K1b {counts['lloyd_assign']}, reseeds {counts['reassign']}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    gate(est.n_steps_ == est.n_iter_ * steps, f"14a: {est.n_steps_} steps", phase=14)
+    gate(counts["mbk_epoch"] == est.n_iter_ and counts["mbk_epoch_stepped"] == 0,
+         f"14a: K7b launched {counts['mbk_epoch']} times for {est.n_iter_} epochs", phase=14)
+    gate(counts["lloyd_assign"] >= 1, "14a: K1b made no final labels", phase=14)
+    per_row = est.inertia_ / n
+    gate(per_row <= 1.05 * d, f"14a: inertia_/n = {per_row} > 1.05 * {d}", phase=14)
+    gap = torch.cdist(truth, est.cluster_centers_).min(dim=1).values
+    gate(bool((gap <= 0.1).all()), f"14a: centres not recovered: {gap.tolist()}", phase=14)
+    log(f"phase 14a: worst centre error {float(gap.max()):.5f} (gate 0.1)")
+
+    gen = torch.Generator(device=X.device).manual_seed(1)
+    mask = torch.ones(n, device=X.device)
+    centers, pair = est.cluster_centers_, est._counts
+
+    def one_epoch():
+        c, p = minibatch_kmeans._reassign_starved(centers, pair, X, mask, gen, 0.01)
+        _, _, mean = minibatch_kmeans._mbk_epoch_fn(c, p, X, mask, 0, batch_size=MBK_BATCH,
+                                                    n_batches=steps)
+        float(mean)
+
+    log_profile("phase 14a: one profiled epoch", *device_profile(torch, one_epoch), card)
+    return est, counts
+
+
+def stream_blocks(torch, X):
+    """14b's host blocks: the first STREAM_BLOCKS blocks of 2^20 rows of X,
+    copied to the host."""
+    return [X[i * STREAM_ROWS:(i + 1) * STREAM_ROWS].cpu().numpy()
+            for i in range(STREAM_BLOCKS)]
+
+
+def mbk_stream(torch, X, init, card):
+    """14b: ``_partial.fit`` of ``MiniBatchKMeans(n_clusters=8, init=14a's
+    centres)`` over 16 host blocks at prefetch depths 0 and 2, then the same
+    blocks already on the card as ``ShardedRows``; gates: every run's state
+    bit-equal, one K1a and one K7a launch a block, and after 8 blocks the
+    centres within 1e-4·max|c| of the plain versions'.  Returns (the
+    depth-2 counts, the first block on the card, the state before it)."""
+    from dask_ml_tpu_torch import _partial
+    from dask_ml_tpu_torch.cluster import MiniBatchKMeans
+    from dask_ml_tpu_torch.core import shard_rows
+    from dask_ml_tpu_torch.ops import minibatch
+
+    t0 = time.perf_counter()
+    blocks = stream_blocks(torch, X)
+    log(f"phase 14b: {STREAM_BLOCKS} host blocks of {STREAM_ROWS}x{X.shape[1]} copied from the "
+        f"card in {time.perf_counter() - t0:.2f} s [{card}]")
+    runs = {}
+    for depth in (0, 2):
+        torch.cuda.synchronize()
+        reset_minibatch_counts()
+        t0 = time.perf_counter()
+        m = _partial.fit(MiniBatchKMeans(n_clusters=MBK_K, init=init),
+                         (b for b in blocks), prefetch_depth=depth)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / STREAM_BLOCKS
+        runs[depth] = (m, minibatch_counts())
+        c = runs[depth][1]
+        log(f"phase 14b: host blocks at depth {depth}: {ms:.3f} ms a block; K1a "
+            f"{c['lloyd_assign_reduce'] / STREAM_BLOCKS:g} and K7a "
+            f"{c['mbk_update'] / STREAM_BLOCKS:g} launches a block [{card}]")
+    dev_blocks = [shard_rows(X[i * STREAM_ROWS:(i + 1) * STREAM_ROWS])
+                  for i in range(STREAM_BLOCKS)]
+    torch.cuda.synchronize()
+    reset_minibatch_counts()
+    t0 = time.perf_counter()
+    on_card = MiniBatchKMeans(n_clusters=MBK_K, init=init)
+    for b in dev_blocks:
+        on_card.partial_fit(b)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / STREAM_BLOCKS
+    c = minibatch_counts()
+    log(f"phase 14b: blocks on the card: {ms:.3f} ms a block; K1a "
+        f"{c['lloyd_assign_reduce'] / STREAM_BLOCKS:g} and K7a {c['mbk_update'] / STREAM_BLOCKS:g}"
+        f" launches a block [{card}]")
+    for name, m in (("depth 2", runs[2][0]), ("on the card", on_card)):
+        gate(torch.equal(m.cluster_centers_, runs[0][0].cluster_centers_)
+             and torch.equal(m._counts, runs[0][0]._counts),
+             f"14b: the {name} stream's state differs from depth 0's", phase=14)
+    for depth, (m, cnt) in runs.items():
+        gate(cnt["lloyd_assign_reduce"] == STREAM_BLOCKS and cnt["mbk_update"] == STREAM_BLOCKS,
+             f"14b: depth {depth} launched K1a {cnt['lloyd_assign_reduce']} and K7a "
+             f"{cnt['mbk_update']} times for {STREAM_BLOCKS} blocks", phase=14)
+    kern = MiniBatchKMeans(n_clusters=MBK_K, init=init)
+    centers = torch.as_tensor(init, device=X.device).clone()
+    pair = torch.zeros(2, MBK_K, device=X.device)
+    for b in dev_blocks[:STREAM_PLAIN]:
+        kern.partial_fit(b)
+        centers, pair, _ = minibatch.mbk_step_ref(centers, pair, b.data, b.mask)
+    torch.cuda.synchronize()
+    gap = float((kern.cluster_centers_ - centers).abs().max())
+    scale = float(centers.abs().max())
+    log(f"phase 14b: after {STREAM_PLAIN} blocks the centres are within {gap:.3g} of the "
+        f"plain versions' ({gap / scale:.3g} of max|c|)")
+    gate(gap <= 1e-4 * scale, f"14b: centres {gap} from the plain versions'", phase=14)
+    return runs[2][1], dev_blocks[0], (torch.as_tensor(init, device=X.device).clone(),
+                                       torch.zeros(2, MBK_K, device=X.device))
+
+
+def k7_table(torch, X, est, stream_counts, fit_counts, block0, state0, card):
+    """14c for K7: K7a at 14b's shape (K1a's outputs on a block of 2^20
+    rows, k = 8), bit-equal to its plain version; K7b over one epoch of the
+    first 2^20 rows (1024 steps from a fixed start) and at the main path's
+    epoch (all rows), each held against its plain version, then timed by
+    CUDA events beside the plain version and the bound."""
+    from dask_ml_tpu_torch.ops import lloyd, minibatch
+
+    out = []
+    centers, pair = state0
+    sums, bmass, _ = lloyd.lloyd_assign_reduce(block0.data, block0.mask, centers)
+    sums, bmass = sums.clone(), bmass.clone()
+    got = minibatch.mbk_update(sums, bmass, centers, pair)
+    want = minibatch.mbk_update_ref(sums, bmass, centers, pair)
+    torch.cuda.synchronize()
+    gate(all(torch.equal(a, b) for a, b in zip(got, want)),
+         "14c: K7a differs from its plain version", phase=14)
+    k, d = centers.shape
+    ms = queued_ms(torch, lambda: minibatch.mbk_update(sums, bmass, centers, pair), K10_REPS)
+    plain_ms = time_ms(torch, lambda: minibatch.mbk_update_ref(sums, bmass, centers, pair), 3)
+    nbytes = 4 * (3 * k * d + k + 4 * k)
+    b_ms, b_by = bound_ms(nbytes, 4 * k * d + 12 * k)
+    log(f"mbk_update (K7a) at k={k} d={d}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.6f} ms by {b_by}: {nbytes} bytes; bit-equal to the plain version) [{card}]")
+    out.append({"name": "mbk_update", "route": "cuda",
+                "source": "dask_ml_tpu_torch/csrc/minibatch.cu",
+                "replaces": "dask_ml_tpu/cluster/minibatch_kmeans.py:54",
+                "launches": stream_counts["mbk_update"], "max_abs_err": 0.0, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+    # K7b over the first 2^20 rows: 1024 steps from a fixed start
+    x1 = X[:STREAM_ROWS]
+    m1 = torch.ones(STREAM_ROWS, device=X.device)
+    c0 = est.cluster_centers_ + 0.5  # off the optimum, so the steps move the centres
+    z = torch.zeros(2, k, device=X.device)
+    args = (c0, z, x1, m1, EPOCH_CHECK_START, MBK_BATCH, EPOCH_CHECK_STEPS)
+    got = minibatch.mbk_epoch(*args)
+    again = minibatch.mbk_epoch(*args)
+    want = minibatch.mbk_epoch_ref(*args)
+    torch.cuda.synchronize()
+    err = float((got[0] - want[0]).abs().max())
+    gate(all(torch.equal(a, b) for a, b in zip(got, again)), "14c: K7b is not deterministic",
+         phase=14)
+    gate(err <= 1e-5 * float(want[0].abs().max())
+         and abs(float(got[2]) - float(want[2])) <= 1e-5 * abs(float(want[2])),
+         f"14c: K7b over {EPOCH_CHECK_STEPS} steps: centres {err} from the plain version's, "
+         f"inertia {float(got[2])} vs {float(want[2])}", phase=14)
+    ms = time_ms(torch, lambda: minibatch.mbk_epoch(*args), K10_REPS)
+    plain_ms = time_ms(torch, lambda: minibatch.mbk_epoch_ref(*args), 1)
+    log(f"mbk_epoch (K7b) over {EPOCH_CHECK_STEPS} steps of {MBK_BATCH} rows (2^20 x {d}, "
+        f"k={k}): {ms:.4f} ms, {1e3 * ms / EPOCH_CHECK_STEPS:.3f} us a step (plain "
+        f"{plain_ms:.4f} ms); centres within {err:.3g}, mean inertia {float(got[2]):.8g} vs "
+        f"{float(want[2]):.8g} [{card}]")
+
+    # K7b at the main path's epoch: every row of X
+    n = X.shape[0]
+    steps = n // MBK_BATCH
+    mask = torch.ones(n, device=X.device)
+    args = (c0, z, X, mask, 0, MBK_BATCH, steps)
+    got = minibatch.mbk_epoch(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = minibatch.mbk_epoch_ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = float((got[0] - want[0]).abs().max())
+    ierr = abs(float(got[2]) - float(want[2])) / abs(float(want[2]))
+    gate(err <= 1e-4 * float(want[0].abs().max()) and ierr <= 1e-5,
+         f"14c: K7b over the main path's epoch: centres {err} from the plain version's, "
+         f"inertia rel. {ierr}", phase=14)
+    ms = time_ms(torch, lambda: minibatch.mbk_epoch(*args), MBK_EPOCH_REPS)
+    nbytes = n * d * 4 + n * 4 + 2 * (k * d + 2 * k) * 4 + 4
+    flops = n * (2 * d * k + 2 * d + 4 * k + 2 * (d + 1))
+    b_ms, b_by = bound_ms(nbytes, flops)
+    log(f"mbk_epoch (K7b) at the main path's epoch ({steps} steps of {MBK_BATCH} rows of "
+        f"{n}x{d}, k={k}): {ms:.4f} ms an epoch, {1e3 * ms / steps:.3f} us a step (plain "
+        f"{plain_ms:.1f} ms, its host clock; bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.3f} "
+        f"GB, {flops / 1e9:.2f} GFLOP; {b_ms / ms:.2%} of it); centres within {err:.3g}, mean "
+        f"inertia rel. {ierr:.3g} [{card}]")
+    out.append({"name": "mbk_epoch", "route": "cuda",
+                "source": "dask_ml_tpu_torch/csrc/minibatch.cu",
+                "replaces": "dask_ml_tpu/cluster/minibatch_kmeans.py:124",
+                "launches": fit_counts["mbk_epoch"], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return out
+
+
+def k10_bound(n, m, d):
+    """K10's least time: x, y read once and the (n, m) output written once;
+    2d FLOPs an entry for the product, 6 for the epilogue, and 2d a row of
+    x or y for its norm."""
+    nbytes = 4 * (n * d + m * d + n * m)
+    flops = n * m * (2 * d + 6) + 2 * d * (n + m)
+    return nbytes, flops, bound_ms(nbytes, flops)
+
+
+def hold_k10(torch, pairwise, x, y, kind, gamma=None, row0=0, col0=0, self_pairs=False):
+    """K10 against its plain version on the same inputs: d² within
+    1e-5·(‖x−a‖²+‖y−a‖²) (√d² through its square, exp(−γd²) to
+    1e-5·γ·(‖x−a‖²+‖y−a‖²)), the flagged counts equal.  Returns (largest
+    absolute difference, flagged)."""
+    got = pairwise.sq_euclidean_safe(x, y, row0, col0, self_pairs, kind, gamma)
+    flagged = int(pairwise.sq_euclidean_safe.last_flagged)
+    want, want_flagged = pairwise.sq_euclidean_safe_ref(x, y, row0, col0, self_pairs, kind,
+                                                         gamma)
+    torch.cuda.synchronize()
+    gate(flagged == int(want_flagged),
+         f"14c: K10 {kind} flagged {flagged}, the plain version {int(want_flagged)}", phase=14)
+    a = 0.5 * (x.double().mean(0) + y.double().mean(0))
+    xn = ((x.double() - a) ** 2).sum(1)
+    yn = ((y.double() - a) ** 2).sum(1)
+    worst, err = 0.0, 0.0
+    for s in range(0, x.shape[0], 1 << 16):
+        g, w = got[s:s + (1 << 16)].double(), want[s:s + (1 << 16)].double()
+        err = max(err, float((g - w).abs().max()))
+        if kind == "euclid":
+            g, w = g ** 2, w ** 2
+        scale = (xn[s:s + (1 << 16), None] + yn[None, :]) * (gamma if kind == "rbf" else 1.0)
+        worst = max(worst, float(((g - w).abs() / scale).max()))
+    gate(worst <= TOL, f"14c: K10 {kind} at {tuple(x.shape)}x{tuple(y.shape)} is {worst:.3g} of "
+         "its scale from the plain version", phase=14)
+    del got, want
+    return err, flagged
+
+
+def k10_entry(torch, pairwise, name, x, y, kind, gamma, launches, card, row0=0, col0=0,
+              self_pairs=False, library=None):
+    err, flagged = hold_k10(torch, pairwise, x, y, kind, gamma, row0, col0, self_pairs)
+    out = torch.empty(x.shape[0], y.shape[0], device=x.device)
+    kw = dict(row0=row0, col0=col0, self_pairs=self_pairs, kind=kind, gamma=gamma, out=out)
+    ms = time_ms(torch, lambda: pairwise.sq_euclidean_safe(x, y, **kw), K10_REPS)
+    plain_ms = time_ms(torch, lambda: pairwise.sq_euclidean_safe_ref(x, y, row0, col0,
+                                                                      self_pairs, kind, gamma), 3)
+    lib_ms = time_ms(torch, library, K10_REPS) if library is not None else None
+    del out
+    (n, d), m = x.shape, y.shape[0]
+    nbytes, flops, (b_ms, b_by) = k10_bound(n, m, d)
+    log(f"{name} (K10, {kind}) at x {n}x{d}, y {m}x{d}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+        f"library {fmt_ms(lib_ms)}, bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.3f} GB, "
+        f"{flops / 1e9:.2f} GFLOP; {b_ms / ms:.2%} of it); flagged {flagged}, max abs err "
+        f"{err:.3g}, launches on the path {launches} [{card}]")
+    return {"name": name, "route": "cuda", "source": "dask_ml_tpu_torch/csrc/pairwise.cu",
+            "replaces": "dask_ml_tpu/metrics/pairwise.py:153", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def near_duplicates(torch, pairwise, X, card):
+    """14c: rows at a common offset of 1e3, a quarter of y repeating rows of
+    x and a quarter within 1e-2 of one, so the exact recompute runs on the
+    card: the flagged count, and every surely flagged entry (exact d² below
+    τ/2 of its scale) held to the float64 Σ(x−y)², repeated rows to 0."""
+    x = (X[:NEAR_DUP_ROWS] + 1e3).contiguous()
+    gen = torch.Generator(device=X.device).manual_seed(5)
+    pick = torch.randperm(NEAR_DUP_ROWS, generator=gen, device=X.device)[:256]
+    y = x[pick].clone()
+    y[64:128] += (torch.rand(64, x.shape[1], generator=gen, device=X.device) - 0.5) * 2e-2
+    y[128:] = X[-128:] + 1e3
+    got = pairwise.sq_euclidean_safe(x, y)
+    flagged = int(pairwise.sq_euclidean_safe.last_flagged)
+    exact = torch.cdist(x.double(), y.double(),
+                        compute_mode="donot_use_mm_for_euclid_dist") ** 2
+    a = 0.5 * (x.double().mean(0) + y.double().mean(0))
+    scale = ((x.double() - a) ** 2).sum(1)[:, None] + ((y.double() - a) ** 2).sum(1)[None, :]
+    sure = exact < 0.5 * pairwise.SAFE_TAU * scale
+    rel = float(((got.double() - exact).abs()[sure] / exact[sure].clamp_min(1e-300)).max())
+    zeros_ok = bool((got[exact == 0] == 0).all())
+    log(f"phase 14c: near-duplicates (x {NEAR_DUP_ROWS}x{x.shape[1]} at offset 1e3, y 256 rows): "
+        f"{flagged} entries recomputed on the card, {int(sure.sum())} surely flagged, within "
+        f"{rel:.3g} of the float64 sum; repeated rows exactly 0: {zeros_ok} [{card}]")
+    gate(flagged >= int(sure.sum()) >= 128 and rel <= TOL and zeros_ok,
+         "14c: the near-duplicate entries are not the exact sums", phase=14)
+    hold_k10(torch, pairwise, x, y, "sq")
+
+
+def pairwise_path(torch, X, device, card):
+    """14d: the distance functions at full width, each count set to 0 just
+    before and read just after; returns the counts by epilogue."""
+    from dask_ml_tpu_torch.core import shard_rows, use_device
+    from dask_ml_tpu_torch.metrics import (
+        euclidean_distances, pairwise_distances, pairwise_distances_argmin_min)
+    from dask_ml_tpu_torch.ops import lloyd, pairwise
+
+    x, y = X[:PAIR_ROWS], X[-PAIR_M:]
+    launches = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        before = pairwise.sq_euclidean_safe.launches
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        launches[label] = pairwise.sq_euclidean_safe.launches - before
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    reset_minibatch_counts()
+    D, t_e = timed("euclid", lambda: euclidean_distances(x, y))
+    gate(tuple(D.shape) == (PAIR_ROWS, PAIR_M) and bool(torch.isfinite(D).all()),
+         "14d: euclidean_distances returned a malformed matrix", phase=14)
+    del D
+    D, t_s = timed("sq", lambda: pairwise_distances(x, y, metric="sqeuclidean"))
+    del D
+    with use_device(device, n_shards=RING_SHARDS):
+        S = shard_rows(X[:RING_ROWS])
+        R, t_r = timed("ring", lambda: euclidean_distances(S, S))
+    gate(tuple(R.shape) == (RING_ROWS, RING_ROWS), "14d: the ring's shape", phase=14)
+    diag_zero = bool((torch.diagonal(R) == 0).all())
+    asym = max(float((R[s:s + 4096] - R[:, s:s + 4096].T).abs().max())
+               for s in range(0, RING_ROWS, 4096))
+    top = float(R.max())
+    del R
+    gate(diag_zero and asym <= 1e-5 * top,
+         f"14d: the self ring's diagonal zero {diag_zero}, asymmetry {asym} of max {top}",
+         phase=14)
+    torch.cuda.synchronize()
+    before = lloyd.lloyd_assign.launches
+    t0 = time.perf_counter()
+    idx, dist = pairwise_distances_argmin_min(X, y[:ARGMIN_M])
+    torch.cuda.synchronize()
+    t_a = 1e3 * (time.perf_counter() - t0)
+    k1b = lloyd.lloyd_assign.launches - before
+    ones = torch.ones(PAIR_ROWS, device=X.device)
+    pl, pd2, _ = lloyd.lloyd_assign_ref(x, ones, y[:ARGMIN_M])
+    n_tie = near_ties_only(torch, x, y[:ARGMIN_M], idx[:PAIR_ROWS], pl, None,
+                           "14d argmin_min")
+    derr = float((dist[:PAIR_ROWS] - torch.sqrt(torch.clamp_min(pd2, 0))).abs().max())
+    gate(k1b == 1 and idx.shape == (X.shape[0],), f"14d: argmin_min launched K1b {k1b} times",
+         phase=14)
+    log(f"phase 14d: euclidean_distances {PAIR_ROWS}x{PAIR_M} {t_e:.3f} ms, sqeuclidean "
+        f"{t_s:.3f} ms, the self ring {RING_ROWS}x{RING_ROWS} in {RING_SHARDS} shards "
+        f"{t_r:.3f} ms (diagonal exactly 0, asymmetry {asym:.3g} of max {top:.4g}), "
+        f"argmin_min over {X.shape[0]} rows against {ARGMIN_M} {t_a:.3f} ms (K1b {k1b} launch; "
+        f"on the first {PAIR_ROWS} rows {n_tie} near-tie labels differ from the plain "
+        f"version's, distances within {derr:.3g}); K10 launches {launches} [{card}]")
+    del idx, dist
+    return launches
+
+
+class SyncedPhases(logging.Handler):
+    """Host-clock seconds of each ``utils._timer`` phase, with the device
+    synchronised at the phase's start and end, so that the time is the
+    phase's work and not its enqueue."""
+
+    def __init__(self, torch):
+        super().__init__(logging.DEBUG)
+        self.torch = torch
+        self.started = {}
+        self.seconds = {}
+
+    def emit(self, record):
+        if record.msg.startswith("Starting %s"):
+            self.torch.cuda.synchronize()
+            self.started[record.args[0]] = time.perf_counter()
+        elif record.msg.startswith("Finished %s in"):
+            self.torch.cuda.synchronize()
+            name = record.args[0]
+            self.seconds[name] = time.perf_counter() - self.started.pop(name)
+
+
+def spectral_path(torch, X, truth, card):
+    """14e: ``SpectralClustering(n_clusters=8, random_state=0)`` (rbf, γ =
+    1/d, n_components=100) on the first 10M rows; gate: each true blob maps
+    to one found cluster, a different one each, for at least 99% of its
+    rows.  Returns (the K10 launches, the estimator's sample)."""
+    from dask_ml_tpu_torch.cluster import SpectralClustering
+    from dask_ml_tpu_torch.ops import lloyd, pairwise
+
+    x = X[:SPECTRAL_ROWS]
+    ones = torch.ones(SPECTRAL_ROWS, device=X.device)
+    blob, _, _ = lloyd.lloyd_assign(x, ones, truth.contiguous())  # the true blob of each row
+    timer = SyncedPhases(torch)
+    sc_logger = logging.getLogger("dask_ml_tpu_torch.cluster.spectral")
+    sc_logger.addHandler(timer)
+    sc_logger.setLevel(logging.DEBUG)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_minibatch_counts()
+    t0 = time.perf_counter()
+    est = SpectralClustering(n_clusters=MBK_K, random_state=0).fit(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sc_logger.removeHandler(timer)
+    c = minibatch_counts()
+    labels = est.labels_
+    table = torch.zeros(MBK_K, MBK_K, dtype=torch.int64, device=X.device)
+    table.index_put_((blob, labels), torch.ones_like(blob), accumulate=True)
+    share = (table.max(dim=1).values.double() / table.sum(dim=1).double()).min()
+    distinct = len(set(table.argmax(dim=1).tolist())) == MBK_K
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in timer.seconds.items())
+    log(f"phase 14e: SpectralClustering({MBK_K}) on {SPECTRAL_ROWS}x{X.shape[1]} in {wall:.3f} s "
+        f"({split}; each phase synchronised at its ends); K10 launches "
+        f"{c['sq_euclidean_safe']}, K1a {c['lloyd_assign_reduce']}, K1b {c['lloyd_assign']}; "
+        f"eigenvalues_ {[round(v, 6) for v in est.eigenvalues_.tolist()]}; each blob's largest "
+        f"share in one cluster >= {float(share):.6f}, one cluster a blob: {distinct}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    gate(set(timer.seconds) == set(SPECTRAL_PHASES),
+         f"14e: the fit's timed phases {sorted(timer.seconds)}, not {SPECTRAL_PHASES}", phase=14)
+    gate(float(share) >= 0.99 and distinct, f"14e: blob shares {float(share)}, distinct "
+         f"{distinct}", phase=14)
+    gate(c["sq_euclidean_safe"] == 2 and c["lloyd_assign_reduce"] >= 1
+         and c["lloyd_assign"] >= 1, f"14e: launches {c}", phase=14)
+    return c["sq_euclidean_safe"]
+
+
+def minibatch_phase(torch, device, card):
+    """Phase 14 end to end; returns its lines of the kernels table."""
+    from dask_ml_tpu_torch.ops import pairwise
+
+    t0 = time.perf_counter()
+    X, truth = make_blobs(torch, MAIN_ROWS, MAIN_D, MBK_K, 0, device)
+    torch.cuda.synchronize()
+    log(f"phase 14: make_blobs {MAIN_ROWS}x{MAIN_D} k={MBK_K} on the card in "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+    est, fit_counts = mbk_main_path(torch, X, truth, card)
+    stream_counts, block0, state0 = mbk_stream(torch, X, est.cluster_centers_.cpu().numpy(),
+                                               card)
+    out = k7_table(torch, X, est, stream_counts, fit_counts, block0, state0, card)
+    del block0
+    launches = pairwise_path(torch, X, device, card)
+    launches["rbf"] = spectral_path(torch, X, truth, card)
+    near_duplicates(torch, pairwise, X, card)
+    x, y = X[:PAIR_ROWS], X[-PAIR_M:]
+    out.append(k10_entry(torch, pairwise, "sq_euclidean_safe_sq", x, y, "sq", None,
+                         launches["sq"], card))
+    out.append(k10_entry(torch, pairwise, "sq_euclidean_safe_euclid", x, y, "euclid", None,
+                         launches["euclid"], card, library=lambda: torch.cdist(x, y)))
+    ring_x, ring_y = X[:RING_ROWS], X[RING_ROWS - RING_ROWS // RING_SHARDS:RING_ROWS]
+    out.append(k10_entry(torch, pairwise, "sq_euclidean_safe_ring", ring_x, ring_y, "euclid",
+                         None, launches["ring"], card, row0=0,
+                         col0=RING_ROWS - RING_ROWS // RING_SHARDS, self_pairs=True,
+                         library=lambda: torch.cdist(ring_x, ring_y)))
+    xs = X[:SPECTRAL_ROWS]
+    gen = torch.Generator(device=device).manual_seed(0)
+    sample = xs[torch.randperm(SPECTRAL_ROWS, generator=gen, device=device)[:SPECTRAL_M]]
+    sample = sample.contiguous()
+    out.append(k10_entry(torch, pairwise, "sq_euclidean_safe_rbf", xs, sample, "rbf",
+                         1.0 / MAIN_D, launches["rbf"], card))
+    # every epilogue at both shapes: the ones no entry above holds
+    for a, b, kind in ((x, y, "rbf"), (xs, sample, "sq"), (xs, sample, "euclid")):
+        gamma = 1.0 / MAIN_D if kind == "rbf" else None
+        err, flagged = hold_k10(torch, pairwise, a, b, kind, gamma)
+        log(f"phase 14c: K10 {kind} at x {tuple(a.shape)}, y {tuple(b.shape)} holds against its "
+            f"plain version (max abs err {err:.3g}, flagged {flagged}) [{card}]")
+    del X
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     yardstick = None
     for flag in ("--k4-yardstick", "--k5-yardstick"):
@@ -4705,6 +5285,10 @@ def main() -> int:
 
     # 13. the grid searches: the packed C-sweep through K2-OvR over one shared target
     out += grid_phase(torch, multiclass, logistic, algorithms, device, card)
+
+    # 14. MiniBatchKMeans through K7, the pairwise distances through K10,
+    # SpectralClustering's Nystrom path
+    out += minibatch_phase(torch, device, card)
 
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

@@ -6,7 +6,7 @@ It imports neither JAX nor the reference, nor scikit-learn.  Entry points
 run on CUDA unless the caller asks for the CPU (``core.set_device``).
 """
 
-from .cluster import KMeans
+from .cluster import KMeans, MiniBatchKMeans, SpectralClustering
 from .convert import (
     incremental_pca_from_reference, kmeans_from_reference, linear_regression_from_reference,
     logistic_regression_from_reference, pca_from_reference, poisson_regression_from_reference,
@@ -24,8 +24,9 @@ from .wrappers import Incremental, ParallelPostFit
 
 __all__ = ["GridSearchCV", "HyperbandSearchCV", "Incremental", "IncrementalPCA",
            "IncrementalSearchCV", "InverseDecaySearchCV", "KMeans", "LinearRegression",
-           "LogisticRegression", "PCA", "ParallelPostFit", "Pipeline", "PoissonRegression",
-           "RandomizedSearchCV", "SGDClassifier", "SGDRegressor", "SuccessiveHalvingSearchCV",
+           "LogisticRegression", "MiniBatchKMeans", "PCA", "ParallelPostFit", "Pipeline", "PoissonRegression",
+           "RandomizedSearchCV", "SGDClassifier", "SGDRegressor", "SpectralClustering",
+           "SuccessiveHalvingSearchCV",
            "TruncatedSVD", "get_device", "make_pipeline",
            "incremental_pca_from_reference",
            "kmeans_from_reference", "linear_regression_from_reference",

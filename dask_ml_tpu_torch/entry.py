@@ -81,16 +81,24 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
       ``DASK_ML_TPU_TORCH_GRID_PACK=packed`` (one ``lambda_sweep`` a fold)
       and ``sequential`` (a fit a candidate and fold): the packed
       ``best_score_`` must reach 0.8 and every ``mean_test_score`` agree
-      within 1e-4.
+      within 1e-4;
+    - ring pairwise distances: ``euclidean_distances(sX, sY)`` with both
+      sharded (``sY`` the first 8 rows a shard) goes through the ring and
+      must be (n, 8·n_shards);
+    - the streaming MiniBatchKMeans: ``MiniBatchKMeans(n_clusters=3,
+      init="random", random_state=0)``, ``partial_fit(sX)`` then
+      ``partial_fit(sX, sample_weight=2)``, whose ``cluster_centers_`` must
+      be (3, d).
 
-    Not run yet, each waiting for its ROADMAP item: ring pairwise
-    distances and MiniBatchKMeans ([port-rest]), and the multi-process run
-    ([port-multi]).  Prints the sections it ran and returns their names.
+    Not run yet, each waiting for its ROADMAP item: the multi-process run
+    ([port-multi]) and the cohort sharded on a model axis (the port has no
+    model axis).  Prints the sections it ran and returns their names.
     """
-    from .cluster import KMeans
+    from .cluster import KMeans, MiniBatchKMeans
     from .core.sharded import shard_rows
     from .decomposition import PCA
     from .linear_model import LogisticRegression, SGDClassifier
+    from .metrics import euclidean_distances
     from .model_selection import GridSearchCV, HyperbandSearchCV
     from .model_selection._packing import Cohort
 
@@ -180,6 +188,16 @@ def dryrun_multichip(n_shards: int, device=None) -> list:
                                  gs_s.cv_results_["mean_test_score"])).max()
         assert gap <= 1e-4, f"packed C-sweep is {gap} from the per-candidate fits"
         ran.append("packed C-grid")
+
+        sY = shard_rows(X[: 8 * n_shards])
+        ring = euclidean_distances(sX, sY)
+        assert tuple(ring.shape) == (n, 8 * n_shards), tuple(ring.shape)
+        ran.append("ring pairwise")
+
+        mbk = MiniBatchKMeans(n_clusters=3, init="random", random_state=0)
+        mbk.partial_fit(sX).partial_fit(sX, sample_weight=np.full(n, 2.0))
+        assert tuple(mbk.cluster_centers_.shape) == (3, d)
+        ran.append("MiniBatchKMeans partial_fit")
         dev = sX.data.device
     print(f"dryrun_multichip({n_shards}) on {dev}: {', '.join(ran)} OK")
     return ran

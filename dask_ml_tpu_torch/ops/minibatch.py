@@ -1,0 +1,207 @@
+"""K7: MiniBatchKMeans' Sculley update (K7a ``mbk_update``) and a whole
+epoch of minibatch steps (K7b ``mbk_epoch``).
+
+K7a replaces the tail of ``dask_ml_tpu/cluster/minibatch_kmeans.py ::
+_mbk_step_fn`` (the Kahan add of the batch mass into the (2, k) (hi, lo)
+pair and Sculley's move ``c += (bsum − bmass·c)·inv``), after K1a
+(``ops/lloyd.py :: lloyd_assign_reduce``) has made the batch's sums.  K7b
+replaces ``_mbk_epoch_fn``, the ``lax.scan`` of steps over contiguous
+windows.  The CUDA source is ``csrc/minibatch.cu``; it says what bounds
+the kernels and what their design does about it.
+
+Each wrapper runs its plain PyTorch version (``*_ref``) on a CPU tensor and
+launches its kernel on a CUDA tensor, or raises; each counts its launches
+in ``<wrapper>.launches``.  K7b takes k ≤ 16 centres and d ≤ 255 features;
+past that ``mbk_epoch`` steps the epoch through K1a and K7a, a launch of
+each a window (``mbk_epoch.stepped`` counts such epochs).  The state is
+never updated in place: each call returns new centres and a new pair.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .lloyd import lloyd_assign_reduce, lloyd_assign_reduce_ref
+
+_VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_NOT_TAKEN = -1  # mbk_epoch's code where K7b does not take the shape
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load("minibatch")
+        lib.mbk_update.argtypes = [_VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP]
+        lib.mbk_update.restype = _INT
+        lib.mbk_epoch.argtypes = [_VP, _VP, _LL, _INT, _INT, _VP, _VP, _LL, _LL, _LL, _VP,
+                                  _VP, _VP, _VP]
+        lib.mbk_epoch.restype = _INT
+        lib.minibatch_error_string.argtypes = [_INT]
+        lib.minibatch_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({lib.minibatch_error_string(err).decode()})")
+
+
+def _float32(**named):
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_state(centers, counts):
+    k = centers.shape[0]
+    if centers.ndim != 2 or tuple(counts.shape) != (2, k):
+        raise ValueError(f"centers must be (k, d) and counts (2, k), got "
+                         f"{tuple(centers.shape)} and {tuple(counts.shape)}")
+    if k == 0 or centers.shape[1] == 0:
+        raise ValueError("centers must be non-empty")
+
+
+def mbk_update_ref(sums, bmass, centers, counts):
+    """Plain version of K7a: ``(new_centers (k, d), new_counts (2, k))``.
+
+    The Kahan pair, as the reference: y = bmass + lo, t = hi + y,
+    lo = y − (t − hi), hi = t; inv = 1/max(hi + lo, float32 tiny), or 0
+    where the mass is 0."""
+    hi, lo = counts[0], counts[1]
+    y = bmass + lo
+    t = hi + y
+    lo = y - (t - hi)
+    hi = t
+    mass = hi + lo
+    tiny = torch.finfo(torch.float32).tiny
+    inv = torch.where(mass > 0, 1.0 / torch.clamp_min(mass, tiny), torch.zeros_like(mass))
+    new_centers = centers + (sums - bmass[:, None] * centers) * inv[:, None]
+    return new_centers, torch.stack([hi, lo])
+
+
+def mbk_update(sums, bmass, centers, counts):
+    """The Sculley update of ``centers`` (k, d) and the mass pair ``counts``
+    (2, k) by one batch's weighted sums ``sums`` (k, d) and masses
+    ``bmass`` (k,) (K1a's outputs); returns ``(new_centers, new_counts)``."""
+    _float32(sums=sums, bmass=bmass, centers=centers, counts=counts)
+    _check_state(centers, counts)
+    k, d = centers.shape
+    if tuple(sums.shape) != (k, d) or tuple(bmass.shape) != (k,):
+        raise ValueError(f"sums must be ({k}, {d}) and bmass ({k},)")
+    for t in (sums, bmass, counts):
+        if t.device != centers.device:
+            raise ValueError(f"every operand must be on {centers.device}")
+    if centers.device.type == "cpu":
+        return mbk_update_ref(sums, bmass, centers, counts)
+    if centers.device.type != "cuda":
+        raise ValueError(f"mbk_update runs on cuda or cpu, not {centers.device}")
+    lib = _load()
+    with torch.cuda.device(centers.device):
+        new_centers = torch.empty_like(centers)
+        new_counts = torch.empty_like(counts)
+        err = lib.mbk_update(sums.data_ptr(), bmass.data_ptr(), centers.data_ptr(),
+                             counts.data_ptr(), k, d, new_centers.data_ptr(),
+                             new_counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _check(lib, err, "mbk_update")
+    mbk_update.launches += 1
+    return new_centers, new_counts
+
+
+def mbk_step_ref(centers, counts, xb, mask):
+    """Plain version of one Sculley step: K1a's plain version, then K7a's."""
+    sums, bmass, inertia = lloyd_assign_reduce_ref(xb, mask, centers)
+    new_centers, new_counts = mbk_update_ref(sums, bmass, centers, counts)
+    return new_centers, new_counts, inertia
+
+
+def window_start(start, i, bs, n):
+    """The first row of step ``i``'s window: (start + i·bs) mod max(n − bs + 1, 1)
+    over the ``n`` padded rows, as the reference's epoch."""
+    return (int(start) + i * int(bs)) % max(int(n) - int(bs) + 1, 1)
+
+
+def mbk_epoch_ref(centers, counts, x, mask, start, bs, n_batches):
+    """Plain version of K7b: ``n_batches`` plain steps over the windows;
+    returns ``(centers, counts, mean step inertia)``."""
+    n = x.shape[0]
+    inertias = []
+    for i in range(int(n_batches)):
+        off = window_start(start, i, bs, n)
+        centers, counts, inertia = mbk_step_ref(centers, counts, x[off:off + bs],
+                                                mask[off:off + bs])
+        inertias.append(inertia)
+    return centers, counts, torch.mean(torch.stack(inertias))
+
+
+def _stepped_epoch(centers, counts, x, mask, start, bs, n_batches):
+    """An epoch on the card past K7b's shapes: each window copied to a
+    16-byte boundary, K1a, then K7a."""
+    n = x.shape[0]
+    inertias = []
+    for i in range(int(n_batches)):
+        off = window_start(start, i, bs, n)
+        sums, bmass, inertia = lloyd_assign_reduce(x[off:off + bs].clone(),
+                                                   mask[off:off + bs].contiguous(), centers)
+        centers, counts = mbk_update(sums, bmass, centers, counts)
+        inertias.append(inertia)
+    mbk_epoch.stepped += 1
+    return centers, counts, torch.mean(torch.stack(inertias))
+
+
+def mbk_epoch(centers, counts, x, mask, start, bs, n_batches):
+    """One epoch of ``n_batches`` Sculley steps over the ``bs``-row windows
+    of the padded rows ``x`` (n, d), weighted by ``mask`` (n,), from the
+    window at ``start``; returns ``(centers, counts, mean step inertia)``.
+
+    On CUDA ``x`` must start on a 16-byte boundary (the kernel copies 16
+    bytes at a time)."""
+    _float32(centers=centers, counts=counts, x=x, mask=mask)
+    _check_state(centers, counts)
+    n, d = x.shape
+    k = centers.shape[0]
+    bs, n_batches = int(bs), int(n_batches)
+    if centers.shape[1] != d or tuple(mask.shape) != (n,):
+        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, mask {tuple(mask.shape)}, "
+                         f"centers {tuple(centers.shape)}")
+    if not 1 <= bs <= n or n_batches < 1:
+        raise ValueError(f"need 1 <= bs <= n and n_batches >= 1, got bs={bs}, n={n}, "
+                         f"n_batches={n_batches}")
+    for t in (counts, x, mask):
+        if t.device != centers.device:
+            raise ValueError(f"every operand must be on {centers.device}")
+    if x.device.type == "cpu":
+        return mbk_epoch_ref(centers, counts, x, mask, start, bs, n_batches)
+    if x.device.type != "cuda":
+        raise ValueError(f"mbk_epoch runs on cuda or cpu, not {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (the kernel copies 16 bytes at "
+                         "a time)")
+    lib = _load()
+    with torch.cuda.device(x.device):
+        new_centers = torch.empty_like(centers)
+        new_counts = torch.empty_like(counts)
+        inertia = torch.empty(1, dtype=torch.float32, device=x.device)
+        err = lib.mbk_epoch(x.data_ptr(), mask.data_ptr(), n, d, k, centers.data_ptr(),
+                            counts.data_ptr(), int(start), bs, n_batches,
+                            new_centers.data_ptr(), new_counts.data_ptr(), inertia.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+    if err == _NOT_TAKEN:
+        return _stepped_epoch(centers, counts, x, mask, start, bs, n_batches)
+    _check(lib, err, "mbk_epoch")
+    mbk_epoch.launches += 1
+    return new_centers, new_counts, inertia[0]
+
+
+mbk_update.launches = 0
+mbk_epoch.launches = 0
+mbk_epoch.stepped = 0

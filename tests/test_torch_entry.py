@@ -3,8 +3,8 @@ repository's ``__graft_entry__.py``, on the CPU: ``entry()``'s forward on
 its example arguments within 1e-6 of the reference's, and
 ``dryrun_multichip`` at 8 logical shards, its scanned-SGD section's
 ``t_ > 2`` check and the packed C-grid's packed-against-sequential check,
-and the packed cohort's, Hyperband's and the packed C-grid's sections
-among them."""
+and the packed cohort's, Hyperband's, the packed C-grid's, the ring
+pairwise and the streaming MiniBatchKMeans sections among them."""
 
 import os
 
@@ -51,10 +51,12 @@ def test_dryrun_multichip_runs_its_sections(capsys, monkeypatch):
     ran = dryrun_multichip(8, device="cpu")
     assert ran == ["binary ADMM", "bf16 lbfgs", "KMeans init=random", "PCA via TSQR",
                    "packed OvR ADMM", "multinomial lbfgs", "class_weight balanced",
-                   "scanned minibatch SGD", "packed SGD cohort", "Hyperband", "packed C-grid"]
+                   "scanned minibatch SGD", "packed SGD cohort", "Hyperband", "packed C-grid",
+                   "ring pairwise", "MiniBatchKMeans partial_fit"]
     out = capsys.readouterr().out
     assert "dryrun_multichip(8) on cpu" in out and "packed OvR ADMM" in out
-    assert "packed C-grid" in out
+    assert "packed C-grid" in out and "ring pairwise" in out
+    assert "MiniBatchKMeans partial_fit" in out
     assert "DASK_ML_TPU_TORCH_PACK" not in os.environ
     assert "DASK_ML_TPU_TORCH_GRID_PACK" not in os.environ
     assert mesh.get_n_shards() == 1  # the shard count was scoped to the dryrun
@@ -80,3 +82,32 @@ def test_dryrun_packed_grid_section_checks_packed_against_sequential(monkeypatch
                         lambda *args: real(*args) - 0.01)
     with pytest.raises(AssertionError, match="packed C-sweep is"):
         dryrun_multichip(8, device="cpu")
+
+
+def test_dryrun_ring_section_checks_the_ring_shape(monkeypatch):
+    """The twelfth section fails when the sharded×sharded call does not
+    return (n, 8·n_shards): here the ring drops Y's last shard."""
+    from dask_ml_tpu_torch.metrics import pairwise
+
+    real = pairwise.ring_pairwise
+    monkeypatch.setattr(pairwise, "ring_pairwise",
+                        lambda X, Y, fn: real(X, Y, fn)[:, :-8])
+    with pytest.raises(AssertionError, match=r"\(128, 56\)"):
+        dryrun_multichip(8, device="cpu")
+
+
+def test_dryrun_minibatch_section_streams_through_the_step(monkeypatch):
+    """The thirteenth section steps the weighted block through the Sculley
+    step: two ``partial_fit`` calls, the second on a mask of weights 2."""
+    from dask_ml_tpu_torch.cluster import minibatch_kmeans
+
+    masses = []
+    real = minibatch_kmeans._mbk_step_fn
+
+    def spy(centers, counts, xb, mask):
+        masses.append(float(mask.sum()))
+        return real(centers, counts, xb, mask)
+
+    monkeypatch.setattr(minibatch_kmeans, "_mbk_step_fn", spy)
+    dryrun_multichip(8, device="cpu")
+    assert masses == [128.0, 256.0]

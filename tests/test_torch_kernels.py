@@ -1,7 +1,8 @@
 """The Lloyd kernels, K2 (the logistic, normal and Poisson losses and
 gradients, on float32 or bfloat16 x) and K2-OvR (its logistic and Normal
 families, on K targets of their own or one shared target) and K2-MN (the
-multi-class losses) against their plain versions, on a card.
+multi-class losses), K7 (MiniBatchKMeans' update and epoch) and K10 (the
+guarded pairwise distances) against their plain versions, on a card.
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip without a
 card and ``nvcc``.  They import neither JAX nor the reference, so on a
@@ -20,7 +21,14 @@ the Σ|terms| of the normal and Poisson families and of bf16 x also carry
 each row's η rounding through the loss's derivative (at Poisson's |η| ~
 80 one row's exp(η) is most of the sum, and its η rounding, times
 exp(η), is what two summation orders differ by); so do K2-OvR's and
-K2-MN's against their plain versions taken in float64.
+K2-MN's against their plain versions taken in float64.  K7a rounds every
+operation as its plain version does and must give the same bits; K7b's
+epoch, whose sums run in another order, holds its centres to 1e-4 of their
+largest entry, the mass to rtol 1e-5 and the mean inertia to rtol 1e-5, and
+gives the same bits twice.  K10 holds d² to 1e-5·(‖x−a‖²+‖y−a‖²) (a the
+anchor), √d² through its square and exp(−γd²) to 1e-5·γ·(‖x−a‖²+‖y−a‖²);
+its flagged count equals the plain version's, and a self call's diagonal is
+exactly 0.
 """
 
 import shutil
@@ -598,3 +606,103 @@ def test_ovr_family_wrappers_count_their_launches(cuda):
         vg(x, Y, mask, beta)
         v(x, Y, mask, beta)
         assert (vg.launches, v.launches, ref.calls) == (before[0] + 1, before[1] + 1, before[2])
+
+
+# -- K7 and K10 --------------------------------------------------------------
+
+from dask_ml_tpu_torch.ops import minibatch, pairwise  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d", [(8, 50), (3, 7), (100, 130), (5000, 3)])
+def test_mbk_update_matches_plain_version_bitwise(cuda, k, d):
+    gen = torch.Generator(device=cuda).manual_seed(k + d)
+    centers = torch.randn(k, d, generator=gen, device=cuda)
+    counts = torch.stack([torch.rand(k, generator=gen, device=cuda) * 2 ** 25,
+                          torch.rand(k, generator=gen, device=cuda)])
+    counts[:, 0] = 0.0
+    sums = torch.randn(k, d, generator=gen, device=cuda)
+    bmass = torch.rand(k, generator=gen, device=cuda) * 3
+    bmass[0] = 0.0  # a centre with no mass keeps its place
+    before = minibatch.mbk_update.launches
+    got = minibatch.mbk_update(sums, bmass, centers, counts)
+    want = minibatch.mbk_update_ref(sums, bmass, centers, counts)
+    torch.cuda.synchronize()
+    assert minibatch.mbk_update.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k,bs,n_batches,start", [
+    (20003, 50, 8, 1024, 19, 5), (5003, 50, 3, 100, 40, 0), (4099, 7, 16, 333, 12, 77),
+    (3001, 130, 8, 1024, 2, 1), (3000, 50, 8, 5, 30, 3), (2049, 255, 9, 64, 20, 9),
+    # past K7b's shapes: the epoch steps through K1a and K7a
+    (2000, 20, 17, 100, 6, 4)])
+def test_mbk_epoch_matches_plain_version(cuda, n, d, k, bs, n_batches, start):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    truth = torch.randn(k, d, generator=gen, device=cuda) * 3
+    x = truth[torch.randint(0, k, (n,), generator=gen, device=cuda)]
+    x += torch.randn(n, d, generator=gen, device=cuda)
+    mask = torch.rand(n, generator=gen, device=cuda) * 2
+    mask[-5:] = 0.0
+    centers, counts = x[:k].clone(), torch.zeros(2, k, device=cuda)
+    launches, stepped = minibatch.mbk_epoch.launches, minibatch.mbk_epoch.stepped
+    got = minibatch.mbk_epoch(centers, counts, x, mask, start, bs, n_batches)
+    again = minibatch.mbk_epoch(centers, counts, x, mask, start, bs, n_batches)
+    want = minibatch.mbk_epoch_ref(centers, counts, x, mask, start, bs, n_batches)
+    torch.cuda.synchronize()
+    fused = k <= 16 and d <= 255
+    assert minibatch.mbk_epoch.launches == launches + 2 * fused
+    assert minibatch.mbk_epoch.stepped == stepped + 2 * (not fused)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4 * float(want[0].abs().max()))
+    torch.testing.assert_close(got[1].sum(0), want[1].sum(0), rtol=TOL, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=TOL, atol=0)
+
+
+def _k10_scale(x, y):
+    a = 0.5 * (x.double().mean(0) + y.double().mean(0))
+    return ((x.double() - a) ** 2).sum(1)[:, None] + ((y.double() - a) ** 2).sum(1)[None, :]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d,kind,self_pairs,offset", [
+    (1000, 300, 50, "sq", False, 0.0), (1000, 300, 50, "euclid", False, 0.0),
+    (777, 131, 3, "rbf", False, 0.0), (513, 513, 50, "sq", True, 0.0),
+    (300, 200, 130, "sq", False, 1e3), (2000, 100, 50, "rbf", False, 1e3),
+    (129, 1, 1, "euclid", False, 0.0)])
+def test_sq_euclidean_safe_matches_plain_version(cuda, n, m, d, kind, self_pairs, offset):
+    gen = torch.Generator(device=cuda).manual_seed(n + m + d)
+    x = torch.randn(n, d, generator=gen, device=cuda) + offset
+    y = x[:m] if self_pairs else torch.randn(m, d, generator=gen, device=cuda) + offset
+    if offset:
+        y[: m // 4] = x[: m // 4]  # repeated rows: the exact recompute runs
+    gamma = 1.0 / d if kind == "rbf" else None
+    got = pairwise.sq_euclidean_safe(x, y, 0, 0, self_pairs, kind, gamma)
+    flagged = int(pairwise.sq_euclidean_safe.last_flagged)
+    want, want_flagged = pairwise.sq_euclidean_safe_ref(x, y, 0, 0, self_pairs, kind, gamma)
+    assert flagged == int(want_flagged)
+    if offset:
+        assert flagged >= m // 4  # at least the repeated rows
+    scale = _k10_scale(x, y)
+    g, w = got.double(), want.double()
+    if kind == "euclid":
+        g, w = g ** 2, w ** 2
+    bound = TOL * scale * (gamma if kind == "rbf" else 1.0)
+    assert bool(((g - w).abs() <= bound + 1e-12).all())
+    if self_pairs:
+        assert bool((torch.diagonal(got) == 0).all())
+
+
+@pytest.mark.cuda
+def test_sq_euclidean_safe_fills_a_column_block(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(700, 50, generator=gen, device=cuda)
+    y = torch.randn(96, 50, generator=gen, device=cuda)
+    big = torch.full((700, 300), -1.0, device=cuda)
+    out = pairwise.sq_euclidean_safe(x, y, kind="euclid", out=big[:, 100:196])
+    want, _ = pairwise.sq_euclidean_safe_ref(x, y, kind="euclid")
+    assert out.data_ptr() == big[:, 100:196].data_ptr()
+    assert bool(((out.double() ** 2 - want.double() ** 2).abs()
+                 <= TOL * _k10_scale(x, y)).all())
+    assert bool((big[:, :100] == -1).all()) and bool((big[:, 196:] == -1).all())
