@@ -11,7 +11,10 @@ under ROOT, e.g. a parent commit unpacked there, to compare two trees in
 one call.  ``python3 chip_smoke.py --k5-yardstick ROOT`` likewise holds and
 times K5 at every (M, K) of 11d, then runs 11b's search once on the host
 clock and once under ``torch.profiler`` (K5's device time, the idle share),
-on the package under ROOT.
+on the package under ROOT.  ``python3 chip_smoke.py --k7k10-yardstick ROOT``
+holds and times K7b and K10 at 14c's shapes (with ``torch.cdist`` beside
+``euclid`` and the ring tile, and the column-sum pass apart) on the
+package under ROOT.
 
 Phases, in order; any failure exits non-zero:
 
@@ -4681,21 +4684,30 @@ def minibatch_counts():
             "reassign": minibatch_kmeans._reassign_starved.calls}
 
 
+PROFILE_PADS = 512  # spin kernels that open a device_profile window
+
+
 def device_profile(torch, fn):
     """``fn()`` under ``torch.profiler``: (host-clock ms after a sync, {kernel
-    name: (device ms, count)})."""
+    name: (device ms, count)}).  After profiles of tens of thousands of
+    launches earlier in the process, a profiler window loses the first device
+    events it sees, more after each such profile; so the window opens with
+    PROFILE_PADS short spin kernels and a sync, and leaves them out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PADS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     per_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
             ms, count = per_name.get(e.name, (0.0, 0))
             per_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     return wall_ms, per_name
@@ -4867,10 +4879,24 @@ def k7_table(torch, X, est, stream_counts, fit_counts, block0, state0, card):
                 "launches": stream_counts["mbk_update"], "max_abs_err": 0.0, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
-    # K7b over the first 2^20 rows: 1024 steps from a fixed start
+    # K7b over the first 2^20 rows, and at the main path's epoch
+    c0 = est.cluster_centers_ + 0.5  # off the optimum, so the steps move the centres
+    out.append(k7b_entry(torch, X, c0, fit_counts["mbk_epoch"], card))
+    return out
+
+
+def k7b_entry(torch, X, c0, launches, card, plain_epoch=True):
+    """14c for K7b: over one epoch of the first 2^20 rows (1024 steps from
+    a fixed start) and at the main path's epoch (all rows), each held
+    against its plain version (``plain_epoch=False``: the main epoch only
+    timed), then timed by CUDA events beside the plain version and the
+    bound; returns its line of the kernels table."""
+    from dask_ml_tpu_torch.ops import minibatch
+
+    k, d = c0.shape
+    # 1024 steps from a fixed start
     x1 = X[:STREAM_ROWS]
     m1 = torch.ones(STREAM_ROWS, device=X.device)
-    c0 = est.cluster_centers_ + 0.5  # off the optimum, so the steps move the centres
     z = torch.zeros(2, k, device=X.device)
     args = (c0, z, x1, m1, EPOCH_CHECK_START, MBK_BATCH, EPOCH_CHECK_STEPS)
     got = minibatch.mbk_epoch(*args)
@@ -4898,30 +4924,32 @@ def k7_table(torch, X, est, stream_counts, fit_counts, block0, state0, card):
     args = (c0, z, X, mask, 0, MBK_BATCH, steps)
     got = minibatch.mbk_epoch(*args)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = minibatch.mbk_epoch_ref(*args)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    err = float((got[0] - want[0]).abs().max())
-    ierr = abs(float(got[2]) - float(want[2])) / abs(float(want[2]))
-    gate(err <= 1e-4 * float(want[0].abs().max()) and ierr <= 1e-5,
-         f"14c: K7b over the main path's epoch: centres {err} from the plain version's, "
-         f"inertia rel. {ierr}", phase=14)
+    err = ierr = plain_ms = None
+    if plain_epoch:
+        t0 = time.perf_counter()
+        want = minibatch.mbk_epoch_ref(*args)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        err = float((got[0] - want[0]).abs().max())
+        ierr = abs(float(got[2]) - float(want[2])) / abs(float(want[2]))
+        gate(err <= 1e-4 * float(want[0].abs().max()) and ierr <= 1e-5,
+             f"14c: K7b over the main path's epoch: centres {err} from the plain version's, "
+             f"inertia rel. {ierr}", phase=14)
     ms = time_ms(torch, lambda: minibatch.mbk_epoch(*args), MBK_EPOCH_REPS)
     nbytes = n * d * 4 + n * 4 + 2 * (k * d + 2 * k) * 4 + 4
     flops = n * (2 * d * k + 2 * d + 4 * k + 2 * (d + 1))
     b_ms, b_by = bound_ms(nbytes, flops)
+    held = (f"plain {plain_ms:.1f} ms, its host clock; " if plain_epoch else "")
+    within = (f"centres within {err:.3g}, mean inertia rel. {ierr:.3g}" if plain_epoch
+              else "not held against the plain version here")
     log(f"mbk_epoch (K7b) at the main path's epoch ({steps} steps of {MBK_BATCH} rows of "
-        f"{n}x{d}, k={k}): {ms:.4f} ms an epoch, {1e3 * ms / steps:.3f} us a step (plain "
-        f"{plain_ms:.1f} ms, its host clock; bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.3f} "
-        f"GB, {flops / 1e9:.2f} GFLOP; {b_ms / ms:.2%} of it); centres within {err:.3g}, mean "
-        f"inertia rel. {ierr:.3g} [{card}]")
-    out.append({"name": "mbk_epoch", "route": "cuda",
-                "source": "dask_ml_tpu_torch/csrc/minibatch.cu",
-                "replaces": "dask_ml_tpu/cluster/minibatch_kmeans.py:124",
-                "launches": fit_counts["mbk_epoch"], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    return out
+        f"{n}x{d}, k={k}): {ms:.4f} ms an epoch, {1e3 * ms / steps:.3f} us a step ({held}bound "
+        f"{b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP; "
+        f"{b_ms / ms:.2%} of it); {within} [{card}]")
+    return {"name": "mbk_epoch", "route": "cuda", "source": "dask_ml_tpu_torch/csrc/minibatch.cu",
+            "replaces": "dask_ml_tpu/cluster/minibatch_kmeans.py:124", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 def k10_bound(n, m, d):
@@ -4962,12 +4990,33 @@ def hold_k10(torch, pairwise, x, y, kind, gamma=None, row0=0, col0=0, self_pairs
     return err, flagged
 
 
+#: K10's launch split into its passes, by the kernel names of csrc/pairwise.cu
+#: (this tree's and the first design's)
+K10_PASSES = {"column sums": ("colsum_kernel", "anchor_kernel"), "y staged": ("prep_y_kernel",),
+              "tiles": ("band_kernel", "wide_kernel", "tile_kernel")}
+K10_SPLIT_REPS = 5
+
+
+def k10_split(torch, fn):
+    """Device ms a call of each of K10's passes (``K10_PASSES``), from
+    ``torch.profiler`` over K10_SPLIT_REPS calls of ``fn``; None where the
+    profiler did not record every call's tile kernel."""
+    _, per_name = device_profile(torch, lambda: [fn() for _ in range(K10_SPLIT_REPS)])
+    split, counts = {}, {}
+    for label, names in K10_PASSES.items():
+        hits = [v for name, v in per_name.items() if any(k in name for k in names)]
+        split[label] = sum(ms for ms, _ in hits) / K10_SPLIT_REPS
+        counts[label] = sum(count for _, count in hits)
+    return split if counts["tiles"] == K10_SPLIT_REPS else None
+
+
 def k10_entry(torch, pairwise, name, x, y, kind, gamma, launches, card, row0=0, col0=0,
               self_pairs=False, library=None):
     err, flagged = hold_k10(torch, pairwise, x, y, kind, gamma, row0, col0, self_pairs)
     out = torch.empty(x.shape[0], y.shape[0], device=x.device)
     kw = dict(row0=row0, col0=col0, self_pairs=self_pairs, kind=kind, gamma=gamma, out=out)
     ms = time_ms(torch, lambda: pairwise.sq_euclidean_safe(x, y, **kw), K10_REPS)
+    split = k10_split(torch, lambda: pairwise.sq_euclidean_safe(x, y, **kw))
     plain_ms = time_ms(torch, lambda: pairwise.sq_euclidean_safe_ref(x, y, row0, col0,
                                                                       self_pairs, kind, gamma), 3)
     lib_ms = time_ms(torch, library, K10_REPS) if library is not None else None
@@ -4978,6 +5027,10 @@ def k10_entry(torch, pairwise, name, x, y, kind, gamma, launches, card, row0=0, 
         f"library {fmt_ms(lib_ms)}, bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.3f} GB, "
         f"{flops / 1e9:.2f} GFLOP; {b_ms / ms:.2%} of it); flagged {flagged}, max abs err "
         f"{err:.3g}, launches on the path {launches} [{card}]")
+    passes = ("not measured (the profiler did not record every call's kernels)" if split is None
+              else ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    log(f"{name} (K10, {kind}): device ms a call by pass ({K10_SPLIT_REPS} calls under "
+        f"torch.profiler): {passes} [{card}]")
     return {"name": name, "route": "cuda", "source": "dask_ml_tpu_torch/csrc/pairwise.cu",
             "replaces": "dask_ml_tpu/metrics/pairwise.py:153", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -5141,6 +5194,49 @@ def spectral_path(torch, X, truth, card):
     return c["sq_euclidean_safe"]
 
 
+def k7k10_yardstick(torch, device, card):
+    """``--k7k10-yardstick ROOT``: 14c's K7b (1024 steps of the first 2^20
+    rows, held; the main path's epoch, timed) and K10 (``sq`` and ``euclid``
+    at 2^20 x 1024, the ring tile and ``rbf`` at 10M x 100, each held, with
+    ``torch.cdist`` beside ``euclid`` and the ring tile and the column-sum
+    pass apart) on the package under ROOT (a parent's tree, or this one),
+    so that two trees are timed in one call on one card."""
+    from dask_ml_tpu_torch.ops import _build, minibatch, pairwise
+
+    log(f"k7k10 yardstick: {minibatch.__file__}, {pairwise.__file__}")
+    _build.build(["lloyd", "minibatch", "pairwise"])
+    X, truth = make_blobs(torch, MAIN_ROWS, MAIN_D, MBK_K, 0, device)
+    torch.cuda.synchronize()
+    k7b_entry(torch, X, truth + 0.5, 0, card, plain_epoch=False)
+    k10_entries(torch, pairwise, X, {"sq": 0, "euclid": 0, "ring": 0, "rbf": 0}, card)
+
+
+def k10_entries(torch, pairwise, X, launches, card):
+    """14c for K10: its lines of the kernels table, each epilogue at the
+    shape its path gives it."""
+    x, y = X[:PAIR_ROWS], X[-PAIR_M:]
+    out = [k10_entry(torch, pairwise, "sq_euclidean_safe_sq", x, y, "sq", None,
+                     launches["sq"], card),
+           k10_entry(torch, pairwise, "sq_euclidean_safe_euclid", x, y, "euclid", None,
+                     launches["euclid"], card, library=lambda: torch.cdist(x, y))]
+    ring_x, ring_y = X[:RING_ROWS], X[RING_ROWS - RING_ROWS // RING_SHARDS:RING_ROWS]
+    out.append(k10_entry(torch, pairwise, "sq_euclidean_safe_ring", ring_x, ring_y, "euclid",
+                         None, launches["ring"], card, row0=0,
+                         col0=RING_ROWS - RING_ROWS // RING_SHARDS, self_pairs=True,
+                         library=lambda: torch.cdist(ring_x, ring_y)))
+    xs = X[:SPECTRAL_ROWS]
+    out.append(k10_entry(torch, pairwise, "sq_euclidean_safe_rbf", xs, spectral_sample(torch, X),
+                         "rbf", 1.0 / MAIN_D, launches["rbf"], card))
+    return out
+
+
+def spectral_sample(torch, X):
+    """SPECTRAL_M rows of 14e's rows drawn from a seed: the Nystrom sample's shape."""
+    gen = torch.Generator(device=X.device).manual_seed(0)
+    idx = torch.randperm(SPECTRAL_ROWS, generator=gen, device=X.device)[:SPECTRAL_M]
+    return X[:SPECTRAL_ROWS][idx].contiguous()
+
+
 def minibatch_phase(torch, device, card):
     """Phase 14 end to end; returns its lines of the kernels table."""
     from dask_ml_tpu_torch.ops import pairwise
@@ -5158,22 +5254,9 @@ def minibatch_phase(torch, device, card):
     launches = pairwise_path(torch, X, device, card)
     launches["rbf"] = spectral_path(torch, X, truth, card)
     near_duplicates(torch, pairwise, X, card)
+    out += k10_entries(torch, pairwise, X, launches, card)
     x, y = X[:PAIR_ROWS], X[-PAIR_M:]
-    out.append(k10_entry(torch, pairwise, "sq_euclidean_safe_sq", x, y, "sq", None,
-                         launches["sq"], card))
-    out.append(k10_entry(torch, pairwise, "sq_euclidean_safe_euclid", x, y, "euclid", None,
-                         launches["euclid"], card, library=lambda: torch.cdist(x, y)))
-    ring_x, ring_y = X[:RING_ROWS], X[RING_ROWS - RING_ROWS // RING_SHARDS:RING_ROWS]
-    out.append(k10_entry(torch, pairwise, "sq_euclidean_safe_ring", ring_x, ring_y, "euclid",
-                         None, launches["ring"], card, row0=0,
-                         col0=RING_ROWS - RING_ROWS // RING_SHARDS, self_pairs=True,
-                         library=lambda: torch.cdist(ring_x, ring_y)))
-    xs = X[:SPECTRAL_ROWS]
-    gen = torch.Generator(device=device).manual_seed(0)
-    sample = xs[torch.randperm(SPECTRAL_ROWS, generator=gen, device=device)[:SPECTRAL_M]]
-    sample = sample.contiguous()
-    out.append(k10_entry(torch, pairwise, "sq_euclidean_safe_rbf", xs, sample, "rbf",
-                         1.0 / MAIN_D, launches["rbf"], card))
+    xs, sample = X[:SPECTRAL_ROWS], spectral_sample(torch, X)
     # every epilogue at both shapes: the ones no entry above holds
     for a, b, kind in ((x, y, "rbf"), (xs, sample, "sq"), (xs, sample, "euclid")):
         gamma = 1.0 / MAIN_D if kind == "rbf" else None
@@ -5187,7 +5270,7 @@ def minibatch_phase(torch, device, card):
 
 def main() -> int:
     yardstick = None
-    for flag in ("--k4-yardstick", "--k5-yardstick"):
+    for flag in ("--k4-yardstick", "--k5-yardstick", "--k7k10-yardstick"):
         if flag in sys.argv:
             yardstick = flag
             sys.path.insert(0, sys.argv[sys.argv.index(flag) + 1])
@@ -5213,6 +5296,9 @@ def main() -> int:
         return 0
     if yardstick == "--k5-yardstick":
         k5_yardstick(torch, device, card)
+        return 0
+    if yardstick == "--k7k10-yardstick":
+        k7k10_yardstick(torch, device, card)
         return 0
 
     # 2. build every kernel source, in parallel

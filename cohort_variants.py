@@ -21,14 +21,11 @@ Without a card it exits 1.
 
 from __future__ import annotations
 
-import ctypes
-import subprocess
 import sys
-from pathlib import Path
 
-REPO = Path(__file__).resolve().parent
-SRC = REPO / "dask_ml_tpu_torch" / "csrc" / "cohort.cu"
-OUT = REPO / "dask_ml_tpu_torch" / "_build" / "variants"
+import variants
+
+SRC = variants.CSRC / "cohort.cu"
 ROWS, D = 1 << 20, 64
 
 
@@ -65,30 +62,18 @@ SKELETONS = ("noloss", "nograd", "noshfl", "nofin")
 
 
 def build(names):
-    """Every named source compiled with nvcc at once; prints the record
-    kernels' registers and spills; returns {name: library path}."""
-    sys.path.insert(0, str(REPO))
+    """Every named source compiled at once; prints the record kernels'
+    registers and spills; returns {name: library path}."""
     import chip_smoke
-    from dask_ml_tpu_torch.ops import _build
 
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        text = SRC.read_text()
-        for old, new in VARIANTS.get(name, ("", []))[1]:
-            if old not in text:
-                raise SystemExit(f"variant {name}: its text is not in {SRC.name}")
-            text = text.replace(old, new)
-        cu, so = OUT / f"cohort_{name}.cu", OUT / f"libcohort_{name}.so"
-        cu.write_text(text)
-        procs[name] = (subprocess.Popen(
-            [_build._nvcc(), _build.ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", "-o", str(so), str(cu)], stderr=subprocess.PIPE, text=True), so)
+    text = SRC.read_text()
+    built = variants.compile_all({
+        f"cohort_{name}": variants.edited(text, VARIANTS.get(name, ("", []))[1], name,
+                                          SRC.name)
+        for name in names})
     out = {}
-    for name, (proc, so) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed on {name}:\n{err}")
+    for name in names:
+        so, err = built[f"cohort_{name}"]
         for line in sorted(set(chip_smoke.ptxas_lines(err))):
             if "LogLoss" in line and "registers" in line:
                 print(f"{name}: {line}")
@@ -106,7 +91,7 @@ def main() -> int:
     libs = build(names)
     import chip_smoke as cs
     from dask_ml_tpu_torch.core import set_device
-    from dask_ml_tpu_torch.ops import _build, cohort, sgd
+    from dask_ml_tpu_torch.ops import cohort, sgd
 
     card = cs.card_line()
     device = torch.device("cuda")
@@ -119,13 +104,10 @@ def main() -> int:
               for M, K in shapes}
     kw = dict(loss="log_loss", penalty="l2", schedule="optimal")
     held, failed = set(), set()
-    for name in names + names[::-1]:
+    for name in variants.in_turns(names):
         if name in failed:
             continue
-        _build._libs["cohort"] = ctypes.CDLL(str(libs[name]))
-        cohort._lib = None
-        cohort._plans.clear()
-        cohort._scratch.clear()
+        variants.swap(cohort, "cohort", libs[name], cohort._plans, cohort._scratch)
         times = []
         for key in shapes:
             x, y, masks, coef, intercept, t = cases[key]

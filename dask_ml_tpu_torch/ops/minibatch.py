@@ -6,14 +6,25 @@ _mbk_step_fn`` (the Kahan add of the batch mass into the (2, k) (hi, lo)
 pair and Sculley's move ``c += (bsum − bmass·c)·inv``), after K1a
 (``ops/lloyd.py :: lloyd_assign_reduce``) has made the batch's sums.  K7b
 replaces ``_mbk_epoch_fn``, the ``lax.scan`` of steps over contiguous
-windows.  The CUDA source is ``csrc/minibatch.cu``; it says what bounds
-the kernels and what their design does about it.
+windows.  The CUDA source is ``csrc/minibatch.cu``.  K7a moves k·d floats:
+launch-bound.  K7b's steps are a serial chain (each needs the last one's
+centres), so its floor is the latency of a step, not the epoch's 6.09 ms of
+bytes at 100M x 50.  Its design: one 16-CTA thread-block cluster runs
+the epoch, a CTA a sixteenth of each window and the owner of one centre,
+the next windows' rows in flight; the assign takes two rows a
+thread and four threads a pair; the reduce a column a lane; the step's
+exchange pushes each partial into its centre's owner CTA and each moved
+centre into every CTA (``st.async`` into distributed shared memory,
+signalled on mbarriers), with no cluster barrier.  What still holds it
+back: a step is still a chain of four phases of shared-memory traffic,
+shuffles and barriers on 16 SMs.
 
 Each wrapper runs its plain PyTorch version (``*_ref``) on a CPU tensor and
 launches its kernel on a CUDA tensor, or raises; each counts its launches
-in ``<wrapper>.launches``.  K7b takes k ≤ 16 centres and d ≤ 255 features;
-past that ``mbk_epoch`` steps the epoch through K1a and K7a, a launch of
-each a window (``mbk_epoch.stepped`` counts such epochs).  The state is
+in ``<wrapper>.launches``.  K7b takes k ≤ 16 centres and d ≤ 255 features
+on a card that can place a 16-CTA cluster; past that ``mbk_epoch`` steps
+the epoch through K1a and K7a, a launch of each a window
+(``mbk_epoch.stepped`` counts such epochs).  The state is
 never updated in place: each call returns new centres and a new pair.
 """
 

@@ -29,11 +29,9 @@ import subprocess
 import sys
 from pathlib import Path
 
-REPO = Path(__file__).resolve().parent
-SRC = REPO / "dask_ml_tpu_torch" / "csrc" / "multiclass.cu"
-OUT = REPO / "dask_ml_tpu_torch" / "_build" / "variants"
-NVCC = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC"]
+import variants
+
+SRC = variants.CSRC / "multiclass.cu"
 SHAPES = {"K4": (8, 1_375_000, 29, 4), "K16": (1, 1_000_000, 28, 16)}
 REPS = 20
 
@@ -64,21 +62,11 @@ def card_line():
 
 
 def build(sources):
-    """{name: CDLL}: every source compiled with nvcc at once."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(["nvcc", *NVCC, "-o", str(so), str(cu)],
-                                       stderr=subprocess.PIPE, text=True)
+    """{name: CDLL}: every source compiled at once."""
     libs = {}
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
-        lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
+    for name, (so, _) in variants.compile_all(sources).items():
+        lib = ctypes.CDLL(str(so))
         lib.multiclass_plan.argtypes = [i32, i32, ll, ll, i32, i32, i32, vp]
         lib.multiclass_value_and_grad.argtypes = [i32, i32, vp, vp, vp, vp, vp, ll, ll, i32,
                                                   i32, ll, i32, vp, vp, vp, vp, vp]
@@ -104,12 +92,7 @@ def main() -> int:
         sources["parent"] = args.parent.read_text()
     sources["current"] = src
     for name in args.names:
-        text = src
-        for old, new in VARIANTS[name][1]:
-            if old not in text:
-                raise SystemExit(f"variant {name} no longer applies to {SRC}")
-            text = text.replace(old, new)
-        sources[name] = text
+        sources[name] = variants.edited(src, VARIANTS[name][1], name, SRC.name)
         print(f"{name}: {VARIANTS[name][0]}")
     print(f"card: {card_line()}", flush=True)
     libs = build(sources)
@@ -145,8 +128,7 @@ def main() -> int:
                    if e.device_type == DeviceType.CUDA) / 1e3 / REPS
 
     first = {}
-    order = list(libs) + list(reversed(list(libs)))
-    for name in order:
+    for name in variants.in_turns(libs):
         lib, row = libs[name], []
         for key, (x, y, mask, B, act, K) in data.items():
             P, m, d = x.shape

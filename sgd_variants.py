@@ -19,14 +19,11 @@ a card it exits 1.
 
 from __future__ import annotations
 
-import ctypes
-import subprocess
 import sys
-from pathlib import Path
 
-REPO = Path(__file__).resolve().parent
-SRC = REPO / "dask_ml_tpu_torch" / "csrc" / "sgd.cu"
-OUT = REPO / "dask_ml_tpu_torch" / "_build" / "variants"
+import variants
+
+SRC = variants.CSRC / "sgd.cu"
 ROWS, D, K, N_MB = 1 << 20, 64, 10, 16
 
 _TERMS = "const Terms tr = L::terms(mg[c] + bias[k], yt[r * K + k], eps);"
@@ -49,30 +46,17 @@ VARIANTS = {
 
 
 def build(names):
-    """Every named source compiled with nvcc at once; prints the tensor-core
-    instances' registers and spills; returns {name: library path}."""
-    sys.path.insert(0, str(REPO))
+    """Every named source compiled at once; prints the tensor-core instances'
+    registers and spills; returns {name: library path}."""
     import chip_smoke
-    from dask_ml_tpu_torch.ops import _build
 
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        text = SRC.read_text()
-        for old, new in VARIANTS.get(name, ("", []))[1]:
-            if old not in text:
-                raise SystemExit(f"variant {name}: its text is not in {SRC.name}")
-            text = text.replace(old, new)
-        cu, so = OUT / f"sgd_{name}.cu", OUT / f"libsgd_{name}.so"
-        cu.write_text(text)
-        procs[name] = (subprocess.Popen(
-            [_build._nvcc(), _build.ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", "-o", str(so), str(cu)], stderr=subprocess.PIPE, text=True), so)
+    text = SRC.read_text()
+    built = variants.compile_all({
+        f"sgd_{name}": variants.edited(text, VARIANTS.get(name, ("", []))[1], name, SRC.name)
+        for name in names})
     out = {}
-    for name, (proc, so) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"nvcc failed on {name}:\n{err}")
+    for name in names:
+        so, err = built[f"sgd_{name}"]
         for line in sorted(set(chip_smoke.ptxas_lines(err))):
             if "tc_kernel<2>" in line or "epoch_kernel<2,2,1>" in line:
                 print(f"{name}: {line}")
@@ -90,7 +74,7 @@ def main() -> int:
     libs = build(names)
     import chip_smoke as cs
     from dask_ml_tpu_torch.core import set_device
-    from dask_ml_tpu_torch.ops import _build, sgd
+    from dask_ml_tpu_torch.ops import sgd
 
     card = cs.card_line()
     device = torch.device("cuda")
@@ -99,11 +83,8 @@ def main() -> int:
     hyper = cs.sgd_hyper(torch, device)
     stacks = (x.view(-1, N_MB, D), y.view(-1, N_MB, K), mask.view(-1, N_MB))
     kw = dict(loss="log_loss", penalty="l2", schedule="optimal")
-    for name in names + names[::-1]:
-        _build._libs["sgd"] = ctypes.CDLL(str(libs[name]))
-        sgd._lib = None
-        sgd._plans.clear()
-        sgd._scratch.clear()
+    for name in variants.in_turns(names):
+        variants.swap(sgd, "sgd", libs[name], sgd._plans, sgd._scratch)
         c, b, t = coef.clone(), intercept.clone(), torch.tensor(5.0, device=device)
         up = cs.time_ms(torch, lambda: sgd.sgd_update(x, y, mask, c, b, t, hyper, **kw), 20)
         lo = cs.time_ms(torch, lambda: sgd.sgd_loss(x, y, mask, c, b, hyper, loss="log_loss"), 20)

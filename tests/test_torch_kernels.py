@@ -28,7 +28,9 @@ largest entry, the mass to rtol 1e-5 and the mean inertia to rtol 1e-5, and
 gives the same bits twice.  K10 holds d² to 1e-5·(‖x−a‖²+‖y−a‖²) (a the
 anchor), √d² through its square and exp(−γd²) to 1e-5·γ·(‖x−a‖²+‖y−a‖²);
 its flagged count equals the plain version's, and a self call's diagonal is
-exactly 0.
+exactly 0.  The edge cases of K10's tiles add to the exp(−γd²) bound two
+float32 ulps of the value, the rounding of exp itself (at d = 1 and a scale
+near 1e-3 the d² term alone is below one ulp of a value near 1).
 """
 
 import shutil
@@ -706,3 +708,223 @@ def test_sq_euclidean_safe_fills_a_column_block(cuda):
     assert bool(((out.double() ** 2 - want.double() ** 2).abs()
                  <= TOL * _k10_scale(x, y)).all())
     assert bool((big[:, :100] == -1).all()) and bool((big[:, 196:] == -1).all())
+
+
+# -- K7b and K10 at the edges of their Hopper designs --------------------------
+
+
+def _mbk_inputs(n, d, k, seed, device, rows_init=False):
+    # rows_init: the centres are k of the data rows, as k-means++ and the
+    # random init draw them.  Otherwise they start near the true blob centres:
+    # no row lies within float32 rounding of two centres, and no window's
+    # inertia is rounding noise (a row against itself), either of which two
+    # right summation orders may settle differently
+    gen = torch.Generator(device=device).manual_seed(seed)
+    truth = torch.randn(k, d, generator=gen, device=device) * 3
+    x = truth[torch.randint(0, k, (n,), generator=gen, device=device)]
+    x += torch.randn(n, d, generator=gen, device=device)
+    mask = torch.rand(n, generator=gen, device=device) * 2
+    mask[-5:] = 0.0
+    if rows_init:
+        centers = x[torch.randperm(n, generator=gen, device=device)[:k]].clone()
+    else:
+        centers = truth + 0.5 * torch.randn(k, d, generator=gen, device=device)
+    counts = torch.stack([torch.rand(k, generator=gen, device=device) * 3,
+                          torch.zeros(k, device=device)])
+    return x, mask, centers, counts
+
+
+def _hold_mbk_epoch(x, mask, centers, counts, start, bs, n_batches):
+    launches = minibatch.mbk_epoch.launches
+    got = minibatch.mbk_epoch(centers, counts, x, mask, start, bs, n_batches)
+    again = minibatch.mbk_epoch(centers, counts, x, mask, start, bs, n_batches)
+    want = minibatch.mbk_epoch_ref(centers, counts, x, mask, start, bs, n_batches)
+    torch.cuda.synchronize()
+    assert minibatch.mbk_epoch.launches == launches + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4 * float(want[0].abs().max()))
+    torch.testing.assert_close(got[1].sum(0), want[1].sum(0), rtol=TOL, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=TOL, atol=0)
+
+
+def _fma(a, b, c):
+    # float32 fmaf: the product is exact in float64, the sum rounded there,
+    # then to float32 (a double rounding, off by an ulp about once in 2^29)
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _butterfly(parts, masks):
+    # parts (..., p): the sum a shuffle butterfly over p lanes, by the lane
+    # masks in that order, gives every lane
+    lanes = torch.arange(parts.shape[-1], device=parts.device)
+    for m in masks:
+        parts = parts + parts[..., lanes ^ m]
+    return parts[..., 0]
+
+
+def _k7b_assign(xb, centers):
+    """Labels and d^2 of K7b's assign, in its order of sums: the centre norms
+    over 32 lanes of a warp (a butterfly by lane masks 16 down to 1), |x|^2
+    and x.c over four lanes of a row (masks 1 then 2), each lane every 32nd
+    (fourth) feature in turn; d^2 =
+    max((|x|^2 + |c|^2) - 2 x.c, 0), the first of equal centres."""
+    n, d = xb.shape
+    k = centers.shape[0]
+    cparts = torch.zeros(k, 32, device=xb.device)
+    for j in range(d):
+        cparts[:, j % 32] = _fma(centers[:, j], centers[:, j], cparts[:, j % 32])
+    cn = _butterfly(cparts, (16, 8, 4, 2, 1))
+    xparts = torch.zeros(n, 4, device=xb.device)
+    dparts = torch.zeros(n, k, 4, device=xb.device)
+    for j in range(d):
+        xj = xb[:, j]
+        xparts[:, j % 4] = _fma(xj, xj, xparts[:, j % 4])
+        dparts[:, :, j % 4] = _fma(xj[:, None], centers[None, :, j], dparts[:, :, j % 4])
+    xn, dot = _butterfly(xparts, (1, 2)), _butterfly(dparts, (1, 2))
+    d2 = torch.clamp_min((xn[:, None] + cn[None, :]) - 2.0 * dot, 0.0)
+    labels = torch.argmin(d2, dim=1)  # first index among ties
+    return labels, torch.gather(d2, 1, labels[:, None])[:, 0]
+
+
+def _hold_mbk_steps(x, mask, centers, counts, start, bs, n_batches):
+    # each window an epoch of one step, from the plain version's state at that
+    # step, held against a plain step whose assign repeats K7b's order of sums
+    # (so a row within float32 rounding of two centres, or a window whose only
+    # weighted row is its own centre, settles as in the kernel); the sums and
+    # the update are the plain version's
+    n, k = x.shape[0], centers.shape[0]
+    launches, stepped = minibatch.mbk_epoch.launches, minibatch.mbk_epoch.stepped
+    for i in range(n_batches):
+        off = minibatch.window_start(start, i, bs, n)
+        got = minibatch.mbk_epoch(centers, counts, x, mask, off, bs, 1)
+        if i == 0:
+            again = minibatch.mbk_epoch(centers, counts, x, mask, off, bs, 1)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+        xb, wb = x[off:off + bs], mask[off:off + bs]
+        labels, best = _k7b_assign(xb, centers)
+        want = minibatch.mbk_update_ref(bucket_sum(xb * wb[:, None], labels, k),
+                                        bucket_sum(wb, labels, k), centers, counts)
+        inertia = float((wb * best).double().sum())
+        torch.cuda.synchronize()
+        what = f"step {i}, window at {off}"
+        torch.testing.assert_close(got[0], want[0], rtol=0,
+                                   atol=1e-4 * float(want[0].abs().max()), msg=what)
+        torch.testing.assert_close(got[1].sum(0), want[1].sum(0), rtol=TOL, atol=0, msg=what)
+        assert abs(float(got[2]) - inertia) <= TOL * abs(inertia), (what, float(got[2]), inertia)
+        centers, counts, _ = minibatch.mbk_epoch_ref(centers, counts, x, mask, off, bs, 1)
+    assert minibatch.mbk_epoch.launches == launches + n_batches + 1
+    assert minibatch.mbk_epoch.stepped == stepped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 9, 16])
+@pytest.mark.parametrize("d", [1, 50, 64, 255])
+@pytest.mark.parametrize("bs", [1, 7, 1023, 1024, 8192])
+def test_mbk_epoch_edges(cuda, bs, d, k):
+    # rows a CTA from 1 to past one unit (bs 8192: 512 rows, several units), and
+    # windows that wrap: the start lies near the end of the padded rows.  From
+    # centres drawn from the rows, each window a step; then the windows in one
+    # launch (the step chain inside the kernel), from centres near the blobs'
+    n = bs + 3 * bs // 2 + 11 + k
+    x, mask, centers, counts = _mbk_inputs(n, d, k, bs + d + k, cuda, rows_init=True)
+    _hold_mbk_steps(x, mask, centers, counts, n - 5, bs, 6)
+    x, mask, centers, counts = _mbk_inputs(n, d, k, bs + d + k, cuda)
+    _hold_mbk_epoch(x, mask, centers, counts, n - 5, bs, 6)
+
+
+@pytest.mark.cuda
+def test_mbk_epoch_many_steps(cuda):
+    # 6000 steps in one launch: each owner CTA has one inbox for the step
+    # partials, reused every step, so a push of a step's partials that
+    # overtook the owner's reads of the step before would show here
+    x, mask, centers, counts = _mbk_inputs(40_000, 50, 8, 11, cuda)
+    _hold_mbk_epoch(x, mask, centers, counts, 123, 64, 6000)
+
+
+def _hold_k10(x, y, kind, row0=0, col0=0, self_pairs=False, out=None):
+    gamma = 1.0 / x.shape[1] if kind == "rbf" else None
+    launches = pairwise.sq_euclidean_safe.launches
+    got = pairwise.sq_euclidean_safe(x, y, row0, col0, self_pairs, kind, gamma, out=out)
+    flagged = int(pairwise.sq_euclidean_safe.last_flagged)
+    again = pairwise.sq_euclidean_safe(x, y, row0, col0, self_pairs, kind, gamma)
+    want, want_flagged = pairwise.sq_euclidean_safe_ref(x, y, row0, col0, self_pairs, kind, gamma)
+    torch.cuda.synchronize()
+    assert pairwise.sq_euclidean_safe.launches == launches + 2
+    assert torch.equal(got, again)
+    assert flagged == int(want_flagged)
+    g, w = got.double(), want.double()
+    if kind == "euclid":
+        g, w = g ** 2, w ** 2
+    bound = TOL * _k10_scale(x, y) * (gamma if kind == "rbf" else 1.0)
+    if kind == "rbf":  # and exp's own float32 rounding, two ulps of the value
+        bound = bound + 2.0 ** -22 * w.abs()
+    assert bool(((g - w).abs() <= bound + 1e-12).all())
+    if self_pairs:
+        ii = row0 + torch.arange(x.shape[0], device=x.device)[:, None]
+        jj = col0 + torch.arange(y.shape[0], device=x.device)[None, :]
+        assert bool((got[ii == jj] == 0).all())
+    return got, flagged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 50, 64, 65, 130])
+@pytest.mark.parametrize("m", [1, 100, 129, 257])
+def test_sq_euclidean_safe_widths(cuda, m, d):
+    # the narrow tile (m <= 104), y staged once (m <= 128), y tiles streamed,
+    # and the wide kernel past 64 features
+    gen = torch.Generator(device=cuda).manual_seed(m * 1000 + d)
+    x = torch.randn(1000, d, generator=gen, device=cuda)
+    y = torch.randn(m, d, generator=gen, device=cuda)
+    for kind in ("sq", "euclid", "rbf"):
+        _hold_k10(x, y, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(128 * 265 + 5, 1024), (128 * 7 + 1, 300), (33_001, 100)])
+def test_sq_euclidean_safe_tile_runs(cuda, n, m):
+    # tile counts that do not divide by the CTA count (about two a SM), and
+    # fewer tiles than CTAs; x one float past a 16-byte boundary
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    flat = torch.randn(n * 50 + 1, generator=gen, device=cuda)
+    x = flat[1:].view(n, 50)
+    y = torch.randn(m, 50, generator=gen, device=cuda)
+    _hold_k10(x, y, "sq")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row0,col0,m", [(0, 300, 513), (77, 0, 200), (1000, 1130, 129)])
+def test_sq_euclidean_safe_self_diagonal_crosses_bands(cuda, row0, col0, m):
+    # a self block whose global diagonal crosses band and tile edges at
+    # offsets that are not multiples of 128
+    gen = torch.Generator(device=cuda).manual_seed(row0 + col0)
+    big = torch.randn(2000, 50, generator=gen, device=cuda)
+    x = big[row0:row0 + 700].contiguous()
+    y = big[col0:col0 + m].contiguous()
+    _hold_k10(x, y, "euclid", row0, col0, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,m", [(100, 96), (7, 100), (3, 257)])
+def test_sq_euclidean_safe_column_blocks(cuda, offset, m):
+    # out a column block of a wider matrix, at an offset that takes 16-byte
+    # stores (100) or does not (7, 3)
+    gen = torch.Generator(device=cuda).manual_seed(offset + m)
+    x = torch.randn(701, 50, generator=gen, device=cuda)
+    y = torch.randn(m, 50, generator=gen, device=cuda)
+    big = torch.full((701, offset + m + 50), -1.0, device=cuda)
+    got, _ = _hold_k10(x, y, "sq", out=big[:, offset:offset + m])
+    assert got.data_ptr() == big[:, offset:].data_ptr()
+    assert bool((big[:, :offset] == -1).all()) and bool((big[:, offset + m:] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [50, 130])
+def test_sq_euclidean_safe_repeats_in_the_last_band(cuda, d):
+    # rows of y repeated in x's last, partial band: the exact recompute runs there
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn(1000, d, generator=gen, device=cuda) + 1e3
+    y = torch.randn(100, d, generator=gen, device=cuda) + 1e3
+    x[-7:] = y[:7]
+    got, flagged = _hold_k10(x, y, "sq")
+    assert flagged >= 7
+    assert bool((got[-7:].gather(1, torch.arange(7, device=cuda)[:, None]) == 0).all())
