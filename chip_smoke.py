@@ -14,6 +14,10 @@ clock and once under ``torch.profiler`` (K5's device time, the idle share),
 on the package under ROOT.  ``python3 chip_smoke.py --k7k10-yardstick ROOT``
 holds and times K7b and K10 at 14c's shapes (with ``torch.cdist`` beside
 ``euclid`` and the ring tile, and the column-sum pass apart) on the
+package under ROOT.  ``python3 chip_smoke.py --sweep-yardstick ROOT`` runs
+13a's packed ``GridSearchCV`` (one warm search, two timed on the host
+clock, one under ``torch.profiler``: K2-OvR's device time and the idle
+share) and holds and times 13d's shared-target K2-OvR entries, on the
 package under ROOT.
 
 Phases, in order; any failure exits non-zero:
@@ -227,8 +231,10 @@ Phases, in order; any failure exits non-zero:
    solver_kwargs={"inner_iter": 30}), {"C": logspace(-3, 4, 8)}, cv=3)``
    packed (``auto`` on CUDA), refit on: the wall time (host clock after a
    sync; the refit timed again alone), solves, launches by variant, host
-   syncs, peak memory and ``SWEEP_STATS``; gates: 3 packed folds and none
-   ineligible, no plain version, ``best_score_`` >= 0.98 of the true w's
+   syncs, peak memory, ``SWEEP_STATS`` and K2-OvR's launches by plan path;
+   gates: 3 packed folds and none ineligible, K2-OvR's shared-target
+   tensor-core path (plan path 3) launched, no plain version,
+   ``best_score_`` >= 0.98 of the true w's
    held-out accuracy, the best coef's cosine to w >= 0.99; one more fit
    under ``torch.profiler`` (idle share, device time by kernel).  13b: the
    same grid under ``DASK_ML_TPU_TORCH_GRID_PACK=sequential`` (24 fits and
@@ -240,7 +246,9 @@ Phases, in order; any failure exits non-zero:
    families and variants held against their plain versions and against the
    same kernel on a materialized (8, P, m) copy, then timed (CUDA events,
    20 launches) on both beside the plain version, the bound by bytes (x,
-   one y, the mask) and the ``torch.bmm`` pair; then ``lambda_sweep("lbfgs")``
+   one y, the mask) and the ``torch.bmm`` pair, with each call's plan path
+   (the shared target's tensor-core path, 3; ``ovr_kernel``, 0, on the
+   copy); then ``lambda_sweep("lbfgs")``
    against 8 sequential ``lbfgs`` solves at bench.py's
    ``grid_sweep_lbfgs_1000000x28_K8`` (20 iterations, tol 0), in turns.
    13e: ``GridSearchCV(make_pipeline(PCA(), LogisticRegression()),
@@ -1121,8 +1129,8 @@ def profiled_admm_fit(torch, algorithms, X, y, card, make=None, label="phase 6: 
         return
     busy = sum(ms for ms, _ in per_name.values())
     k2 = [(ms, count) for name, (ms, count) in per_name.items()
-          if any(k in name for k in ("tiled_kernel", "ovr_kernel", "mn_kernel", "row_kernel",
-                                     "finalize_kernel"))]
+          if any(k in name for k in ("tiled_kernel", "ovr_kernel", "tc_kernel", "mn_kernel",
+                                     "row_kernel", "finalize_kernel"))]
     k2_ms, k2_launches = sum(ms for ms, _ in k2), sum(c for _, c in k2)
     for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  device {ms:12.3f} ms {count:7d}x  {name[:110]}")
@@ -1648,7 +1656,8 @@ def mn_device_ms(torch, fn, reps):
     per_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and any(
-                k in e.name for k in ("mn_kernel", "tiled_kernel", "row_kernel", "finalize_kernel")):
+                k in e.name for k in ("tc_kernel", "mn_kernel", "tiled_kernel", "row_kernel",
+                                      "finalize_kernel")):
             per_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     if not per_name:
         return None
@@ -1659,12 +1668,18 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+#: the plan paths of K2-OvR (mode 0) and K2-MN (mode 1), by (mode, plan word 0)
+PLAN_PATHS = {(0, 0): "ovr_kernel", (0, 1): "row_kernel",
+              (0, 3): "tc_kernel, one shared target", (1, 0): "tiled_kernel",
+              (1, 1): "row_kernel", (1, 2): "tc_kernel"}
+
+
 def plan_words(multiclass, x, mode, K):
     """The C plan of a K2-OvR (mode 0) or K2-MN (1) call on x: path, rows a
-    tile, gradient row groups (K2-MN's tensor-core path, path 2: its ring's
-    stages), blocks, shared bytes, record floats, scratch floats, and (OvR)
-    class chunks a block or (MN) loss groups (path 2: n-tiles of 8
-    classes)."""
+    tile, gradient row groups (the tensor-core paths, 2 and 3: their ring's
+    stages), blocks, shared bytes, record floats, scratch floats, and (OvR
+    path 0) class chunks a block or (MN path 0) loss groups (paths 2 and 3:
+    n-tiles of 8 classes or lanes)."""
     P, m, d = x.shape
     return list(multiclass._plan(multiclass._load(), x.device, mode, P, m, d, K))
 
@@ -4236,12 +4251,33 @@ def grid_search(make, Xs, ys, grid, cv):
         return GridSearchCV(make(), grid, cv=cv).fit(Xs, ys)
 
 
+@contextlib.contextmanager
+def launches_by_path(multiclass):
+    """Counts K2-OvR's and K2-MN's launches by (mode, plan path) while open:
+    each launch takes its plan from ``multiclass._plan`` once."""
+    from collections import Counter
+
+    counts, plan = Counter(), multiclass._plan
+
+    def counted(lib, device, mode, *args, **kw):
+        words = plan(lib, device, mode, *args, **kw)
+        counts[PLAN_PATHS.get((mode, int(words[0])), (mode, int(words[0])))] += 1
+        return words
+
+    multiclass._plan = counted
+    try:
+        yield counts
+    finally:
+        multiclass._plan = plan
+
+
 def timed_search(torch, multiclass, logistic, algorithms, label, make, Xs, ys, grid, strategy,
                  card):
     """One search under ``DASK_ML_TPU_TORCH_GRID_PACK=strategy``, every launch
-    and host sync counted, its wall time on the host clock after a sync,
-    split into the folds and the refit (the refit timed again alone: the
-    same fit of the winner on all rows).  Returns (search, launches, wall s)."""
+    and host sync counted (K2-OvR's also by plan path), its wall time on the
+    host clock after a sync, split into the folds and the refit (the refit
+    timed again alone: the same fit of the winner on all rows).  Returns
+    (search, launches, wall s, K2-OvR and K2-MN launches by plan path)."""
     from dask_ml_tpu_torch.base import clone
     from dask_ml_tpu_torch.entry import _env
     from dask_ml_tpu_torch.model_selection import _search
@@ -4250,7 +4286,7 @@ def timed_search(torch, multiclass, logistic, algorithms, label, make, Xs, ys, g
     torch.cuda.reset_peak_memory_stats()
     reset_grid_counts(multiclass, logistic, algorithms)
     _search.reset_sweep_stats()
-    with _env("DASK_ML_TPU_TORCH_GRID_PACK", strategy):
+    with _env("DASK_ML_TPU_TORCH_GRID_PACK", strategy), launches_by_path(multiclass) as by_path:
         t0 = time.perf_counter()
         gs = grid_search(make, Xs, ys, grid, 3)
         torch.cuda.synchronize()
@@ -4271,14 +4307,15 @@ def timed_search(torch, multiclass, logistic, algorithms, label, make, Xs, ys, g
     log(f"{label} [{strategy}]: {wall:.3f} s on the host clock (folds ~{wall - refit:.3f} s, "
         f"refit {refit:.3f} s timed alone), solves {solves}, launches "
         f"{ {k: v for k, v in launches.items() if v} }, plain-version calls {plain}, host syncs "
-        f"{syncs}, peak memory {peak:.2f} GiB, SWEEP_STATS {stats}; best_params_ "
-        f"{gs.best_params_}, best_score_ {gs.best_score_:.7f} [{card}]")
+        f"{syncs}, peak memory {peak:.2f} GiB, SWEEP_STATS {stats}; K2-OvR and K2-MN launches by "
+        f"plan path {dict(by_path)}; best_params_ {gs.best_params_}, best_score_ "
+        f"{gs.best_score_:.7f} [{card}]")
     log(f"  mean_test_score {[round(s, 7) for s in gs.cv_results_['mean_test_score']]}")
     if plain:
         raise AssertionError(f"{label} [{strategy}] called a plain version {plain} times")
     if strategy == "packed" and (stats["packed_folds"] != 3 or stats["ineligible"]):
         raise AssertionError(f"{label}: the packed search's folds ran {stats}")
-    return gs, launches, wall
+    return gs, launches, wall, by_path
 
 
 def hold_close(label, a, b, tol):
@@ -4308,8 +4345,8 @@ def grid_main_path(torch, multiclass, logistic, algorithms, device, card):
     grid = {"C": np.logspace(-3, 4, 8)}
     label = (f"phase 13a: GridSearchCV(LogisticRegression(admm), 8 values of C, cv=3) "
              f"{HIGGS_ROWS}x{HIGGS_D}")
-    gs, launches, wall_p = timed_search(torch, multiclass, logistic, algorithms, label, make, sX,
-                                        sy, grid, "auto", card)
+    gs, launches, wall_p, by_path = timed_search(torch, multiclass, logistic, algorithms, label,
+                                                 make, sX, sy, grid, "auto", card)
     coef = gs.best_estimator_.coef_
     cos = float(coef @ w / (coef.norm() * w.norm()))
     log(f"  best_score_ {gs.best_score_:.7f} (>= 0.98 of the true w's held-out accuracy "
@@ -4321,12 +4358,14 @@ def grid_main_path(torch, multiclass, logistic, algorithms, device, card):
     for name in ("logistic_ovr_value_and_grad", "logistic_ovr_value"):
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched in the packed search")
+    if by_path[PLAN_PATHS[(0, 3)]] < 1:
+        raise AssertionError(f"13a launched no K2-OvR on the shared-target path: {dict(by_path)}")
     profiled_admm_fit(torch, algorithms, sX, sy, card,
                       make=lambda: _Search(make, grid),
                       label="phase 13a: profiled packed grid search")
     label_b = "phase 13b: the same grid, a fit a candidate and fold"
-    gs_s, _, wall_s = timed_search(torch, multiclass, logistic, algorithms, label_b, make, sX,
-                                   sy, grid, "sequential", card)
+    gs_s, _, wall_s, _ = timed_search(torch, multiclass, logistic, algorithms, label_b, make,
+                                      sX, sy, grid, "sequential", card)
     log(f"  sequential {wall_s:.3f} s / packed {wall_p:.3f} s = {wall_s / wall_p:.3f}x [{card}]")
     hold_close("13b against 13a", gs_s.cv_results_["mean_test_score"],
                gs.cv_results_["mean_test_score"], 1e-4)
@@ -4356,13 +4395,13 @@ def grid_regression(torch, multiclass, logistic, algorithms, device, card):
     grid = {"C": np.logspace(0, 6, 5)}
     label = (f"phase 13c: GridSearchCV(LinearRegression(admm), 5 values of C, cv=3) "
              f"{HIGGS_ROWS}x{HIGGS_D}")
-    gs, launches, wall_p = timed_search(torch, multiclass, logistic, algorithms, label,
-                                        LinearRegression, sX, sy, grid, "auto", card)
+    gs, launches, wall_p, _ = timed_search(torch, multiclass, logistic, algorithms, label,
+                                           LinearRegression, sX, sy, grid, "auto", card)
     for name in ("normal_ovr_value_and_grad", "normal_ovr_value"):
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched in the packed regression search")
-    gs_s, _, wall_s = timed_search(torch, multiclass, logistic, algorithms, label,
-                                   LinearRegression, sX, sy, grid, "sequential", card)
+    gs_s, _, wall_s, _ = timed_search(torch, multiclass, logistic, algorithms, label,
+                                      LinearRegression, sX, sy, grid, "sequential", card)
     log(f"  sequential {wall_s:.3f} s / packed {wall_p:.3f} s = {wall_s / wall_p:.3f}x [{card}]")
     hold_close("13c sequential against packed", gs_s.cv_results_["mean_test_score"],
                gs.cv_results_["mean_test_score"], 1e-5)
@@ -4478,14 +4517,16 @@ def sweep_kernel_table(torch, multiclass, cases, launches, card):
             nbytes = n * d * 4 + 2 * n * 4 + B.numel() * 4 * (2 if grad else 1) + L * P * 4
             flops = (4 if grad else 2) * n * d * L
             b_ms, b_by = bound_ms(nbytes, flops)
-            plan = multiclass._plan(multiclass._load(), dev, 0, P, m, d, L,
-                                    multiclass._FAMILIES[family], True)
-            plan_copy = multiclass._plan(multiclass._load(), dev, 0, P, m, d, L,
-                                         multiclass._FAMILIES[family], False)
+            plan = list(multiclass._plan(multiclass._load(), dev, 0, P, m, d, L,
+                                         multiclass._FAMILIES[family], True))
+            plan_copy = list(multiclass._plan(multiclass._load(), dev, 0, P, m, d, L,
+                                              multiclass._FAMILIES[family], False))
             log(f"{name} (shared target) at {what}: {ms:.4f} ms, {b_ms / ms:.1%} of the bound "
-                f"(the same kernel on a materialized target {ms_copy:.4f} ms; plain "
+                f"(on a materialized target {ms_copy:.4f} ms; plain "
                 f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.4f} GB, "
-                f"{flops / 1e9:.3f} GFLOP; plan {list(plan)}, on the copy {list(plan_copy)}; "
+                f"{flops / 1e9:.3f} GFLOP; plan path {plan[0]} "
+                f"({PLAN_PATHS.get((0, plan[0]))}), plan {plan}; on the copy path "
+                f"{plan_copy[0]} ({PLAN_PATHS.get((0, plan_copy[0]))}), plan {plan_copy}; "
                 f"informational: torch.bmm pair {bmm_ms:.4f} ms) [{card}]")
             out.append({"name": f"{name}_shared", "route": "cuda",
                         "source": "dask_ml_tpu_torch/csrc/multiclass.cu",
@@ -5268,9 +5309,48 @@ def minibatch_phase(torch, device, card):
     return out
 
 
+def sweep_tree_yardstick(torch, device, card):
+    """``--sweep-yardstick ROOT``: 13a's packed ``GridSearchCV`` on the
+    HIGGS stand-in (one warm search, then two timed on the host clock after
+    a sync, then one under ``torch.profiler``: the loss kernels' device
+    time and the idle share) and 13d's shared-target K2-OvR entries
+    (logistic at 13a's first train fold and L=8, Normal at 13c's stand-in
+    and L=5: held against the plain version and the materialized copy,
+    then timed) on the package under ROOT (a parent's tree, or this one),
+    so that two trees are timed in one call on one card."""
+    import numpy as np
+
+    from dask_ml_tpu_torch.core import shard_rows, use_device
+    from dask_ml_tpu_torch.linear_model import LogisticRegression
+    from dask_ml_tpu_torch.ops import _build, logistic, multiclass
+    from dask_ml_tpu_torch.solvers import algorithms
+
+    log(f"sweep yardstick: {multiclass.__file__}")
+    _build.build(["logistic", "multiclass"])
+    with use_device(device, n_shards=HIGGS_SHARDS):
+        X, y, _ = higgs_standin(torch, HIGGS_ROWS, HIGGS_D, 0, device)
+        sX, sy = shard_rows(X), shard_rows(y)
+
+        def make():
+            return LogisticRegression(max_iter=ADMM_ROUNDS,
+                                      solver_kwargs={"inner_iter": ADMM_INNER})
+
+        grid = {"C": np.logspace(-3, 4, 8)}
+        for i in range(3):
+            timed_search(torch, multiclass, logistic, algorithms,
+                         f"sweep yardstick: 13a packed search {'warm' if i == 0 else i}", make,
+                         sX, sy, grid, "auto", card)
+        profiled_admm_fit(torch, algorithms, sX, sy, card, make=lambda: _Search(make, grid),
+                          label="sweep yardstick: 13a profiled packed search")
+        Xr, yr, _ = glm_standin(torch, "normal", HIGGS_ROWS, HIGGS_D, 5, device)
+        sweep_kernel_table(torch, multiclass, [("logistic", sX, sy, 8),
+                                               ("normal", shard_rows(Xr), shard_rows(yr), 5)],
+                           {name: 0 for name in OVR_SWEEP_WRAPPERS}, card)
+
+
 def main() -> int:
     yardstick = None
-    for flag in ("--k4-yardstick", "--k5-yardstick", "--k7k10-yardstick"):
+    for flag in ("--k4-yardstick", "--k5-yardstick", "--k7k10-yardstick", "--sweep-yardstick"):
         if flag in sys.argv:
             yardstick = flag
             sys.path.insert(0, sys.argv[sys.argv.index(flag) + 1])
@@ -5299,6 +5379,9 @@ def main() -> int:
         return 0
     if yardstick == "--k7k10-yardstick":
         k7k10_yardstick(torch, device, card)
+        return 0
+    if yardstick == "--sweep-yardstick":
+        sweep_tree_yardstick(torch, device, card)
         return 0
 
     # 2. build every kernel source, in parallel

@@ -14,9 +14,11 @@
 // Normal (y - eta)^2/2 and eta - y.  Y is (K, P, m) with a class stride
 // `ystride` in floats: P*m for K targets of their own (one-vs-rest), or 0
 // for one target that all K problems share (a sweep over lambda, whose
-// lanes differ only in beta).  With a shared target ovr_kernel stages one
-// target run a tile, not K: the stage shrinks by (K - 1)*(R + 4) floats and
-// a tile's copies by K - 1 runs.
+// lanes differ only in beta).  With a shared target a tile stages one
+// target run, not K; where d <= 32 and K <= 16 the lanes then run on the
+// tensor cores as K2-MN's classes do (tc_kernel, below), else ovr_kernel
+// stages it: its stage shrinks by (K - 1)*(R + 4) floats and a tile's
+// copies by K - 1 runs.
 //
 // K2-MN (mode 1) replaces families.py :: multinomial's _Multinomial.loss
 // (:85-96) under jax.value_and_grad (lbfgs_core.py:248) and the line
@@ -95,9 +97,10 @@
 //      weights read once as fragments) are not used here.  At K=4 the
 //      kernel reaches 70% of its bound without them; at K=16 they would
 //      remove most of the wavefronts above, but not the copy ring's cost,
-//      which needs larger tiles first (ROADMAP, Queue 2).
+//      which needs larger tiles first.  Over one shared target they are:
+//      see K2-OvR over one shared target, below.
 //
-// K2-MN (mn_kernel).  The bound at the multinomial fit's (8, 1.375M, 29),
+// K2-MN (tc_kernel with Softmax row terms).  The bound at the multinomial fit's (8, 1.375M, 29),
 // K=4: 1.364 GB, 0.407 ms; at (1, 1M, 28), K=16: 0.120 GB, 0.0358 ms
 // (1.8 GFLOP, 0.027 ms at 67 TFLOP/s).  What held the first design
 // (tiled_kernel) back, counted from its code: the labels and the mask were
@@ -128,8 +131,9 @@
 //      row g, feature t: 32 distinct banks at d = 28, two lanes a bank at
 //      d = 29).  The three passes go to three accumulators, so that no
 //      product waits on the one before (on an H100, multiclass_variants.py:
-//      value-and-grad at K=4 0.564 ms against 0.595-0.603 ms with one).  Gradient G (16*NMT x 8*NN) += x^T . W (16
-//      rows): each tile's product starts from zero and is added to G's
+//      value-and-grad at K=4 0.564 ms against 0.595-0.603 ms with one).
+//      Gradient G (16*NMT x 8*NN) += x^T . W (16 rows): each tile's
+//      product starts from zero and is added to G's
 //      registers on the CUDA cores (where the warps wait for the tile's
 //      barrier anyway), since the tensor cores round their float32 sums
 //      toward zero; summed on them over a warp's ~5,200 rows of the fit's
@@ -159,9 +163,64 @@
 //   5,208 groups a SM takes, overlaps the copies only in part, since a
 //   stage is held from its copy's issue to the end of its compute; the
 //   value-only variant (16 loads, 12 MMAs) pays ~0.035 ms over the ring,
-//   the gradient ~0.115 ms.  Past d = MN_MAX_D = 32 or K = MN_MAX_K = 16 (B's
+//   the gradient ~0.115 ms.  Past d = TC_MAX_D = 32 or K = TC_MAX_K = 16 (B's
 //   fragments past 32 registers, a row's logits past 4 a lane) tiled_kernel,
 //   the first design, takes over.
+//
+// K2-OvR over one shared target (tc_kernel with PerLane<Fam> row terms,
+// plan path 3, where d <= TC_MAX_D and K <= TC_MAX_K: a sweep's L lanes).
+// The bound at the sweeps' (8, 916667, 29): x once, one target and the
+// mask, 0.9093 GB, 0.2714 ms at 3.35 TB/s, against 6.805 GFLOP at L = 8
+// (0.014 ms at 495 TFLOP/s TF32, 0.10 ms at 67 float32).  What held
+// ovr_kernel back there, counted from its code: a block took L = 8 lanes
+// (two float4 chunks) whose beta (d, 8) and weights reached the threads as
+// 16-byte shared-memory broadcasts, four wavefronts each, which bounded its
+// compute; a 256-row stage with beta and the two (R, KS) weight tables
+// needs 120.9 KB of the 112 KB two-block budget, so its tiles fell to 128
+// rows, where a row brings only 31 floats (x, the target, the mask) to hide
+// the fixed shared-memory cost of 8 lanes.  It ran at 33% (value and
+// gradient) and 43% (value) of the bound at L = 8, 34% and 49% at L = 5.
+// The design now is K2-MN's, a lane where K2-MN has a class:
+//   1. beta in registers: B_p's column k is lane k*P + p, gathered once a
+//      block into hi/lo TF32 B fragments, zeros for an off lane (whose
+//      terms add nothing and whose f and g are not written); nothing of
+//      beta goes to shared memory.  An MMA's output column reads only its
+//      own B column, so a lane's sums have the same bits whichever other
+//      lanes are on.
+//   2. Both products on mma.sync m16n8k8 with the 3-pass split, as K2-MN's.
+//   3. The family's terms (Fam::terms, as ovr_kernel computes them) on the
+//      accumulator layout, a (row, lane) a register: acc[n][2r + c] is row
+//      g + 8r of lane 8n + 2t + c.  A lane's loss is summed in registers
+//      across tiles, then over the eight lanes of one t by a fixed shuffle
+//      tree and over the warps in order; the padded lanes of the n-tile (3
+//      of 8 at L = 5) add no term and get weight 0; rows past a tile read
+//      target and mask 0.  The weights reach the B operand through the
+//      warp's slab, as K2-MN's.
+//   4. A stage holds a 256-row x tile, the target run and the mask run:
+//      3 x (256*29 + 4 + 2*260) floats = 95.4 KB, and 4 KB of warp slabs,
+//      two blocks a SM, one __syncthreads a tile.  Every run is one TMA
+//      bulk copy, also off a 16-byte boundary (stage_tile<true> copies the
+//      16-byte units that hold it): at m = 916667 the odd shards' bases lie
+//      12 bytes off, and there the threads' cp.async copies (variant
+//      `cpasync`) took the logistic L = 8 value and gradient to 0.544-0.553
+//      ms and the value to 0.407 ms (multiclass_variants.py, an H100).
+//   5. At one n-tile the logistic family's gradient keeps its three passes
+//      in three accumulators (GRAD3, above).
+//   What bounds it now, on an H100 (multiclass_variants.py, in turns): the
+//   copy ring alone (`ring`) runs at 0.324-0.325 ms at both shapes (84% of
+//   the bound); the value-only variants (0.344-0.356 ms) and the Normal
+//   value and gradient (0.340) sit within 0.03 ms of it, since a stage is
+//   held from its copy's issue to the end of its compute (their compute
+//   alone, `nocopy`: 0.264-0.267, 0.195-0.198 and 0.320-0.324 ms).  The
+//   logistic value and gradient (0.434 ms) is compute-bound: its compute
+//   alone takes 0.458-0.463 ms (longer than the whole kernel; not
+//   explained); with the Normal family's terms in place of its own
+//   (`noterms`, wrong sums on purpose) the kernel runs at 0.352 ms, and with
+//   __expf, __logf and __fdividef (`fastterms`) at 0.338-0.339: the accurate
+//   expf, log1pf and two divisions of each (row, lane) take ~0.08 ms.  They
+//   add 616 SASS instructions to the kernel (3152 against 2536, `--sass`),
+//   ~77 a (row, lane) over its two inlined copies of the group (a whole and
+//   a partial tile's).
 //
 // Both: deterministic (per-block records summed in block order by
 // finalize_kernel (OvR) or in a fixed lane order and shuffle tree by
@@ -185,26 +244,27 @@ constexpr int NW = T / 32;                 // warps per block
 constexpr int MIN_R = 8;                   // fewest rows a tile (S = 32)
 constexpr int KC = 4;                      // classes a float4 chunk
 constexpr int STAGES = 3;                  // OvR: tiles in the copy ring
-constexpr int MN_MAX_D = 32;               // MN: most features, and
-constexpr int MN_MAX_K = 16;               // classes, that mn_kernel holds in registers
-constexpr int MN_MAX_STAGES = 8;           // MN: most tiles in mn_kernel's ring
-constexpr long long MN_BUDGET = 112 << 10;    // MN: dynamic bytes of mn_kernel, two blocks a SM
-constexpr long long SMEM_BUDGET = 100 << 10;  // MN past mn_kernel: staged bytes a block
+constexpr int TC_MAX_D = 32;               // most features, and classes or lanes,
+constexpr int TC_MAX_K = 16;               // that tc_kernel holds in registers
+constexpr int TC_MAX_STAGES = 8;           // most tiles in tc_kernel's ring
+constexpr long long TC_BUDGET = 112 << 10;    // dynamic bytes of tc_kernel, two blocks a SM
+constexpr long long SMEM_BUDGET = 100 << 10;  // MN past tc_kernel: staged bytes a block
 constexpr long long OVR_BUDGET = 112 << 10;   // OvR: dynamic bytes a block, two blocks a SM
 constexpr long long SCRATCH_CAP = 1LL << 26;  // floats of block records
 
 enum { OVR = 0, MN = 1 };
 
 struct Plan {
-  long long path;      // 0: ovr_kernel / tiled_kernel, 1: row_kernel, 2: mn_kernel
+  long long path;      // 0: ovr_kernel / tiled_kernel, 1: row_kernel, 2: tc_kernel (MN),
+                       // 3: tc_kernel over one shared target (OvR)
   long long R;         // rows a tile
-  long long G;         // row groups of the gradient (mn_kernel: tiles in its ring)
+  long long G;         // row groups of the gradient (tc_kernel: tiles in its ring)
   long long blocks;    // blocks a shard (OvR: a shard and class group)
   long long smem;      // dynamic shared memory, bytes
   long long rec;       // floats of a block record: K * (d + 1)
   long long scratch;   // floats of scratch: P * blocks * rec
   long long aux;       // OvR: float4 class chunks a block (NCT); MN: row groups of the loss
-                       // (tiled_kernel) or n-tiles of 8 classes (mn_kernel)
+                       // (tiled_kernel) or n-tiles of 8 classes or lanes (tc_kernel)
 };
 static_assert(sizeof(Plan) == 8 * sizeof(long long), "Plan is 8 int64s");
 
@@ -313,8 +373,11 @@ struct RowTerms {
 };
 
 // The families of K2-OvR: a row's terms from eta, y and the mask, as K2's
-// (logistic.cu) compute them.
+// (logistic.cu) compute them.  LONG: its terms are long enough to make
+// tc_kernel's value and gradient compute-bound (expf, log1pf and a
+// division a row and lane).
 struct Logistic {
+  static constexpr bool LONG = true;
   __device__ __forceinline__ static RowTerms terms(float eta, float y, float m) {
     const float e = expf(-fabsf(eta));
     const float sp = fmaxf(eta, 0.f) + log1pf(e);
@@ -323,6 +386,7 @@ struct Logistic {
   }
 };
 struct Normal {
+  static constexpr bool LONG = false;
   __device__ __forceinline__ static RowTerms terms(float eta, float y, float m) {
     const float r = y - eta;
     return {m * (0.5f * r * r), m * (eta - y)};
@@ -407,19 +471,47 @@ long long ovr_floats(int R, int d, int K, int G, bool shared) {
   return ovr_ring_floats(R, d, KY, G, KB) + (long long)d * KB + 2LL * R * row_stride(KB);
 }
 
+// Floats of the 16-byte units that hold cnt floats from src.
+__device__ __forceinline__ int unit_floats(const float* src, int cnt) {
+  return (misalign(src) + cnt + 3) & ~3;
+}
+
 // Copies tile rows [r0, r0 + rows) of shard p into the stage at buf,
 // completing on bar: x's rows (nx floats from xt), the target runs c < KY
 // whose bit is set in `on` (from yt, run c at yt + c*ystride) and the mask
-// run (from mt).  A run whose source and length are whole 16-byte units is one
-// bulk copy issued by thread 0; the others are the threads' cp.async.
-// Thread 0 arrives expecting the bulk bytes, every thread once its
-// cp.async copies have landed: T + 1 arrivals a phase.
+// run (from mt), each to misalign(src) floats into its slot.  A run whose
+// source and length are whole 16-byte units is one bulk copy issued by
+// thread 0; the others are the threads' cp.async, or with ANY one bulk copy
+// too, of the 16-byte units that hold the run: up to 3 floats either side
+// of it land in its slot's 4 spare floats and are not read (a 16-byte unit
+// never straddles a page, so those reads cannot fault).  Thread 0 arrives
+// expecting the bulk bytes, every thread once its cp.async copies have
+// landed: T + 1 arrivals a phase.
+template <bool ANY = false>
 __device__ __forceinline__ void stage_tile(float* buf, unsigned long long* bar, const float* xt,
                                            int nx, const float* yt, long long ystride,
                                            const float* mt, int rows, int R, int KY, int yoff,
                                            unsigned on) {
   float* ybuf = buf + yoff;
   float* mbuf = ybuf + KY * (R + 4);
+  if (ANY) {
+    if (threadIdx.x == 0) {
+      unsigned bytes = 4u * (unit_floats(xt, nx) + unit_floats(mt, rows));
+      for (int c = 0; c < KY; ++c)
+        if (on >> c & 1) bytes += 4u * unit_floats(yt + c * ystride, rows);
+      fence_proxy_async();
+      mbar_arrive_tx(bar, bytes);
+      bulk_copy(buf, xt - misalign(xt), 4u * unit_floats(xt, nx), bar);
+      for (int c = 0; c < KY; ++c)
+        if (on >> c & 1) {
+          const float* yc = yt + c * ystride;
+          bulk_copy(ybuf + c * (R + 4), yc - misalign(yc), 4u * unit_floats(yc, rows), bar);
+        }
+      bulk_copy(mbuf, mt - misalign(mt), 4u * unit_floats(mt, rows), bar);
+    }
+    mbar_arrive_cp_async(bar);
+    return;
+  }
   const bool x_bulk = bulk_ok(xt, nx), m_bulk = bulk_ok(mt, rows);
   if (threadIdx.x == 0) {
     unsigned bytes = (x_bulk ? 4u * nx : 0u) + (m_bulk ? 4u * rows : 0u);
@@ -718,7 +810,7 @@ __global__ void __launch_bounds__(T, 2) ovr_kernel(
     }
 }
 
-// --------------------------------------------------------------- K2-MN
+// ------------------------------------------ the tensor-core path (MN, OvR)
 
 // v rounded to TF32 (round to nearest, ties away from zero), in a 32-bit
 // register as the tensor cores read it
@@ -758,19 +850,19 @@ __device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
 // The row stride of a warp's (16, SW) weight slab: an odd number of 8-float
 // runs, so that both its float2 stores (a row a quad) and its fragment
 // loads (8 classes of 4 rows) fall on 32 distinct banks.
-__host__ __device__ constexpr int mn_slab_stride(int nn) { return nn % 2 ? 8 * nn : 8 * nn + 8; }
+__host__ __device__ constexpr int tc_slab_stride(int nn) { return nn % 2 ? 8 * nn : 8 * nn + 8; }
 
-// Floats of mn_kernel's dynamic shared memory: the ring of S tiles (R*d + 4
-// floats of x, then the label and the mask run, R + 4 each), then a (16, SW)
+// Floats of tc_kernel's dynamic shared memory: the ring of S tiles (R*d + 4
+// floats of x, then the target and the mask run, R + 4 each), then a (16, SW)
 // weight slab a warp.  After the tile loop the ring holds the warps'
 // (NW, d, K) gradient totals.
-long long mn_floats(int R, int d, int nn, int S) {
-  return S * ovr_stage_floats(R, d, 1) + (long long)NW * 16 * mn_slab_stride(nn);
+long long tc_floats(int R, int d, int nn, int S) {
+  return S * ovr_stage_floats(R, d, 1) + (long long)NW * 16 * tc_slab_stride(nn);
 }
 
 // The per-lane constants of a warp's 16-row groups (g = lane / 4, t = lane % 4).
 template <int NKS>
-struct MnLane {
+struct TcLane {
   static constexpr int NMT = (NKS + 1) / 2;  // 16-feature tiles of the gradient
   int xa;          // forward: row g, feature t
   int lo, hi;      // forward's last k-step: features 8*(NKS-1) + t (+ 4),
@@ -779,18 +871,125 @@ struct MnLane {
   int gx[NMT][2];  // gradient: features 16*mt + g (+ 8), clamped below d
 };
 
-// One 16-row group of mn_kernel, a warp: the forward eta = x.B on the tensor
-// cores, the softmax terms in the registers of the quads that hold each row's
-// logits, and (GRAD) G += x^T.W.  x (16, d) rows of the stage at xg, their
-// labels at lab and mask at msk; FULL: all 16 rows are in the tile, else the
-// rows from nrows on are taken as zeros with mask 0.
-template <int NKS, int NN, bool GRAD, bool FULL>
-__device__ __forceinline__ void mn_group(const float* xg, const float* lab, const float* msk,
-                                         int d, int K, int nrows, const MnLane<NKS>& L,
-                                         const unsigned (&bh)[NKS][NN][2],
+// The row terms of tc_kernel: how a warp's 16-row group turns its logits
+// acc[n][2r + c] (row g + 8r, class or lane 8n + 2t + c) into the losses it
+// adds to lsum and (GRAD) the weights w, in the same layout.  lab and msk:
+// the group's targets and mask; va, vb: rows g and g + 8 are in the tile;
+// on: bit k, lane k is computed (OvR).  GRAD3: at one n-tile the
+// gradient's three passes go to three accumulators, where the terms make a
+// group compute-bound and a shorter chain of products pays (on an H100,
+// multiclass_variants.py: the logistic value and gradient at L = 8 0.434
+// ms against 0.459-0.461 with one accumulator, `one_gacc`; the Normal one
+// at L = 5 0.340 against 0.352-0.353 with three, `three_gacc`).
+
+// K2-MN: the softmax of a row's classes, which lie on the four lanes of its
+// quad; one loss a shard, in lsum[0][0].
+struct Softmax {
+  static constexpr bool PER_LANE = false, GRAD3 = false;
+  template <int NN, bool GRAD>
+  __device__ __forceinline__ static void rows(const float (&acc)[NN][4], const float* lab,
+                                              const float* msk, bool va, bool vb, int K,
+                                              unsigned, float (&w)[NN][4],
+                                              float (&lsum)[NN][2]) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    // a row's max and sum of exps are two xor-shuffles each; one __expf a
+    // class, reused for the weights mask*(e/sum - onehot)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float yv = lab[g + 8 * r];
+      const float mv = (r ? vb : va) ? msk[g + 8 * r] : 0.f;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (8 * n + 2 * t + c < K) mx = fmaxf(mx, acc[n][2 * r + c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float e[NN][2], sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          e[n][c] = 8 * n + 2 * t + c < K ? __expf(acc[n][2 * r + c] - mx) : 0.f;
+          sum += e[n][c];
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float lse = mx + __logf(sum);
+      const int cy = class_index(yv, K);
+      // the row's loss mask*(lse - eta_y) on the lane that holds class y
+      // (lane t = 0 where y picks no class)
+      bool own = cy < 0 && t == 0;
+      float picked = 0.f;
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (8 * n + 2 * t + c == cy) {
+            picked = acc[n][2 * r + c];
+            own = true;
+          }
+      if (own) lsum[0][0] = fmaf(mv, lse - picked, lsum[0][0]);
+      if (GRAD) {
+        const float inv = __frcp_rn(sum);
+#pragma unroll
+        for (int n = 0; n < NN; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int k = 8 * n + 2 * t + c;
+            w[n][2 * r + c] = k < K ? mv * (e[n][c] * inv - (k == cy ? 1.f : 0.f)) : 0.f;
+          }
+      }
+    }
+  }
+};
+
+// K2-OvR over one shared target: family Fam's terms of each (row, lane),
+// as ovr_kernel computes them; a loss a lane, lane 8n + 2t + c's in
+// lsum[n][c].  An off lane (and a padded one, past K) adds no loss and gets
+// weight 0; a row past the tile reads target and mask 0 (its x is zeros).
+template <typename Fam>
+struct PerLane {
+  static constexpr bool PER_LANE = true, GRAD3 = Fam::LONG;
+  template <int NN, bool GRAD>
+  __device__ __forceinline__ static void rows(const float (&acc)[NN][4], const float* lab,
+                                              const float* msk, bool va, bool vb, int,
+                                              unsigned on, float (&w)[NN][4],
+                                              float (&lsum)[NN][2]) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool v = r ? vb : va;
+      const float yv = v ? lab[g + 8 * r] : 0.f;
+      const float mv = v ? msk[g + 8 * r] : 0.f;
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const bool kon = on >> (8 * n + 2 * t + c) & 1;
+          const RowTerms rt = Fam::terms(acc[n][2 * r + c], yv, mv);
+          lsum[n][c] += kon ? rt.loss : 0.f;
+          if (GRAD) w[n][2 * r + c] = kon ? rt.w : 0.f;
+        }
+    }
+  }
+};
+
+// One 16-row group of tc_kernel, a warp: the forward eta = x.B on the tensor
+// cores, the row terms (Terms) in the registers that hold the logits, and
+// (GRAD) G += x^T.W, the split's three passes into G[0] (GP = 1) or into
+// G[0], G[1], G[2] (GP = 3).  x (16, d) rows of the stage at xg, their
+// targets at lab and mask at msk; FULL: all 16 rows are in the tile, else
+// the rows from nrows on are taken as zeros with mask 0.
+template <typename Terms, int NKS, int NN, int GP, bool GRAD, bool FULL>
+__device__ __forceinline__ void tc_group(const float* xg, const float* lab, const float* msk,
+                                         int d, int K, unsigned on, int nrows,
+                                         const TcLane<NKS>& L, const unsigned (&bh)[NKS][NN][2],
                                          const unsigned (&bl)[NKS][NN][2], float* slab,
-                                         float (&G)[MnLane<NKS>::NMT][NN][4], float& lsum) {
-  constexpr int NMT = MnLane<NKS>::NMT, SW = mn_slab_stride(NN);
+                                         float (&G)[GP][TcLane<NKS>::NMT][NN][4],
+                                         float (&lsum)[NN][2]) {
+  constexpr int NMT = TcLane<NKS>::NMT, SW = tc_slab_stride(NN);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const bool va = FULL || g < nrows, vb = FULL || g + 8 < nrows;
 
@@ -838,57 +1037,10 @@ __device__ __forceinline__ void mn_group(const float* xg, const float* lab, cons
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] += acc_lh[n][c] + acc_hl[n][c];
 
-  // softmax terms: acc[n][2r + c] is row g + 8r's logit of class 8n + 2t + c;
-  // a row's classes lie on the four lanes of its quad
+  // row terms where the logits are: acc[n][2r + c] is row g + 8r's logit of
+  // class 8n + 2t + c
   float w[NN][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float yv = lab[g + 8 * r];
-    const float mv = (r ? vb : va) ? msk[g + 8 * r] : 0.f;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < NN; ++n)
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-        if (8 * n + 2 * t + c < K) mx = fmaxf(mx, acc[n][2 * r + c]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    float e[NN][2], sum = 0.f;
-#pragma unroll
-    for (int n = 0; n < NN; ++n)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        e[n][c] = 8 * n + 2 * t + c < K ? __expf(acc[n][2 * r + c] - mx) : 0.f;
-        sum += e[n][c];
-      }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float lse = mx + __logf(sum);
-    const int cy = class_index(yv, K);
-    // the row's loss mask*(lse - eta_y) on the lane that holds class y
-    // (lane t = 0 where y picks no class)
-    bool own = cy < 0 && t == 0;
-    float picked = 0.f;
-#pragma unroll
-    for (int n = 0; n < NN; ++n)
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-        if (8 * n + 2 * t + c == cy) {
-          picked = acc[n][2 * r + c];
-          own = true;
-        }
-    if (own) lsum = fmaf(mv, lse - picked, lsum);
-    if (GRAD) {
-      const float inv = __frcp_rn(sum);
-#pragma unroll
-      for (int n = 0; n < NN; ++n)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int k = 8 * n + 2 * t + c;
-          w[n][2 * r + c] = k < K ? mv * (e[n][c] * inv - (k == cy ? 1.f : 0.f)) : 0.f;
-        }
-    }
-  }
+  Terms::template rows<NN, GRAD>(acc, lab, msk, va, vb, K, on, w, lsum);
   if (!GRAD) return;
 
   // the weights from the accumulator layout to the B operand's, through
@@ -933,7 +1085,15 @@ __device__ __forceinline__ void mn_group(const float* xg, const float* lab, cons
 #pragma unroll
       for (int i = 0; i < 4; ++i) split_tf32(v[i], ah[i], al[i]);
 #pragma unroll
-      for (int n = 0; n < NN; ++n) mma3(G[mt][n], ah, al, wh[ks][n], wl[ks][n]);
+      for (int n = 0; n < NN; ++n) {
+        if constexpr (GP == 3) {
+          mma8(G[0][mt][n], al, wh[ks][n][0], wh[ks][n][1]);
+          mma8(G[1][mt][n], ah, wl[ks][n][0], wl[ks][n][1]);
+          mma8(G[2][mt][n], ah, wh[ks][n][0], wh[ks][n][1]);
+        } else {
+          mma3(G[0][mt][n], ah, al, wh[ks][n], wl[ks][n]);
+        }
+      }
     }
   }
 }
@@ -941,28 +1101,45 @@ __device__ __forceinline__ void mn_group(const float* xg, const float* lab, cons
 // Grid (blocks, P).  Block b of shard p takes the shard's row tiles b,
 // b + blocks, ... (R rows each, 16 a group, group q of a tile to warp
 // q % NW) through a ring of S stages, and writes its record
-// bpart[(p*blocks + b)*K*(d + 1)]: (GRAD) g of class k at k*(d+1) + j, f
-// at d.  NKS = ceil(d/8) k-steps of the forward, NN = ceil(K/8) n-tiles of
-// 8 classes.
-template <int NKS, int NN, bool GRAD>
-__global__ void __launch_bounds__(T, 2) mn_kernel(
+// bpart[(p*blocks + b)*K*(d + 1)]: (GRAD) g of class or lane k at
+// k*(d+1) + j, and at k*(d+1) + d the loss (K2-MN: one, at k = 0).
+// NKS = ceil(d/8) k-steps of the forward, NN = ceil(K/8) n-tiles of 8
+// classes or lanes.  K2-MN (Terms = Softmax): B_p is beta[p] read as (d, K),
+// y the class indices.  K2-OvR over one shared target (PerLane<Fam>): B_p's
+// column k is lane k*P + p of beta (K*P, d), zeros where that lane is off,
+// and y the one target, (P, m).
+template <typename Terms, int NKS, int NN, bool GRAD>
+__global__ void __launch_bounds__(T, 2) tc_kernel(
     const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ mask,
     const float* __restrict__ beta, const unsigned char* __restrict__ active, long long P,
     long long m, int d, int K, int R, int S, float* __restrict__ bpart) {
-  constexpr int NMT = MnLane<NKS>::NMT, SW = mn_slab_stride(NN);
+  constexpr int NMT = TcLane<NKS>::NMT, SW = tc_slab_stride(NN);
+  constexpr int MODE = Terms::PER_LANE ? OVR : MN;
+  // the shared-target path stages every run by bulk copy (K2-MN keeps its
+  // staging: on an H100 this made its K = 4 value and gradient 0.602-0.603
+  // ms against 0.576-0.582, multiclass_variants.py's `mn_bulk`)
+  constexpr bool ANY = Terms::PER_LANE;
+  constexpr int GP = Terms::GRAD3 && NN == 1 ? 3 : 1;
   const int p = blockIdx.y;
-  if (!active[p]) return;
+  unsigned on = 0;  // bit k: class or lane k is computed
+  if (MODE == MN) {
+    if (!active[p]) return;
+    on = ~0u;
+  } else {
+    for (int k = 0; k < K; ++k)
+      if (active[(long long)k * P + p]) on |= 1u << k;
+    if (on == 0) return;
+  }
   extern __shared__ __align__(16) float smem[];
-  __shared__ __align__(8) unsigned long long bar[MN_MAX_STAGES];
-  __shared__ float lred[NW];
+  __shared__ __align__(8) unsigned long long bar[TC_MAX_STAGES];
+  __shared__ float lred[(Terms::PER_LANE ? 8 * NN : 1) * NW];  // (loss, warp) sums
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int C = d + 1, yoff = R * d + 4, stage_floats = (int)ovr_stage_floats(R, d, 1);
   float* slab = smem + S * stage_floats + warp * 16 * SW;
 
-  // B = beta[p] as (d, K): its B fragments, split, in registers for the
-  // whole block (zeros past d and past K)
+  // B_p (d, K): its B fragments, split, in registers for the whole block
+  // (zeros past d, past K and in an off lane's column)
   unsigned bh[NKS][NN][2], bl[NKS][NN][2];
-  const float* bp = beta + (long long)p * d * K;
 #pragma unroll
   for (int s = 0; s < NKS; ++s)
 #pragma unroll
@@ -970,9 +1147,10 @@ __global__ void __launch_bounds__(T, 2) mn_kernel(
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int j = 8 * s + t + 4 * i, k = 8 * n + g;
-        split_tf32(j < d && k < K ? bp[j * K + k] : 0.f, bh[s][n][i], bl[s][n][i]);
+        const bool kon = j < d && k < K && (on >> k & 1);
+        split_tf32(kon ? beta[beta_at<MODE>(P, p, d, K, k, j)] : 0.f, bh[s][n][i], bl[s][n][i]);
       }
-  MnLane<NKS> L;
+  TcLane<NKS> L;
   L.xa = g * d + t;
   L.lo = min(8 * (NKS - 1) + t, d - 1) - t;
   L.hi = min(8 * (NKS - 1) + t + 4, d - 1) - t;
@@ -997,8 +1175,8 @@ __global__ void __launch_bounds__(T, 2) mn_kernel(
     const long long tt = t0 + i * step;
     if (tt < ntiles) {
       const int rows = (int)min((long long)R, m - tt * R);
-      stage_tile(smem + i * stage_floats, bar + i, xl + tt * R * d, rows * d, yl + tt * R, 0,
-                 ml + tt * R, rows, R, 1, yoff, 1u);
+      stage_tile<ANY>(smem + i * stage_floats, bar + i, xl + tt * R * d, rows * d, yl + tt * R,
+                      0, ml + tt * R, rows, R, 1, yoff, 1u);
     }
   }
   // where a tile's runs sit in its stage: R*d and R are multiples of 4, so
@@ -1010,13 +1188,15 @@ __global__ void __launch_bounds__(T, 2) mn_kernel(
   // (Gt) and is added to G on the CUDA cores, since the tensor cores round
   // their float32 sums toward zero, a bias that would build up over a
   // block's rows
-  float G[NMT][NN][4], Gt[NMT][NN][4], lsum = 0.f;
+  float G[NMT][NN][4], Gt[GP][NMT][NN][4], lsum[NN][2];
 #pragma unroll
   for (int mt = 0; mt < NMT; ++mt)
 #pragma unroll
     for (int n = 0; n < NN; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) G[mt][n][c] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NN; ++n) lsum[n][0] = lsum[n][1] = 0.f;
 
   int s = 0;
   unsigned parity = 0;
@@ -1025,33 +1205,39 @@ __global__ void __launch_bounds__(T, 2) mn_kernel(
     const float* buf = smem + s * stage_floats;
     mbar_wait(bar + s, parity);
 #pragma unroll
-    for (int mt = 0; mt < NMT; ++mt)
+    for (int i = 0; i < GP; ++i)
 #pragma unroll
-      for (int n = 0; n < NN; ++n)
+      for (int mt = 0; mt < NMT; ++mt)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) Gt[mt][n][c] = 0.f;
+        for (int n = 0; n < NN; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) Gt[i][mt][n][c] = 0.f;
 #pragma unroll 1
     for (int q = warp; q < groups; q += NW) {
       const int r0 = 16 * q;
       if (r0 >= rows) break;
       const float *xg = buf + x_at + r0 * d, *lab = buf + y_at + r0, *msk = buf + m_at + r0;
       if (r0 + 16 <= rows)
-        mn_group<NKS, NN, GRAD, true>(xg, lab, msk, d, K, 16, L, bh, bl, slab, Gt, lsum);
+        tc_group<Terms, NKS, NN, GP, GRAD, true>(xg, lab, msk, d, K, on, 16, L, bh, bl, slab,
+                                                 Gt, lsum);
       else
-        mn_group<NKS, NN, GRAD, false>(xg, lab, msk, d, K, rows - r0, L, bh, bl, slab, Gt, lsum);
+        tc_group<Terms, NKS, NN, GP, GRAD, false>(xg, lab, msk, d, K, on, rows - r0, L, bh, bl,
+                                                  slab, Gt, lsum);
     }
 #pragma unroll
     for (int mt = 0; mt < NMT; ++mt)
 #pragma unroll
       for (int n = 0; n < NN; ++n)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) G[mt][n][c] += Gt[mt][n][c];
+        for (int c = 0; c < 4; ++c)  // the small passes first
+          G[mt][n][c] += GP == 3 ? Gt[2][mt][n][c] + (Gt[0][mt][n][c] + Gt[1][mt][n][c])
+                                 : Gt[0][mt][n][c];
     __syncthreads();  // no warp reads this stage any more: the next copy goes into it
     const long long tn = tt + S * step;
     if (tn < ntiles) {
       const int rn = (int)min((long long)R, m - tn * R);
-      stage_tile(smem + s * stage_floats, bar + s, xl + tn * R * d, rn * d, yl + tn * R, 0,
-                 ml + tn * R, rn, R, 1, yoff, 1u);
+      stage_tile<ANY>(smem + s * stage_floats, bar + s, xl + tn * R * d, rn * d, yl + tn * R,
+                      0, ml + tn * R, rn, R, 1, yoff, 1u);
     }
     if (++s == S) {
       s = 0;
@@ -1059,11 +1245,27 @@ __global__ void __launch_bounds__(T, 2) mn_kernel(
     }
   }
 
-  // the loss: a fixed shuffle tree a warp, then the warps in order (the
-  // same in both variants, so f has the same bits)
+  // the losses: a fixed shuffle tree a warp, then the warps in order (the
+  // same in both variants, so f has the same bits).  K2-MN's one loss is
+  // spread over all 32 lanes; K2-OvR's lane 8n + 2t + c over the eight
+  // lanes of one t
+  if constexpr (Terms::PER_LANE) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
-  if (lane == 0) lred[warp] = lsum;
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v = lsum[n][c];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        const int k = 8 * n + 2 * t + c;
+        if (g == 0 && k < K) lred[k * NW + warp] = v;
+      }
+  } else {
+    float v = lsum[0][0];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) lred[warp] = v;
+  }
   float* rec = bpart + ((long long)p * gridDim.x + blockIdx.x) * ((long long)K * C);
   float* gred = smem;  // (NW, d, K), over the ring: every tile's copy has landed
   if (GRAD) {
@@ -1078,21 +1280,23 @@ __global__ void __launch_bounds__(T, 2) mn_kernel(
         }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  for (int k = threadIdx.x; k < (Terms::PER_LANE ? K : 1); k += T) {
+    if (!(on >> k & 1)) continue;
     float sum = 0.f;
-    for (int w = 0; w < NW; ++w) sum += lred[w];
-    rec[d] = sum;
+    for (int w = 0; w < NW; ++w) sum += lred[k * NW + w];
+    rec[k * C + d] = sum;
   }
   if (GRAD)
     for (int e = threadIdx.x; e < d * K; e += T) {
       const int j = e / K, k = e - j * K;
+      if (!(on >> k & 1)) continue;
       float sum = 0.f;
       for (int w = 0; w < NW; ++w) sum += gred[(w * d + j) * K + k];
       rec[k * C + j] = sum;
     }
 }
 
-// Past mn_kernel's registers (d > MN_MAX_D or K > MN_MAX_K): the first
+// Past tc_kernel's registers (d > TC_MAX_D or K > TC_MAX_K): the first
 // design.  A block stages R whole rows with 16-byte cp.async,
 // double-buffered; beta and the (row, class) tables keep the classes padded
 // to float4s (the tables' row stride an odd number of float4s).
@@ -1103,7 +1307,7 @@ long long staged_floats(int d, int K, int R, int G, int GL) {
 }
 
 // Grid (blocks, P).  Block b of shard p takes the shard's row tiles b,
-// b + blocks, ... and writes its record as mn_kernel does.  Forward: S =
+// b + blocks, ... and writes its record as tc_kernel does.  Forward: S =
 // 256/R threads a row, KC classes at a time in registers, joined by an
 // xor-shuffle tree into the (row, class) table; a thread a row for the
 // softmax terms; the gradient a (row group, feature) owner with KC classes
@@ -1438,24 +1642,49 @@ OvrKern ovr_instance(int nct, int R) {
                   : (nch == 2 ? ovr_kernel<Fam, 4, 2, GRAD> : ovr_kernel<Fam, 4, 4, GRAD>);
 }
 
-typedef void (*MnKern)(const float*, const float*, const float*, const float*,
+typedef void (*TcKern)(const float*, const float*, const float*, const float*,
                        const unsigned char*, long long, long long, int, int, int, int, float*);
 
-// The mn_kernel instance for d features and K classes (d <= MN_MAX_D,
-// K <= MN_MAX_K): ceil(d/8) k-steps, ceil(K/8) n-tiles.
-template <bool GRAD>
-MnKern mn_instance(int d, int K) {
-  static const MnKern one[4] = {mn_kernel<1, 1, GRAD>, mn_kernel<2, 1, GRAD>,
-                                mn_kernel<3, 1, GRAD>, mn_kernel<4, 1, GRAD>};
-  static const MnKern two[4] = {mn_kernel<1, 2, GRAD>, mn_kernel<2, 2, GRAD>,
-                                mn_kernel<3, 2, GRAD>, mn_kernel<4, 2, GRAD>};
+// The tc_kernel instance of row terms Terms for d features and K classes or
+// lanes (d <= TC_MAX_D, K <= TC_MAX_K): ceil(d/8) k-steps, ceil(K/8) n-tiles.
+template <typename Terms, bool GRAD>
+TcKern tc_instance(int d, int K) {
+  static const TcKern one[4] = {tc_kernel<Terms, 1, 1, GRAD>, tc_kernel<Terms, 2, 1, GRAD>,
+                                tc_kernel<Terms, 3, 1, GRAD>, tc_kernel<Terms, 4, 1, GRAD>};
+  static const TcKern two[4] = {tc_kernel<Terms, 1, 2, GRAD>, tc_kernel<Terms, 2, 2, GRAD>,
+                                tc_kernel<Terms, 3, 2, GRAD>, tc_kernel<Terms, 4, 2, GRAD>};
   return (K + 7) / 8 == 1 ? one[(d + 7) / 8 - 1] : two[(d + 7) / 8 - 1];
 }
 
-// OvR's plan for family Fam: ovr_kernel where a tile fits, else row_kernel.
+// The tensor-core path's plan (tc_kernel with row terms Terms, as plan
+// path `path`): 256-row tiles (two 16-row groups a warp) where three of
+// them fit the budget, else 128; as many stages as fit.
+template <typename Terms>
+cudaError_t plan_tc(int dev, long long m, int d, int K, long long path, Plan* p,
+                    long long* units, int* per_sm) {
+  const int nn = (K + 7) / 8;
+  const long long slab = 4LL * NW * 16 * tc_slab_stride(nn);
+  int R = 2 * 16 * NW;
+  if ((TC_BUDGET - slab) / (4 * ovr_stage_floats(R, d, 1)) < 3) R /= 2;
+  const long long S = (TC_BUDGET - slab) / (4 * ovr_stage_floats(R, d, 1));
+  p->path = path;
+  p->R = R;
+  p->G = S < TC_MAX_STAGES ? S : TC_MAX_STAGES;
+  p->aux = nn;
+  p->smem = 4 * tc_floats(R, d, nn, (int)p->G);
+  *units = (m + R - 1) / R;
+  return occupancy2(tc_instance<Terms, true>(d, K), tc_instance<Terms, false>(d, K), dev,
+                    (size_t)p->smem, per_sm);
+}
+
+// OvR's plan for family Fam: over one shared target of at most TC_MAX_D
+// features and TC_MAX_K lanes tc_kernel; else ovr_kernel where a tile fits,
+// else row_kernel.
 template <typename Fam>
 cudaError_t plan_ovr(int dev, long long m, int d, int K, bool shared, Plan* p, long long* units,
                      int* per_sm) {
+  if (shared && d <= TC_MAX_D && K <= TC_MAX_K)
+    return plan_tc<PerLane<Fam>>(dev, m, d, K, 3, p, units, per_sm);
   int G = 1;
   const int R = tile_rows(OVR, d, K, shared, &G);
   p->G = G;
@@ -1483,25 +1712,9 @@ cudaError_t plan_mode(int mode, int family, int dev, long long m, int d, int K, 
   if (mode == OVR)
     return family == NORMAL ? plan_ovr<Normal>(dev, m, d, K, shared, p, units, per_sm)
                             : plan_ovr<Logistic>(dev, m, d, K, shared, p, units, per_sm);
+  if (d <= TC_MAX_D && K <= TC_MAX_K)
+    return plan_tc<Softmax>(dev, m, d, K, 2, p, units, per_sm);
   cudaError_t err;
-  if (d <= MN_MAX_D && K <= MN_MAX_K) {
-    // 256-row tiles (two groups a warp) where three of them fit the budget,
-    // else 128; as many stages as fit
-    const int nn = (K + 7) / 8;
-    const long long slab = 4LL * NW * 16 * mn_slab_stride(nn);
-    int R = 2 * 16 * NW;
-    if ((MN_BUDGET - slab) / (4 * ovr_stage_floats(R, d, 1)) < 3) R /= 2;
-    const long long S = (MN_BUDGET - slab) / (4 * ovr_stage_floats(R, d, 1));
-    p->path = 2;
-    p->R = R;
-    p->G = S < MN_MAX_STAGES ? S : MN_MAX_STAGES;
-    p->aux = nn;
-    p->smem = 4 * mn_floats(R, d, nn, (int)p->G);
-    err = occupancy2(mn_instance<true>(d, K), mn_instance<false>(d, K), dev, (size_t)p->smem,
-                     per_sm);
-    *units = (m + R - 1) / R;
-    return err;
-  }
   int G = 1;
   const int R = tile_rows(MN, d, K, false, &G);
   p->G = G;
@@ -1537,7 +1750,11 @@ void launch_ovr(const Plan& p, const float* x, const float* y, const float* mask
                 int K, long long ystride, int grad, float* bpart, cudaStream_t s) {
   const dim3 grid((unsigned)p.blocks, (unsigned)P, (unsigned)class_groups(OVR, p, K));
   const size_t smem = (size_t)p.smem;
-  if (p.path == 0) {
+  if (p.path == 3) {
+    const TcKern kern = grad ? tc_instance<PerLane<Fam>, true>(d, K)
+                             : tc_instance<PerLane<Fam>, false>(d, K);
+    kern<<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, (int)p.R, (int)p.G, bpart);
+  } else if (p.path == 0) {
     const OvrKern kern = grad ? ovr_instance<Fam, true>((int)p.aux, (int)p.R)
                               : ovr_instance<Fam, false>((int)p.aux, (int)p.R);
     kern<<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, (int)p.R, (int)p.G, ystride,
@@ -1557,7 +1774,8 @@ void launch_mn(const Plan& p, const float* x, const float* y, const float* mask,
   const dim3 grid((unsigned)p.blocks, (unsigned)P, 1u);
   const size_t smem = (size_t)p.smem;
   if (p.path == 2) {
-    const MnKern kern = grad ? mn_instance<true>(d, K) : mn_instance<false>(d, K);
+    const TcKern kern =
+        grad ? tc_instance<Softmax, true>(d, K) : tc_instance<Softmax, false>(d, K);
     kern<<<grid, T, smem, s>>>(x, y, mask, beta, act, P, m, d, K, (int)p.R, (int)p.G, bpart);
   } else if (p.path == 0) {
     const int R = (int)p.R, G = (int)p.G, GL = (int)p.aux;
@@ -1632,6 +1850,9 @@ int multiclass_value_and_grad(int mode, int family, const void* x, const void* y
               *bf = (const float*)beta;
   const unsigned char* act = (const unsigned char*)active;
   float* bpart = (float*)scratch;
+  // the shared-target path stages the one target at y: a plan made for
+  // it takes no other
+  if (mode == OVR && p.path == 3 && ystride != 0) return (int)cudaErrorInvalidValue;
   if (mode != OVR)
     launch_mn(p, xf, yf, mf, bf, act, P, m, d, K, grad, bpart, s);
   else if (family == NORMAL)

@@ -9,7 +9,9 @@ with targets Y ``(K, P, m)`` and one β a lane of B ``(K·P, d)``, lane
 ``k·P + p`` the problem k on shard p.  Y is either contiguous (K targets
 of their own: one-vs-rest) or one ``(P, m)`` target expanded to K with a
 class stride of 0 (a sweep's lanes, which differ only in β): the kernel
-then stages one target run a tile for all K.  K2-MN
+then stages one target run a tile for all K, and where d ≤ 32 and K ≤ 16
+runs the lanes on the tensor cores as K2-MN runs its classes (plan path
+3; ``_plan``'s first word names the path).  K2-MN
 (``multinomial_value_and_grad``) replaces ``families.py :: multinomial``'s
 softmax loss under ``jax.value_and_grad``: B ``(P, d·K)`` holds one flat β a
 shard in the reference's ``(features, K)`` row-major layout, and y ``(P,
@@ -67,7 +69,9 @@ def _check(lib, err, what):
 
 def _plan(lib, device, mode, P, m, d, K, family=0, shared=False):
     """The launch plan for (mode, family, P, m, d, K, a shared target or
-    not) on ``device``, made once."""
+    not) on ``device``, made once: 8 int64s, the first the kernel's path
+    (0 ``ovr_kernel`` or ``tiled_kernel``, 1 ``row_kernel``, 2 ``tc_kernel``
+    for K2-MN, 3 ``tc_kernel`` for K2-OvR over one shared target)."""
     key = (device.index, mode, family, P, m, d, K, shared)
     plan = _plans.get(key)
     if plan is None:

@@ -525,13 +525,17 @@ _OVR_FAMILIES = {
 
 def _ovr_family_inputs(family, P, m, d, K, shared, seed, device):
     """x, mask, beta as ``_multiclass_inputs`` makes them; targets 0/1
-    (logistic) or real (normal), K of their own or one expanded to K."""
+    (logistic) or real (normal), K of their own or one expanded to K.  A
+    shared target is a view one float past the start of its buffer, so
+    that its first element is off a 16-byte boundary."""
     x, y, mask, beta, lanes = _multiclass_inputs("ovr", P, m, d, K, seed, device)
     if family == "normal":
         gen = torch.Generator(device=device).manual_seed(seed + 1)
         y = torch.randn(K, P, m, generator=gen, device=device) * 2.0
     if shared:
-        y = y[0].expand(K, P, m)
+        buf = torch.empty(P * m + 1, device=device)
+        buf[1:] = y[0].reshape(-1)
+        y = buf[1:].view(P, m).expand(K, P, m)
     return x, y, mask, beta, lanes
 
 
@@ -551,6 +555,15 @@ def _ovr_family_magnitudes(family, x, Y, mask, beta):
     return f_mag, torch.einsum("kpm,pmd->kpd", w, x.abs()).reshape(K * P, d)
 
 
+# The shared-target tensor-core path (tc_kernel, d <= 32 and L <= 16): every
+# lane count of the sweeps and past an n-tile, d = 1, 8 (one whole k-step),
+# 28, 29 (the sweeps') and 32 (the most it takes), m below a tile and m = 1,
+# 2, 3 mod 4 (shard bases off 16-byte boundaries)
+_TC_SHAPES = [(3, (37, 1001, 1002, 1003, 20_001)[(i + j) % 5], d, L)
+              for i, L in enumerate((1, 2, 5, 8, 9, 16))
+              for j, d in enumerate((1, 8, 28, 29, 32))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", ["logistic", "normal"])
 @pytest.mark.parametrize("shared", [False, True])
@@ -559,18 +572,20 @@ def _ovr_family_magnitudes(family, x, Y, mask, beta):
     # off 16-byte boundaries (m = 1, 2, 3 mod 4), fewer rows than a tile,
     # K = 1 and 5, more gradient columns than threads, the sweep's P = 1
     (3, 1001, 29, 4), (2, 1002, 28, 16), (4, 1003, 29, 5), (2, 37, 29, 3), (3, 1000, 29, 1),
-    (2, 301, 600, 16), (1, 100003, 28, 8)])
+    (2, 301, 600, 16), (1, 100003, 28, 8)] + _TC_SHAPES)
 def test_ovr_families_on_shared_and_own_targets_match_plain_version(cuda, family, shared, P, m,
                                                                      d, K):
     """Both families' variants within TOL of the float64 plain version's
-    Σ|terms|, with all lanes and with every third lane inactive (unwritten);
-    the same f from both variants and the same bits twice; a shared target
+    Σ|terms|, with all lanes and with every third lane inactive (unwritten,
+    and the active lanes' f and g bit-equal to the all-active call's); the
+    same f from both variants and the same bits twice; a shared target
     gives what its materialized copy gives, within TOL."""
     vg, v, ref = _OVR_FAMILIES[family]
     x, Y, mask, beta, lanes = _ovr_family_inputs(family, P, m, d, K, shared, P * m + d + K,
                                                  cuda)
     assert multiclass.shared_target(Y) == (shared and K > 1) or K == 1
     f_mag, g_mag = _ovr_family_magnitudes(family, x, Y, mask, beta)
+    every = None
     for active in (None, torch.arange(lanes, device=cuda) % 3 != 1):
         f, g = vg(x, Y, mask, beta, active)
         fv = v(x, Y, mask, beta, active)
@@ -580,6 +595,8 @@ def test_ovr_families_on_shared_and_own_targets_match_plain_version(cuda, family
         assert not bool(f[~on].any()) and not bool(g[~on].any()) and not bool(fv[~on].any())
         assert torch.equal(f, fv)
         assert torch.equal(f, again[0]) and torch.equal(g, again[1])
+        every = (f, g) if every is None else every
+        assert torch.equal(f[on], every[0][on]) and torch.equal(g[on], every[1][on])
         rf, rg = ref(x.double(), Y.double(), mask.double(), beta.double())
         assert bool(((f.double() - rf).abs()[on] <= TOL * f_mag[on] + 1e-6).all())
         assert bool(((g.double() - rg).abs()[on] <= TOL * g_mag[on] + 1e-6).all())
@@ -587,6 +604,46 @@ def test_ovr_families_on_shared_and_own_targets_match_plain_version(cuda, family
             fc, gc = vg(x, Y.contiguous(), mask, beta, active)
             assert bool(((f - fc).abs()[on].double() <= TOL * f_mag[on] + 1e-6).all())
             assert bool(((g - gc).abs()[on].double() <= TOL * g_mag[on] + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["logistic", "normal"])
+@pytest.mark.parametrize("L", [5, 8])
+def test_ovr_shared_intercept_column_at_the_sweep_shape(cuda, family, L):
+    """The shared-target path at the sweeps' (8, 916667, 29) with a column
+    of ones (the intercept) and every row unmasked, as
+    ``test_multinomial_intercept_column_at_the_fit_shapes`` holds K2-MN:
+    that column's gradient is the sum of the weights themselves, so a sum
+    whose rounding leans one way over a block's rows shows there first.
+    The logistic target is 1 on 90% of the rows and the Normal one sits
+    above η, so that the weights mostly share a sign."""
+    vg, v, _ = _OVR_FAMILIES[family]
+    x, Y, mask, beta, lanes = _ovr_family_inputs(family, 8, 916_667, 29, L, True, L, cuda)
+    x[:, :, -1] = 1.0
+    mask.fill_(1.0)
+    y = Y[0]
+    y.copy_((torch.rand(8, 916_667, device=cuda) < 0.9).float() if family == "logistic"
+            else y.abs() + 3.0)
+    f, g = vg(x, Y, mask, beta)
+    assert torch.equal(f, v(x, Y, mask, beta))
+    rf, rg = _OVR_FAMILIES[family][2](x.double(), Y.double(), mask.double(), beta.double())
+    f_mag, g_mag = _ovr_family_magnitudes(family, x, Y, mask, beta)
+    assert bool(((f.double() - rf).abs() <= TOL * f_mag + 1e-6).all())
+    assert bool(((g.double() - rg).abs() <= TOL * g_mag + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,K,shared,path", [
+    (29, 8, True, 3), (32, 16, True, 3), (1, 1, True, 3), (33, 8, True, 0), (29, 17, True, 0),
+    (29, 8, False, 0), (2000, 4, True, 1)])
+def test_ovr_plan_takes_the_tensor_core_path_within_its_limits(cuda, d, K, shared, path):
+    """Over one shared target of at most 32 features and 16 lanes K2-OvR
+    plans tc_kernel (path 3); past either limit, and on K targets of
+    their own, ovr_kernel (path 0), or row_kernel (1) past its shared
+    memory; the same for both families."""
+    for fam in multiclass._FAMILIES.values():
+        plan = multiclass._plan(multiclass._load(), cuda, 0, 8, 916_667, d, K, fam, shared)
+        assert plan[0] == path
 
 
 @pytest.mark.cuda

@@ -347,3 +347,62 @@ def test_multinomial_three_pass_split_holds_the_tolerance(d, K):
     assert max(three) <= TOL, three
     assert one[0] > TOL and one[2] > TOL, one
 
+
+
+def _ovr_by_tensor_cores(family, x, y, mask, B, passes):
+    """η (m, L), f (L,) and g (L, d) of one shard over one shared target y,
+    with both lane products (η = x·Bᵀ and g = Wᵀ·x, W the float32 weights)
+    taken as K2-OvR's shared-target path takes them."""
+    eta = _tensor_core_product(x, B.T.contiguous(), passes)
+    yd, md = y.double()[:, None], mask.double()[:, None]
+    if family == "logistic":
+        f = torch.sum(md * (torch.logaddexp(torch.zeros_like(eta), eta) - yd * eta), 0)
+        w = md * (torch.sigmoid(eta) - yd)
+    else:
+        f = torch.sum(md * 0.5 * (yd - eta) ** 2, 0)
+        w = md * (eta - yd)
+    return eta, f, _tensor_core_product(x.T.contiguous(), w.float(), passes).T
+
+
+@pytest.mark.parametrize("family", ["logistic", "normal"])
+@pytest.mark.parametrize("d,L", [(29, 8), (29, 5), (32, 16)])
+def test_ovr_shared_three_pass_split_holds_the_tolerance(family, d, L):
+    """K2-OvR's shared-target path splits both lane products as K2-MN's
+    does: the split holds η, f and g to TOL of their Σ|terms| against the
+    float64 plain version at phase 13d's magnitudes (x standard normal
+    with the intercept column, B (L, d) of scale 1/√d, a 0/1 target for
+    the logistic family and a real one for the Normal), where a single
+    TF32 pass misses that bound."""
+    rng = np.random.RandomState(d * L + (family == "normal"))
+    m = 256
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    x[:, -1] = 1.0
+    B = (rng.standard_normal((L, d)) / np.sqrt(d)).astype(np.float32)
+    if family == "logistic":
+        y = (rng.uniform(size=m) < 0.4).astype(np.float32)
+    else:
+        y = (2.0 * rng.standard_normal(m)).astype(np.float32)
+    mask = _masked(rng, 1, m)[0]
+    x, y, mask, B = (torch.from_numpy(a) for a in (x, y, mask, B))
+    xd, yd, md = x.double(), y.double(), mask.double()
+    eta = xd @ B.double().T
+    eta_mag = xd.abs() @ B.double().abs().T
+    ref = getattr(multiclass, f"{family}_ovr_value_and_grad_ref")
+    rf, rg = ref(xd[None], yd[None].expand(L, 1, m), md[None], B.double())
+    if family == "logistic":
+        sp = torch.logaddexp(torch.zeros_like(eta), eta)
+        f_mag = torch.sum(md[:, None] * (sp.abs() + (yd[:, None] * eta).abs()), 0)
+        w = md[:, None] * (torch.sigmoid(eta) - yd[:, None])
+    else:
+        f_mag = torch.sum(md[:, None] * 0.5 * (yd[:, None] - eta) ** 2, 0)
+        w = md[:, None] * (eta - yd[:, None])
+    g_mag = w.abs().T @ xd.abs()
+
+    def worst(passes):
+        e, f, g = _ovr_by_tensor_cores(family, x, y, mask, B, passes)
+        return (float(((e - eta).abs() / eta_mag).max()), float(((f - rf).abs() / f_mag).max()),
+                float(((g - rg).abs() / g_mag).max()))
+
+    three, one = worst(3), worst(1)
+    assert max(three) <= TOL, three
+    assert one[0] > TOL and one[2] > TOL, one
