@@ -6,15 +6,17 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --k4-yardstick ROOT`` instead times K4's step and
-loss (10c) and profiles the minibatch fits' epochs (10e) on the package
-under ROOT, e.g. a parent commit unpacked there, to compare two trees in
-one call.  ``python3 chip_smoke.py --k5-yardstick ROOT`` likewise holds and
+loss (10c, with 12d's 2^18 x 64 host block, each with its device split),
+the K=1 step beside the epoch kernel run as an epoch of one minibatch, and
+profiles the minibatch fits' epochs (10e) on the package under ROOT, e.g. a
+parent commit unpacked there, to compare two trees in one call.  ``python3 chip_smoke.py --k5-yardstick ROOT`` likewise holds and
 times K5 at every (M, K) of 11d, then runs 11b's search once on the host
 clock and once under ``torch.profiler`` (K5's device time, the idle share),
 on the package under ROOT.  ``python3 chip_smoke.py --k7k10-yardstick ROOT``
-holds and times K7b and K10 at 14c's shapes (with ``torch.cdist`` beside
-``euclid`` and the ring tile, and the column-sum pass apart) on the
-package under ROOT.  ``python3 chip_smoke.py --sweep-yardstick ROOT`` runs
+times K1a at phase 5's shape, and holds and times K7a (MiniBatchKMeans'
+step and the stepped epoch at k = 64), K7b and K10 at 14c's shapes (with
+``torch.cdist`` beside ``euclid`` and the ring tile, and the column-sum
+pass apart) on the package under ROOT.  ``python3 chip_smoke.py --sweep-yardstick ROOT`` runs
 13a's packed ``GridSearchCV`` (one warm search, two timed on the host
 clock, one under ``torch.profiler``: K2-OvR's device time and the idle
 share) and holds and times 13d's shared-target K2-OvR entries, on the
@@ -161,12 +163,17 @@ Phases, in order; any failure exits non-zero:
    ``Incremental(SGDRegressor)`` over a 2^20 x 64 host array, each gated on
    its launches and on accuracy or R².  10c: K4 timed at (1, 2^20, 64),
    K=1 and K=10, on a minibatch view and as an epoch (a step: the epoch's
-   time over its 16 steps) (CUDA events, 20 launches) beside its plain
-   version, its bound and the addmm + elementwise + mm sequence.  10e: 16
-   blocks of the stream under ``torch.profiler``: the device's idle share,
-   device operations, runtime launch calls and host syncs a block; then one
-   epoch of each minibatch fit: each kernel's device time, the idle time
-   and the host clock a step.
+   time over its 16 steps) (CUDA events, 20 launches; a step or a loss
+   queued behind a device sleep, and also at the host's pace) beside its
+   plain version, its bound and the addmm + elementwise + mm sequence; each
+   step and loss with its device split (``torch.profiler``: the step
+   kernel, ``finalize_kernel`` and the gap between them); gate: at K=1 a
+   call is one launch, with no ``finalize_kernel``.  10e: 16 blocks of the
+   stream under ``torch.profiler``: the device's idle share, device
+   operations, runtime launch calls and host syncs a block (gate: K4's K=1
+   step one launch a block, no ``finalize_kernel``); then one epoch of each
+   minibatch fit: each kernel's device time, the idle time and the host
+   clock a step.
 11. The search (BASELINE ``configs[4]``) through K5 (``csrc/cohort.cu``).
    11a: K5 against its plain version taken in float64 (``hold_cohort``:
    each lane's loss and count rtol 1e-5, its coef to 1e-5·eta·max|g| plus
@@ -215,13 +222,14 @@ Phases, in order; any failure exits non-zero:
    their streams against K4's and their overlap, the runtime calls of each
    host thread (the exported trace's system thread ids); gates: every kernel
    launch on the consumer thread, the other threads' calls copies, events
-   and allocations only, the device's kernels K4's, the copies from
-   page-locked memory.  12d: the stage's parts alone (a page-locked and a
+   and allocations only, the device's kernels K4's one-launch step, one
+   launch a block, the copies from page-locked memory.  12d: the stage's parts alone (a page-locked and a
    pageable 64 MiB copy; ``read_binary`` of a block from the page cache into
    a fresh array, a reused one and a page-locked buffer; the copy into
    page-locked memory; the labels, the encode, the pad and the stager's put
-   of a block; K4 at 2^18 x 64 held and timed beside its bound) and the
-   stream's floor max(parse, H2D, K4).  12e:
+   of a block; K4 at 2^18 x 64 held and timed beside its bound, with its
+   device split and 10c's one-launch gate) and the stream's floor
+   max(parse, H2D, K4).  12e:
    ``IncrementalPCA(10, batch_size=2**18)`` over a 2^22 x 64 host array with
    the prefetch knob at 0 and 2 (gate: equal ``components_``).
 13. The grid searches (``model_selection/_search.py``) and the packed C-sweep
@@ -265,10 +273,15 @@ Phases, in order; any failure exits non-zero:
    profiled (idle share, device time by kernel); gates as phase 4's.  14b:
    ``_partial.fit`` of ``MiniBatchKMeans(n_clusters=8, init=14a's
    centres)`` over 16 host blocks of 2^20 x 50 at prefetch depths 0 and 2,
-   then the same blocks on the card as ``ShardedRows``: ms a block, K1a and
-   K7a launches a block; gates: every run bit-equal, the centres after 8
-   blocks within 1e-4·max|c| of the plain versions'.  14c: K7a at 14b's
-   shape (bit-equal to its plain version), K7b over 1024 steps of the first
+   then the same blocks on the card as ``ShardedRows``: ms a block, the
+   fused step's (K1a with K7a's update in its last launch) and K1a's own
+   launches a block; gates: every run bit-equal, one fused launch a block
+   and no K1a of its own, the centres after 8 blocks within 1e-4·max|c| of
+   the plain versions'.  14c: K7a (``k7a_entry``: the fused step at 14b's
+   block, bit-equal to K1a then K7a's plain version, timed beside K1a alone
+   with its device time by kernel; 1024 steps of the stepped epoch at
+   k = 64, its first 32 bit-equal to K1a then K7a's plain version, its host
+   and device time and launches a step), K7b over 1024 steps of the first
    2^20 rows and over the main path's epoch (centres within 1e-5 and 1e-4 of
    max|c|, the mean inertia rtol 1e-5), K10 in each epilogue at 14d's and
    14e's shapes (d² within TOL of ‖x−a‖²+‖y−a‖², flagged counts equal) and
@@ -2535,14 +2548,17 @@ def sgd_inputs(torch, B, d, K, loss, seed, device, scale=1.0):
 
 
 def hold_sgd(torch, sgd, case, hyper, what, loss, penalty="l2", schedule="optimal",
-             fit_intercept=True):
+             fit_intercept=True, update=None):
     """10a: both K4 wrappers against their plain versions taken in float64 on
     the same inputs: the mean loss to rtol SGD_TOL, the updated coef and
     intercept to SGD_TOL·eta·max|g| plus 2^-22 of each element (the float32
     rounding of the stored c − eta·g), with hinge's rows within 1e-5 of its
-    kink allowed their jump of dℓ, t equal.  Returns the largest absolute
-    differences of each wrapper's outputs: (``sgd_update``'s coef,
-    intercept and mean loss; ``sgd_loss``'s mean loss)."""
+    kink allowed their jump of dℓ, t equal; each twice, with the same bits.
+    ``update`` stands in for ``sgd.sgd_update`` (same arguments), e.g. a
+    step run another way.  Returns the largest absolute differences of each
+    wrapper's outputs: (``sgd_update``'s coef, intercept and mean loss;
+    ``sgd_loss``'s mean loss)."""
+    update = sgd.sgd_update if update is None else update
     x, y, mask, coef, intercept = case
     d64 = torch.float64
     h64 = hyper.to(d64)
@@ -2551,11 +2567,16 @@ def hold_sgd(torch, sgd, case, hyper, what, loss, penalty="l2", schedule="optima
     out64 = torch.empty(2, dtype=d64, device=x.device)
     sgd.sgd_update_ref(x.to(d64), y.to(d64), mask.to(d64), c64, b64, t64, h64, loss=loss,
                        penalty=penalty, schedule=schedule, fit_intercept=fit_intercept, out=out64)
-    c32, b32, t32 = coef.clone(), intercept.clone(), t0.clone()
-    out = sgd.sgd_update(x, y, mask, c32, b32, t32, hyper, loss=loss, penalty=penalty,
-                         schedule=schedule, fit_intercept=fit_intercept)
+    runs = []
+    for _ in range(2):
+        c32, b32, t32 = coef.clone(), intercept.clone(), t0.clone()
+        out = update(x, y, mask, c32, b32, t32, hyper, loss=loss, penalty=penalty,
+                     schedule=schedule, fit_intercept=fit_intercept)
+        runs.append((c32, b32, out))
     lo = sgd.sgd_loss(x, y, mask, coef, intercept, hyper, loss=loss)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"K4 update {what}: a repeat gave other bits")
     eta = float(sgd.learning_rate(schedule, t0.to(d64), h64))
     g = torch.cat([(coef.to(d64) - c64).flatten(), (intercept.to(d64) - b64).flatten()]) / eta
     gmax = float(g.abs().max())
@@ -2891,16 +2912,19 @@ def sgd_stream(torch, sgd, device, card):
     return launches
 
 
-def sgd_table_entry(torch, sgd, case, hyper, name, kind, card):
+def sgd_table_entry(torch, sgd, case, hyper, name, kind, card, one_launch=False):
     """10c: one entry of SGD_TABLE on its inputs: the wrapper timed (CUDA
-    events over 20 launches; an epoch's time divided by its steps) beside
+    events over 20 launches, for a step or a loss queued behind a device
+    sleep so that the host's call does not pace them, and also at the
+    host's pace; an epoch's time divided by its steps) beside
     its plain version (3 runs), its bound from this view's rows (a step's),
     the addmm + elementwise + mm sequence for a step and addmm +
     elementwise + sum for the loss (informational: no single PyTorch call
     computes either), and its largest difference from the plain version in
     float64 on the same inputs (``hold_sgd``, ``hold_epoch``).  ``case``:
     a block, a minibatch view, or (an epoch) the stacks of a block's
-    minibatches."""
+    minibatches.  ``one_launch``: gate that a call is one launch on the
+    device, with no ``finalize_kernel`` (the K = 1 step and loss)."""
     x, y, mask, coef, intercept = case
     B, d = x.shape[0], x.shape[-1]
     K = y.shape[-1]
@@ -2908,19 +2932,24 @@ def sgd_table_entry(torch, sgd, case, hyper, name, kind, card):
     kw = dict(loss=loss, penalty="l2", schedule="optimal")
     c, b, t = coef.clone(), intercept.clone(), torch.tensor(5.0, device=x.device)
     steps = x.shape[1] if kind == "epoch" else 1
+    split = None
     if kind == "epoch":
         ms = time_ms(torch, lambda: sgd.sgd_epoch(x, y, mask, c, b, t, hyper, **kw), 20) / steps
         plain_ms = time_ms(torch, lambda: sgd.sgd_epoch_ref(x, y, mask, c, b, t, hyper, **kw),
                            3) / steps
         one = (x[:, 5], y[:, 5], mask[:, 5])
     elif kind == "update":
-        ms = time_ms(torch, lambda: sgd.sgd_update(x, y, mask, c, b, t, hyper, **kw), 20)
+        call = lambda: sgd.sgd_update(x, y, mask, c, b, t, hyper, **kw)  # noqa: E731
+        ms, host_ms = queued_ms(torch, call, 20), time_ms(torch, call, 20)
         plain_ms = time_ms(torch, lambda: sgd.sgd_update_ref(x, y, mask, c, b, t, hyper, **kw), 3)
         one = (x, y, mask)
+        split = k4_split(torch, call)
     else:
-        ms = time_ms(torch, lambda: sgd.sgd_loss(x, y, mask, c, b, hyper, loss=loss), 20)
+        call = lambda: sgd.sgd_loss(x, y, mask, c, b, hyper, loss=loss)  # noqa: E731
+        ms, host_ms = queued_ms(torch, call, 20), time_ms(torch, call, 20)
         plain_ms = time_ms(torch, lambda: sgd.sgd_loss_ref(x, y, mask, c, b, hyper, loss=loss), 3)
         one = (x, y, mask)
+        split = k4_split(torch, call)
 
     def library():
         xo, yo, mo = one
@@ -2951,12 +2980,133 @@ def sgd_table_entry(torch, sgd, case, hyper, name, kind, card):
         f"{b_ms / ms:.1%} of the bound (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
         f"{b_by}: {nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP; the PyTorch sequence, "
         f"informational: {lib_ms:.4f} ms) [{card}]")
+    if kind != "epoch":
+        log(f"phase 10c: {name} at the host's pace {host_ms:.4f} ms a call; on the device, a "
+            f"call: {fmt_split(split)} [{card}]")
+        if one_launch and split is not None:
+            gate(split["finish_ms"] == 0.0 and split["launches"] <= 1.0,
+                 f"10c: {name} is not one launch a call: {fmt_split(split)}", phase=10)
     replaces = {"update": "dask_ml_tpu/linear_model/_sgd.py:146",
                 "epoch": "dask_ml_tpu/linear_model/_sgd.py:203",
                 "loss": "dask_ml_tpu/linear_model/_sgd.py:241"}[kind]
     return {"name": name, "route": "cuda", "source": "dask_ml_tpu_torch/csrc/sgd.cu",
             "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def device_events(torch, fn, reps):
+    """``fn()`` (warmed once) ``reps`` times under ``torch.profiler``, the
+    window opened by PROFILE_PADS spin kernels and a sync, left out: the
+    device events, (start us, end us, kernel name), in order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PADS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sorted((e.time_range.start, e.time_range.end, kernel_name(e.name))
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name)
+
+
+def by_kernel(events, reps):
+    """{kernel name: (device ms, launches)} a call, from ``device_events``."""
+    out = {}
+    for start, end, name in events:
+        ms, count = out.get(name, (0.0, 0))
+        out[name] = (ms + (end - start) / 1e3 / reps, count + 1 / reps)
+    return out
+
+
+def k4_split(torch, fn, reps=20):
+    """10c, 12d: ``fn`` (one K4 call) ``reps`` times under ``torch.profiler``
+    (the window opened by PROFILE_PADS spin kernels, left out): a call's
+    device launches, the step kernel's device time, the finish's
+    (``finalize_kernel``, a launch of its own; 0 where the step finishes
+    inside its launch) and the device's gap from the step kernel's end to
+    the finish's start.  Returns {"launches", "kernel_ms", "finish_ms",
+    "gap_ms"} a call, or None where the profiler recorded no device event."""
+    events = device_events(torch, fn, reps)
+    if not events:
+        return None
+    kernel = finish = gap = 0.0
+    for i, (start, end, name) in enumerate(events):
+        if name == "finalize_kernel":
+            finish += end - start
+            if i:
+                gap += start - events[i - 1][1]
+        else:
+            kernel += end - start
+    return {"launches": len(events) / reps, "kernel_ms": kernel / 1e3 / reps,
+            "finish_ms": finish / 1e3 / reps, "gap_ms": gap / 1e3 / reps}
+
+
+def fmt_split(split):
+    if split is None:
+        return "not measured (the profiler recorded no device event)"
+    return (f"{split['launches']:g} launches, the step kernel {split['kernel_ms']:.4f} ms, "
+            f"finalize_kernel {split['finish_ms']:.4f} ms, the gap between them "
+            f"{split['gap_ms']:.4f} ms")
+
+
+def k4_epoch_step(torch, sgd):
+    """K4's step run as an epoch of one minibatch (``sgd_epoch_run`` with
+    n_mb = 1, through the library: the wrapper takes n_mb >= 2), with
+    ``sgd.sgd_update``'s arguments."""
+    import ctypes
+
+    def update(x, y, mask, coef, intercept, t, hyper, *, loss, penalty, schedule,
+               fit_intercept=True):
+        lib = sgd._load()
+        B, d = x.shape
+        K = y.shape[1]
+        plan, scratch = sgd._plan(lib, x.device, sgd.LOSSES[loss], B, d, K, epoch=True)
+        out = torch.empty(2, dtype=torch.float32, device=x.device)
+        err = lib.sgd_epoch_run(
+            plan, sgd.LOSSES[loss], sgd.PENALTIES[penalty], sgd.SCHEDULES[schedule],
+            int(fit_intercept), x.data_ptr(), x.stride(0), 0, y.data_ptr(), y.stride(0), 0,
+            mask.data_ptr(), mask.stride(0), 0, coef.data_ptr(), intercept.data_ptr(),
+            t.data_ptr(), hyper.data_ptr(), B, 1, d, K, scratch.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"sgd_epoch_run: CUDA error {err}")
+        return out
+
+    return update
+
+
+def k4_step_variants(torch, sgd, case, hyper, name, card):
+    """The K=1 step at ``case``'s shape two ways, in turns: (a) ``sgd_update``
+    as the package under test runs it, and (b) the epoch kernel run as an
+    epoch of one minibatch (``k4_epoch_step``); each held against its plain
+    version in float64 (``hold_sgd``, twice with the same bits), then timed
+    (CUDA events over 20 calls queued behind a device sleep) in the order a,
+    b, b, a, with (b)'s device split.  Returns {"a": [ms, ms], "b": [ms,
+    ms]}."""
+    x, y, mask, coef, intercept = case
+    kw = dict(loss="log_loss", penalty="l2", schedule="optimal")
+    ways = {"a": sgd.sgd_update, "b": k4_epoch_step(torch, sgd)}
+    errs = {}
+    for way, fn in ways.items():
+        errs[way] = hold_sgd(torch, sgd, case, hyper, f"{name} ({way})", "log_loss",
+                             update=fn)[0]
+    c, b, t = coef.clone(), intercept.clone(), torch.tensor(5.0, device=x.device)
+    times = {"a": [], "b": []}
+    for way in ("a", "b", "b", "a"):
+        fn = ways[way]
+        times[way].append(queued_ms(torch, lambda: fn(x, y, mask, c, b, t, hyper, **kw), 20))
+    split = k4_split(torch, lambda: ways["b"](x, y, mask, c, b, t, hyper, **kw))
+    log(f"k4 step ways at {name} ({x.shape[0]} x {x.shape[1]}): (a) sgd_update "
+        f"{', '.join(f'{v:.4f}' for v in times['a'])} ms (max abs err {errs['a']:.3g}); (b) the "
+        f"epoch kernel over one minibatch {', '.join(f'{v:.4f}' for v in times['b'])} ms (max "
+        f"abs err {errs['b']:.3g}; on the device: {fmt_split(split)}) [{card}]")
+    return times
 
 
 def sgd_table(torch, sgd, device, launches, card):
@@ -2977,7 +3127,8 @@ def sgd_table(torch, sgd, device, launches, card):
                 continue
             case = (stacks if kind == "epoch" else minibatch_view(block, n_mb)) if strided \
                 else block
-            entry = sgd_table_entry(torch, sgd, case, hyper, name, kind, card)
+            entry = sgd_table_entry(torch, sgd, case, hyper, name, kind, card,
+                                    one_launch=K == 1 and kind != "epoch")
             if launches.get(name):
                 out.append(dict(entry, launches=launches[name]))
         del block, stacks, x, y, mask
@@ -3179,6 +3330,13 @@ def sgd_profile(torch, sgd, device, card):
         log(f"  device {ms:10.4f} ms {count:5d}x  {name[:110]}")
     log(f"  device busy {busy:.3f} ms of {wall_ms:.3f} ms: idle share "
         f"{(wall_ms - busy) / wall_ms:.4f}; {n_dev / SGD_PROFILE:.2f} device operations a block")
+    steps = sum(c for name, (_, c) in per_name.items() if kernel_name(name) == "step_kernel")
+    finishes = sum(c for name, (_, c) in per_name.items()
+                   if kernel_name(name) == "finalize_kernel")
+    log(f"  K4: step_kernel {steps}x, finalize_kernel {finishes}x for {SGD_PROFILE} blocks")
+    gate(finishes == 0 and 0 < steps <= SGD_PROFILE,
+         f"10e: K4's K=1 step is not one launch a block (step_kernel {steps}x, "
+         f"finalize_kernel {finishes}x for {SGD_PROFILE} blocks)", phase=10)
 
 
 def kernel_name(name):
@@ -3243,22 +3401,30 @@ def epoch_profile(torch, device, K, card):
 
 
 def k4_yardstick(torch, device, card):
-    """``--k4-yardstick ROOT``: the step and loss entries of SGD_TABLE (10c)
-    and the two minibatch fits' epoch profiles (10e), on the package under
-    ROOT (a parent's tree, whose K4 has no epoch kernel, or this one), so
-    that two trees are timed in one call on one card."""
+    """``--k4-yardstick ROOT``: 12d's host-block step (HOST_ROWS x HOST_D),
+    the step and loss entries of SGD_TABLE (10c), each with its device
+    split, the K=1 step at both block shapes beside the epoch kernel run as
+    an epoch of one minibatch (``k4_step_variants``), and the two minibatch
+    fits' epoch profiles (10e), on the package under ROOT (a parent's tree,
+    or this one), so that two trees are timed in one call on one card."""
     from dask_ml_tpu_torch.ops import _build, sgd
 
     log(f"k4 yardstick: {sgd.__file__}")
     _build.build(["sgd"])
     n_mb = SGD_ROWS // SGD_FIT_BATCH
+    hyper = sgd_hyper(torch, device)
+    case = sgd_inputs(torch, HOST_ROWS, HOST_D, 1, "log_loss", 12, device)
+    sgd_table_entry(torch, sgd, case, hyper, "sgd_update_host_block", "update", card)
+    k4_step_variants(torch, sgd, case, hyper, "sgd_update_host_block", card)
+    del case
     for K in (1, SGD_OVA_K):
         block = sgd_inputs(torch, SGD_ROWS, SGD_D, K, "log_loss", 1, device)
-        hyper = sgd_hyper(torch, device)
         for name, k, strided, kind in SGD_TABLE:
             if k == K and kind != "epoch":
                 sgd_table_entry(torch, sgd, minibatch_view(block, n_mb) if strided else block,
                                 hyper, name, kind, card)
+        if K == 1:
+            k4_step_variants(torch, sgd, block, hyper, "sgd_update", card)
         del block
     for K in (1, SGD_OVA_K):
         epoch_profile(torch, device, K, card)
@@ -4032,10 +4198,11 @@ def host_profile(torch, sgd, path, tmp, card):
     h2d = [(s, e, sid) for s, e, name, sid in dev if "HtoD" in name]
     kernels = [(s, e, name, sid) for s, e, name, sid in dev if "Memcpy" not in name
                and "Memset" not in name]
-    k4 = [(s, e, sid) for s, e, name, sid in kernels
-          if kernel_name(name) in ("warp_kernel", "finalize_kernel", "row_kernel")]
-    gate(len(k4) == len(kernels), "12c: kernels other than K4's in the window: "
-         f"{sorted({kernel_name(k[2]) for k in kernels})}", phase=12)
+    k4 = [(s, e, sid) for s, e, name, sid in kernels if kernel_name(name) == "step_kernel"]
+    gate(len(k4) == len(kernels), "12c: kernels other than K4's one-launch step in the "
+         f"window: {sorted({kernel_name(k[2]) for k in kernels})}", phase=12)
+    gate(launch_calls == n, f"12c: {launch_calls} kernel launches for {n} blocks (K4's step "
+         "is one launch a block)", phase=12)
     pinned = sum("Pinned" in name for _, _, name, _ in dev if "HtoD" in name)
     busy = union_us([(s, e) for s, e, _, _ in dev])
     h2d_us = sum(e - s for s, e, _ in h2d)
@@ -4141,7 +4308,7 @@ def host_yardstick(torch, sgd, path, device, card):
     parse = med["pinned"]  # the depth-2 worker reads into the stream's page-locked buffers
     case = sgd_inputs(torch, HOST_ROWS, HOST_D, 1, "log_loss", 12, device)
     entry = sgd_table_entry(torch, sgd, case, sgd_hyper(torch, device), "sgd_update_host_block",
-                            "update", card)
+                            "update", card, one_launch=True)
     floor = max(parse, h2d, entry["ms"])
     log(f"phase 12d: a {4 * n / 2**20:.0f} MiB block: host-to-device {h2d:.4f} ms from "
         f"page-locked memory ({4 * n / h2d / 1e6:.1f} GB/s), {h2d_pageable:.4f} ms pageable; "
@@ -4705,7 +4872,7 @@ def reset_minibatch_counts():
     from dask_ml_tpu_torch.cluster import minibatch_kmeans
     from dask_ml_tpu_torch.ops import lloyd, minibatch, pairwise
 
-    for fn in (minibatch.mbk_update, minibatch.mbk_epoch, pairwise.sq_euclidean_safe,
+    for fn in (minibatch.mbk_step, minibatch.mbk_epoch, pairwise.sq_euclidean_safe,
                lloyd.lloyd_assign, lloyd.lloyd_assign_reduce):
         fn.launches = 0
     minibatch.mbk_epoch.stepped = 0
@@ -4718,7 +4885,7 @@ def minibatch_counts():
 
     return {"mbk_epoch": minibatch.mbk_epoch.launches,
             "mbk_epoch_stepped": minibatch.mbk_epoch.stepped,
-            "mbk_update": minibatch.mbk_update.launches,
+            "mbk_step": minibatch.mbk_step.launches,
             "lloyd_assign_reduce": lloyd.lloyd_assign_reduce.launches,
             "lloyd_assign": lloyd.lloyd_assign.launches,
             "sq_euclidean_safe": pairwise.sq_euclidean_safe.launches,
@@ -4826,9 +4993,10 @@ def mbk_stream(torch, X, init, card):
     """14b: ``_partial.fit`` of ``MiniBatchKMeans(n_clusters=8, init=14a's
     centres)`` over 16 host blocks at prefetch depths 0 and 2, then the same
     blocks already on the card as ``ShardedRows``; gates: every run's state
-    bit-equal, one K1a and one K7a launch a block, and after 8 blocks the
-    centres within 1e-4·max|c| of the plain versions'.  Returns (the
-    depth-2 counts, the first block on the card, the state before it)."""
+    bit-equal, one launch of the fused step (K1a with K7a's update in its
+    last launch) a block and no K1a or K7a launch of its own, and after 8
+    blocks the centres within 1e-4·max|c| of the plain versions'.  Returns
+    the depth-2 counts."""
     from dask_ml_tpu_torch import _partial
     from dask_ml_tpu_torch.cluster import MiniBatchKMeans
     from dask_ml_tpu_torch.core import shard_rows
@@ -4849,9 +5017,9 @@ def mbk_stream(torch, X, init, card):
         ms = 1e3 * (time.perf_counter() - t0) / STREAM_BLOCKS
         runs[depth] = (m, minibatch_counts())
         c = runs[depth][1]
-        log(f"phase 14b: host blocks at depth {depth}: {ms:.3f} ms a block; K1a "
-            f"{c['lloyd_assign_reduce'] / STREAM_BLOCKS:g} and K7a "
-            f"{c['mbk_update'] / STREAM_BLOCKS:g} launches a block [{card}]")
+        log(f"phase 14b: host blocks at depth {depth}: {ms:.3f} ms a block; the fused K1a+K7a "
+            f"step {c['mbk_step'] / STREAM_BLOCKS:g} and K1a alone "
+            f"{c['lloyd_assign_reduce'] / STREAM_BLOCKS:g} launches a block [{card}]")
     dev_blocks = [shard_rows(X[i * STREAM_ROWS:(i + 1) * STREAM_ROWS])
                   for i in range(STREAM_BLOCKS)]
     torch.cuda.synchronize()
@@ -4863,17 +5031,18 @@ def mbk_stream(torch, X, init, card):
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / STREAM_BLOCKS
     c = minibatch_counts()
-    log(f"phase 14b: blocks on the card: {ms:.3f} ms a block; K1a "
-        f"{c['lloyd_assign_reduce'] / STREAM_BLOCKS:g} and K7a {c['mbk_update'] / STREAM_BLOCKS:g}"
-        f" launches a block [{card}]")
+    log(f"phase 14b: blocks on the card: {ms:.3f} ms a block; the fused K1a+K7a step "
+        f"{c['mbk_step'] / STREAM_BLOCKS:g} and K1a alone "
+        f"{c['lloyd_assign_reduce'] / STREAM_BLOCKS:g} launches a block [{card}]")
+    runs["on the card"] = (on_card, c)
     for name, m in (("depth 2", runs[2][0]), ("on the card", on_card)):
         gate(torch.equal(m.cluster_centers_, runs[0][0].cluster_centers_)
              and torch.equal(m._counts, runs[0][0]._counts),
              f"14b: the {name} stream's state differs from depth 0's", phase=14)
-    for depth, (m, cnt) in runs.items():
-        gate(cnt["lloyd_assign_reduce"] == STREAM_BLOCKS and cnt["mbk_update"] == STREAM_BLOCKS,
-             f"14b: depth {depth} launched K1a {cnt['lloyd_assign_reduce']} and K7a "
-             f"{cnt['mbk_update']} times for {STREAM_BLOCKS} blocks", phase=14)
+    for run, (m, cnt) in runs.items():
+        gate(cnt["mbk_step"] == STREAM_BLOCKS and cnt["lloyd_assign_reduce"] == 0,
+             f"14b: the run {run!r} launched the fused step {cnt['mbk_step']} times and K1a "
+             f"alone {cnt['lloyd_assign_reduce']} times for {STREAM_BLOCKS} blocks", phase=14)
     kern = MiniBatchKMeans(n_clusters=MBK_K, init=init)
     centers = torch.as_tensor(init, device=X.device).clone()
     pair = torch.zeros(2, MBK_K, device=X.device)
@@ -4886,44 +5055,135 @@ def mbk_stream(torch, X, init, card):
     log(f"phase 14b: after {STREAM_PLAIN} blocks the centres are within {gap:.3g} of the "
         f"plain versions' ({gap / scale:.3g} of max|c|)")
     gate(gap <= 1e-4 * scale, f"14b: centres {gap} from the plain versions'", phase=14)
-    return runs[2][1], dev_blocks[0], (torch.as_tensor(init, device=X.device).clone(),
-                                       torch.zeros(2, MBK_K, device=X.device))
+    return runs[2][1]
 
 
-def k7_table(torch, X, est, stream_counts, fit_counts, block0, state0, card):
-    """14c for K7: K7a at 14b's shape (K1a's outputs on a block of 2^20
-    rows, k = 8), bit-equal to its plain version; K7b over one epoch of the
-    first 2^20 rows (1024 steps from a fixed start) and at the main path's
-    epoch (all rows), each held against its plain version, then timed by
-    CUDA events beside the plain version and the bound."""
-    from dask_ml_tpu_torch.ops import lloyd, minibatch
-
-    out = []
-    centers, pair = state0
-    sums, bmass, _ = lloyd.lloyd_assign_reduce(block0.data, block0.mask, centers)
-    sums, bmass = sums.clone(), bmass.clone()
-    got = minibatch.mbk_update(sums, bmass, centers, pair)
-    want = minibatch.mbk_update_ref(sums, bmass, centers, pair)
-    torch.cuda.synchronize()
-    gate(all(torch.equal(a, b) for a, b in zip(got, want)),
-         "14c: K7a differs from its plain version", phase=14)
-    k, d = centers.shape
-    ms = queued_ms(torch, lambda: minibatch.mbk_update(sums, bmass, centers, pair), K10_REPS)
-    plain_ms = time_ms(torch, lambda: minibatch.mbk_update_ref(sums, bmass, centers, pair), 3)
-    nbytes = 4 * (3 * k * d + k + 4 * k)
-    b_ms, b_by = bound_ms(nbytes, 4 * k * d + 12 * k)
-    log(f"mbk_update (K7a) at k={k} d={d}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.6f} ms by {b_by}: {nbytes} bytes; bit-equal to the plain version) [{card}]")
-    out.append({"name": "mbk_update", "route": "cuda",
-                "source": "dask_ml_tpu_torch/csrc/minibatch.cu",
-                "replaces": "dask_ml_tpu/cluster/minibatch_kmeans.py:54",
-                "launches": stream_counts["mbk_update"], "max_abs_err": 0.0, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+def k7_table(torch, X, est, stream_counts, fit_counts, card):
+    """14c for K7: K7a, the epilogue of K1a's last launch (``k7a_entry``);
+    K7b over one epoch of the first 2^20 rows (1024 steps from a fixed
+    start) and at the main path's epoch (all rows), each held against its
+    plain version, then timed by CUDA events beside the plain version and
+    the bound."""
+    out = [k7a_entry(torch, X, est.cluster_centers_ + 0.5, stream_counts["mbk_step"], card)]
 
     # K7b over the first 2^20 rows, and at the main path's epoch
     c0 = est.cluster_centers_ + 0.5  # off the optimum, so the steps move the centres
     out.append(k7b_entry(torch, X, c0, fit_counts["mbk_epoch"], card))
     return out
+
+
+# the kernels of a MiniBatchKMeans step through K1a and K7a (a parent's K7a
+# launched update_kernel after K1a's finalize_kernel)
+K1A_K7A_KERNELS = ("pack_centers_kernel", "reduce_kernel", "finalize_kernel",
+                   "finalize_update_kernel", "update_kernel")
+
+
+def k7a_entry(torch, X, c0, launches, card):
+    """14c for K7a, since PR 20 the update epilogue of K1a's last launch
+    (``ops.minibatch.mbk_step``, ``finalize_update_kernel``), at 14b's
+    block: the first 2^20 rows of X, all weight 1, the centres ``c0`` (k =
+    8) and a pair of masses past 2^24 with one centre at 0.  The step is
+    held bitwise against K1a followed by K7a's plain version; then, in
+    turns, the step and K1a alone (CUDA events, 20 calls queued behind a
+    device sleep); the step's device time by kernel (``torch.profiler``),
+    with the finish that carries the update beside its bound; and 1024
+    steps of the stepped epoch at k = 64 (``mbk_epoch`` past K7b's shapes:
+    a step a window), its first 32 steps held bitwise against K1a then
+    K7a's plain version, timed on the host clock and by its device time.
+    On a parent's tree whose ``ops/minibatch.py`` has no ``mbk_step``, the
+    step is K1a then K7a's own launch (``mbk_update``), timed alike.
+    Returns K7a's line of the kernels table."""
+    from dask_ml_tpu_torch.ops import lloyd, minibatch
+
+    k, d = c0.shape
+    x1 = X[:STREAM_ROWS]
+    m1 = torch.ones(STREAM_ROWS, device=X.device)
+    pair = torch.stack([torch.full((k,), 2.0 ** 25, device=X.device),
+                        torch.full((k,), 0.25, device=X.device)])
+    pair[:, -1] = 0.0
+    fused = hasattr(minibatch, "mbk_step")
+
+    def step(c, p, xb, mb):
+        if fused:
+            return minibatch.mbk_step(c, p, xb, mb)
+        sums, bmass, inertia = lloyd.lloyd_assign_reduce(xb, mb, c)
+        return (*minibatch.mbk_update(sums, bmass, c, p), inertia)
+
+    err = None
+    if fused:
+        got = step(c0, pair, x1, m1)
+        sums, bmass, inertia = lloyd.lloyd_assign_reduce(x1, m1, c0)
+        want = (*minibatch.mbk_update_ref(sums, bmass, c0, pair), inertia)
+        torch.cuda.synchronize()
+        gate(all(torch.equal(a, b) for a, b in zip(got, want)),
+             "14c: the fused step differs from K1a followed by K7a's plain version", phase=14)
+        err = 0.0
+    times = {"step": [], "k1a": []}
+    calls = {"step": lambda: step(c0, pair, x1, m1),
+             "k1a": lambda: lloyd.lloyd_assign_reduce(x1, m1, c0)}
+    for what in ("step", "k1a", "k1a", "step"):
+        times[what].append(queued_ms(torch, calls[what], K10_REPS))
+    per = by_kernel(device_events(torch, calls["step"], K10_REPS), K10_REPS)
+    sums_, bmass_, _ = lloyd.lloyd_assign_reduce(x1, m1, c0)
+    plain_ms = time_ms(torch, lambda: minibatch.mbk_update_ref(sums_, bmass_, c0, pair), 3)
+    plan, _ = lloyd._plan(lloyd._load(), "lloyd_plan", 8, STREAM_ROWS, d, k, X.device)
+    blocks, rec = int(plan[5]), int(plan[6])
+    finish = "finalize_update_kernel" if fused else "update_kernel"
+    # the finish that carries the update: K1a's block records read, the
+    # sums written, the state read and the new state written
+    nbytes = 4 * (blocks * rec + rec + 2 * (k * d + 2 * k)) if fused else \
+        4 * (3 * k * d + k + 4 * k)
+    b_ms, b_by = bound_ms(nbytes, blocks * rec + 4 * k * d + 12 * k)
+    ms = per[finish][0] if finish in per else None
+    launches_a_step = sum(c for name, (_, c) in per.items() if name in K1A_K7A_KERNELS)
+    held = "; bit-equal to K1a then K7a's plain version" if fused else ""
+    log(f"phase 14c: K1a {'with K7a as its epilogue' if fused else 'then K7a'} at {STREAM_ROWS}x"
+        f"{d}, k={k}: {', '.join(f'{v:.4f}' for v in times['step'])} ms a step, K1a alone "
+        f"{', '.join(f'{v:.4f}' for v in times['k1a'])} ms (CUDA events, queued); "
+        f"{launches_a_step:g} launches a step; device a step: "
+        + ", ".join(f"{name} {v:.4f} ms ({c:g}x)" for name, (v, c) in per.items())
+        + f"; {finish} {'not measured' if ms is None else f'{ms:.4f} ms'} against its bound "
+        f"{b_ms:.6f} ms by {b_by} ({nbytes} bytes); K7a's plain version {plain_ms:.4f} ms"
+        f"{held} [{card}]")
+
+    # the stepped epoch past K7b's shapes: k = 64
+    c64 = X[STREAM_ROWS:STREAM_ROWS + 64].clone()
+    z64 = torch.zeros(2, 64, device=X.device)
+    args = (c64, z64, x1, m1, EPOCH_CHECK_START)
+    if fused:
+        got = minibatch.mbk_epoch(*args, MBK_BATCH, 32)
+        c, p = c64, z64
+        for i in range(32):
+            off = minibatch.window_start(EPOCH_CHECK_START, i, MBK_BATCH, STREAM_ROWS)
+            sums, bmass, _ = lloyd.lloyd_assign_reduce(x1[off:off + MBK_BATCH].clone(),
+                                                       m1[off:off + MBK_BATCH], c)
+            c, p = minibatch.mbk_update_ref(sums, bmass, c, p)
+        torch.cuda.synchronize()
+        gate(torch.equal(got[0], c) and torch.equal(got[1], p),
+             "14c: the stepped epoch at k = 64 differs from K1a then K7a's plain version",
+             phase=14)
+    stepped = minibatch.mbk_epoch.stepped
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    minibatch.mbk_epoch(*args, MBK_BATCH, EPOCH_CHECK_STEPS)
+    torch.cuda.synchronize()
+    host_us = 1e6 * (time.perf_counter() - t0) / EPOCH_CHECK_STEPS
+    gate(minibatch.mbk_epoch.stepped == stepped + 1, "14c: the k = 64 epoch was not stepped",
+         phase=14)
+    per = by_kernel(device_events(
+        torch, lambda: minibatch.mbk_epoch(*args, MBK_BATCH, EPOCH_CHECK_STEPS), 1),
+        EPOCH_CHECK_STEPS)
+    dev_us = 1e3 * sum(v for v, _ in per.values())
+    kern = sum(c for name, (_, c) in per.items() if name in K1A_K7A_KERNELS)
+    log(f"phase 14c: the stepped epoch at k=64, bs={MBK_BATCH}, {EPOCH_CHECK_STEPS} steps over "
+        f"{STREAM_ROWS}x{d}: {host_us:.3f} us a step on the host clock, {dev_us:.3f} us a step "
+        f"of device time, K1a and K7a {kern:g} launches a step; device a step: "
+        + ", ".join(f"{name} {1e3 * v:.3f} us ({c:g}x)" for name, (v, c) in per.items())
+        + f" [{card}]")
+    return {"name": "mbk_update", "route": "cuda", "source": "dask_ml_tpu_torch/csrc/lloyd.cu",
+            "replaces": "dask_ml_tpu/cluster/minibatch_kmeans.py:54", "launches": launches,
+            "max_abs_err": err, "ms": ms if ms is not None else times["step"][0],
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def k7b_entry(torch, X, c0, launches, card, plain_epoch=True):
@@ -5236,18 +5496,26 @@ def spectral_path(torch, X, truth, card):
 
 
 def k7k10_yardstick(torch, device, card):
-    """``--k7k10-yardstick ROOT``: 14c's K7b (1024 steps of the first 2^20
-    rows, held; the main path's epoch, timed) and K10 (``sq`` and ``euclid``
+    """``--k7k10-yardstick ROOT``: K1a at the KMeans main path's shape
+    (phase 5's call), 14c's K7a (``k7a_entry``: MiniBatchKMeans' step at
+    14b's block and 1024 steps of the stepped epoch at k = 64), K7b (1024
+    steps of the first 2^20 rows, held; the main path's epoch, timed) and
+    K10 (``sq`` and ``euclid``
     at 2^20 x 1024, the ring tile and ``rbf`` at 10M x 100, each held, with
     ``torch.cdist`` beside ``euclid`` and the ring tile and the column-sum
     pass apart) on the package under ROOT (a parent's tree, or this one),
     so that two trees are timed in one call on one card."""
-    from dask_ml_tpu_torch.ops import _build, minibatch, pairwise
+    from dask_ml_tpu_torch.ops import _build, lloyd, minibatch, pairwise
 
     log(f"k7k10 yardstick: {minibatch.__file__}, {pairwise.__file__}")
     _build.build(["lloyd", "minibatch", "pairwise"])
     X, truth = make_blobs(torch, MAIN_ROWS, MAIN_D, MBK_K, 0, device)
     torch.cuda.synchronize()
+    mask = torch.ones(MAIN_ROWS, device=device)
+    k1a = [time_ms(torch, lambda: lloyd.lloyd_assign_reduce(X, mask, truth), 10) for _ in range(2)]
+    log(f"k7k10 yardstick: K1a (lloyd_assign_reduce) at {MAIN_ROWS}x{MAIN_D}, k={MBK_K}: "
+        f"{', '.join(f'{v:.4f}' for v in k1a)} ms [{card}]")
+    k7a_entry(torch, X, truth + 0.5, 0, card)
     k7b_entry(torch, X, truth + 0.5, 0, card, plain_epoch=False)
     k10_entries(torch, pairwise, X, {"sq": 0, "euclid": 0, "ring": 0, "rbf": 0}, card)
 
@@ -5288,10 +5556,8 @@ def minibatch_phase(torch, device, card):
     log(f"phase 14: make_blobs {MAIN_ROWS}x{MAIN_D} k={MBK_K} on the card in "
         f"{time.perf_counter() - t0:.2f} s [{card}]")
     est, fit_counts = mbk_main_path(torch, X, truth, card)
-    stream_counts, block0, state0 = mbk_stream(torch, X, est.cluster_centers_.cpu().numpy(),
-                                               card)
-    out = k7_table(torch, X, est, stream_counts, fit_counts, block0, state0, card)
-    del block0
+    stream_counts = mbk_stream(torch, X, est.cluster_centers_.cpu().numpy(), card)
+    out = k7_table(torch, X, est, stream_counts, fit_counts, card)
     launches = pairwise_path(torch, X, device, card)
     launches["rbf"] = spectral_path(torch, X, truth, card)
     near_duplicates(torch, pairwise, X, card)

@@ -3,9 +3,9 @@
 
 The state, the centres and a (2, k) float32 Kahan pair (hi, lo) of each
 centre's cumulative weight mass, lives on the device.  ``partial_fit`` is
-one Sculley step on the block: K1a (``ops/lloyd.py ::
-lloyd_assign_reduce``) makes the weighted sums, masses and inertia in one
-read of the block, and K7a (``ops/minibatch.py :: mbk_update``) the update.
+one Sculley step on the block (``ops/minibatch.py :: mbk_step``): K1a
+makes the weighted sums, masses and inertia in one read of the block, and
+K7a's update runs in K1a's last launch.
 ``fit`` runs epochs of contiguous windows over the padded rows, each
 epoch one launch of K7b (``mbk_epoch``), and reads one scalar an epoch
 (the mean step inertia) for the stopping rule.  The final labels,
@@ -31,8 +31,8 @@ from ..core.mesh import get_device
 from ..core.prng import as_generator
 from ..core.sharded import ShardedRows, shard_rows
 from ..metrics.pairwise import _sq_euclidean_hi
-from ..ops.lloyd import lloyd_assign, lloyd_assign_reduce
-from ..ops.minibatch import mbk_epoch, mbk_update
+from ..ops.lloyd import lloyd_assign
+from ..ops.minibatch import mbk_epoch, mbk_step
 from ..pipeline.staging import ready
 from ..programs import pad_block
 from ..utils import check_max_iter, reweight_rows
@@ -48,9 +48,7 @@ def _mbk_step_fn(centers, counts, xb, mask):
     ``c += (batch_sum − batch_mass·c)/n_c_new``.  ``mask`` is the row
     weight, so ``counts`` holds weight mass, as a Kahan pair: a float32
     accumulator stops growing once a mass passes 2^24."""
-    sums, bmass, inertia = lloyd_assign_reduce(xb, mask, centers)
-    new_centers, new_counts = mbk_update(sums, bmass, centers, counts)
-    return new_centers, new_counts, inertia
+    return mbk_step(centers, counts, xb, mask)
 
 
 def _mbk_epoch_fn(centers, counts, x, mask, start, *, batch_size, n_batches):

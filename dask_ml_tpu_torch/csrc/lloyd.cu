@@ -41,6 +41,10 @@
 //     not fit; each thread takes two rows at a time, both loads issued
 //     before the stores, so two chains overlap (the same bits as one).
 //   - Per-block records, added in block order by finalize_kernel.
+//   - A MiniBatchKMeans step (lloyd_assign_reduce_update) makes the same
+//     launches with finalize_update_kernel last: the same sums, and K7a's
+//     update (csrc/minibatch.cu's Kahan pair and Sculley move) as their
+//     epilogue, one launch fewer than K1a then K7a, with the same bits.
 //
 // assign_kernel (lloyd_assign).  Its largest caller is k-means||: every
 // round is a pass over all n rows against the valid candidate slots so
@@ -68,6 +72,7 @@
 //   - Per-block inertia records, added in block order by finalize_kernel.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -120,6 +125,80 @@ __global__ void finalize_kernel(const float* __restrict__ bpart, int blocks,
     float s = 0.f;
     for (int b = 0; b < blocks; ++b) s += bpart[(size_t)b * rec + e];
     out[e] = s;
+  }
+}
+
+// MiniBatchKMeans' Sculley update (K7a), as csrc/minibatch.cu has it: the
+// Kahan add of the batch mass into (hi, lo), which returns 1/max(mass,
+// FLT_MIN) or 0 where the mass is 0; and c + (bsum - bmass*c)*inv.  Every
+// operation is rounded on its own (no contraction into FMAs).
+__device__ __forceinline__ float kahan_inv(float bmass, float& hi, float& lo) {
+  const float y = __fadd_rn(bmass, lo);
+  const float t = __fadd_rn(hi, y);
+  lo = __fsub_rn(y, __fsub_rn(t, hi));
+  hi = t;
+  const float mass = __fadd_rn(hi, lo);
+  return mass > 0.f ? __fdiv_rn(1.f, fmaxf(mass, FLT_MIN)) : 0.f;
+}
+__device__ __forceinline__ float sculley(float c, float bsum, float bmass, float inv) {
+  return __fadd_rn(c, __fmul_rn(__fsub_rn(bsum, __fmul_rn(bmass, c)), inv));
+}
+
+constexpr int FU = 256;  // elements a chunk of finalize_update_kernel, which has 2*FU threads
+
+// finalize_kernel with K7a's update as its epilogue (one MiniBatchKMeans
+// step: K1a's sums, then the update, in K1a's last launch).  Block chunks
+// of FU elements of the record (k*d sums, k masses, the inertia); thread e
+// < FU sums element e0 + e over the blocks in block order and writes it to
+// out, as finalize_kernel.  Beside it, thread FU + i sums the mass of the
+// chunk's i-th centre over the blocks in the same order (the bits of that
+// mass element's own sum, which another block may take) and takes inv
+// from the old pair; then the thread of sum (c, j) writes new_centers[c][j],
+// and the thread of mass c the new pair.  The two chains of loads run side
+// by side, so the masses add no chain to finalize_kernel's; the sums'
+// order (block order, one add after another) is what bounds the kernel.
+// Everything is read from the old state and written to fresh buffers: no
+// value another block writes is read.
+__global__ void __launch_bounds__(2 * FU) finalize_update_kernel(
+    const float* __restrict__ bpart, int blocks, int k, int d,
+    const float* __restrict__ centers, const float* __restrict__ counts,
+    float* __restrict__ out, float* __restrict__ new_centers, float* __restrict__ new_counts) {
+  __shared__ float inv_s[FU], bm_s[FU];
+  const long long kd = (long long)k * d, rec = kd + k + 1;
+  const int t = threadIdx.x;
+  for (long long e0 = (long long)blockIdx.x * FU; e0 < rec; e0 += (long long)gridDim.x * FU) {
+    const long long e = e0 + t;
+    const long long c0 = e0 / d;  // the chunk's first centre (of its sums)
+    const long long nc = e0 < kd ? (min(e0 + FU, kd) - 1) / d - c0 + 1 : 0;
+    __syncthreads();  // the last chunk's reads of inv_s and bm_s are done
+    // the old state this thread's update reads, loaded ahead of its sum
+    const long long c = t >= FU ? c0 + (t - FU) : e - kd;  // the centre of a mass
+    const bool mass = t >= FU ? t - FU < nc : e >= kd && e < kd + k;
+    float hi = mass ? counts[c] : 0.f, lo = mass ? counts[k + c] : 0.f;
+    const float old = t < FU && e < kd ? centers[e] : 0.f;
+    float sum = 0.f;
+    if (t >= FU) {
+      if (mass) {
+#pragma unroll 32  // the loads in flight together, the adds in block order
+        for (int b = 0; b < blocks; ++b) sum += bpart[(size_t)b * rec + kd + c];
+        inv_s[t - FU] = kahan_inv(sum, hi, lo);
+        bm_s[t - FU] = sum;
+      }
+    } else if (e < rec) {
+#pragma unroll 32
+      for (int b = 0; b < blocks; ++b) sum += bpart[(size_t)b * rec + e];
+    }
+    __syncthreads();
+    if (t >= FU || e >= rec) continue;
+    out[e] = sum;
+    if (e < kd) {
+      const int i = (int)(e / d - c0);
+      new_centers[e] = sculley(old, sum, bm_s[i], inv_s[i]);
+    } else if (mass) {
+      kahan_inv(sum, hi, lo);
+      new_counts[c] = hi;
+      new_counts[k + c] = lo;
+    }
   }
 }
 
@@ -738,6 +817,23 @@ cudaError_t make_plan(long long n, int d, int k, Plan* p) {
   return cudaSuccess;
 }
 
+// The packed centres, then reduce_kernel's block records into scratch (as
+// lloyd_plan sized it); returns the records.
+float* launch_reduce(const void* x, const void* mask, const void* centers, long long n, int d,
+                     int k, const Plan& p, void* scratch, cudaStream_t s) {
+  float* cn = (float*)scratch;
+  float* cp = pack_centers<Narrow::BN>((const float*)centers, k, d, cn, s);
+  float* bpart = cp + (size_t)center_slots(k, Narrow::BN) * d;
+  const float *xf = (const float*)x, *mf = (const float*)mask;
+  if (p.kr == 8)
+    reduce_kernel<8><<<(int)p.blocks, T, (size_t)p.smem, s>>>(xf, mf, cp, cn, n, d, k, p, bpart);
+  else if (p.kr == 16)
+    reduce_kernel<16><<<(int)p.blocks, T, (size_t)p.smem, s>>>(xf, mf, cp, cn, n, d, k, p, bpart);
+  else
+    reduce_kernel<0><<<(int)p.blocks, T, (size_t)p.smem, s>>>(xf, mf, cp, cn, n, d, k, p, bpart);
+  return bpart;
+}
+
 }  // namespace
 
 extern "C" {
@@ -760,19 +856,30 @@ int lloyd_assign_reduce(const void* x, const void* mask, const void* centers,
                         void* scratch, void* out, void* stream) {
   const Plan p = *(const Plan*)plan;
   cudaStream_t s = (cudaStream_t)stream;
-  float* cn = (float*)scratch;
-  float* cp = pack_centers<Narrow::BN>((const float*)centers, k, d, cn, s);
-  float* bpart = cp + (size_t)center_slots(k, Narrow::BN) * d;
-  const float *xf = (const float*)x, *mf = (const float*)mask;
-  if (p.kr == 8)
-    reduce_kernel<8><<<(int)p.blocks, T, (size_t)p.smem, s>>>(xf, mf, cp, cn, n, d, k, p, bpart);
-  else if (p.kr == 16)
-    reduce_kernel<16><<<(int)p.blocks, T, (size_t)p.smem, s>>>(xf, mf, cp, cn, n, d, k, p, bpart);
-  else
-    reduce_kernel<0><<<(int)p.blocks, T, (size_t)p.smem, s>>>(xf, mf, cp, cn, n, d, k, p, bpart);
+  float* bpart = launch_reduce(x, mask, centers, n, d, k, p, scratch, s);
   const long long fb = (p.rec + 255) / 256;
   finalize_kernel<<<(int)(fb < 1024 ? fb : 1024), 256, 0, s>>>(
       bpart, (int)p.blocks, p.rec, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// One MiniBatchKMeans step: lloyd_assign_reduce on the batch x (n,d) with
+// weights mask (n,) against centers (k,d), its last launch also the
+// Sculley update of centers and the Kahan pair counts (2,k) (K7a) into
+// new_centers (k,d) and new_counts (2,k), fresh buffers.  out as
+// lloyd_assign_reduce's (the sums, the masses, the inertia).  plan from
+// lloyd_plan(n, d, k); the bits of lloyd_assign_reduce then K7a.
+int lloyd_assign_reduce_update(const void* x, const void* mask, const void* centers,
+                               const void* counts, long long n, int d, int k, const void* plan,
+                               void* scratch, void* out, void* new_centers, void* new_counts,
+                               void* stream) {
+  const Plan p = *(const Plan*)plan;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* bpart = launch_reduce(x, mask, centers, n, d, k, p, scratch, s);
+  const long long fb = (p.rec + FU - 1) / FU;
+  finalize_update_kernel<<<(int)(fb < 1024 ? fb : 1024), 2 * FU, 0, s>>>(
+      bpart, (int)p.blocks, k, d, (const float*)centers, (const float*)counts, (float*)out,
+      (float*)new_centers, (float*)new_counts);
   return (int)cudaGetLastError();
 }
 

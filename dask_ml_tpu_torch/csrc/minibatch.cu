@@ -1,14 +1,7 @@
-// K7 for Hopper (sm_90a), plain C ABI: MiniBatchKMeans' Sculley update
-// (K7a) and a whole epoch of minibatch steps in one launch (K7b).
-//
-// K7a update_kernel replaces the tail of
-// dask_ml_tpu/cluster/minibatch_kmeans.py:54 _mbk_step_fn, after K1a
-// (lloyd_assign_reduce) has made the batch's weighted sums and masses: the
-// Kahan add of the batch mass into the (hi, lo) pair, inv = 1/max(mass,
-// FLT_MIN) (0 where the mass is 0), and Sculley's move
-// c += (bsum - bmass*c)*inv.  Every operation is rounded as the
-// reference's (no contraction into FMAs), so the plain version gives the
-// same bits.  It moves (k*d) floats: launch-bound.
+// K7b for Hopper (sm_90a), plain C ABI: a whole epoch of MiniBatchKMeans'
+// minibatch steps in one launch.  (K7a, the Sculley update of one step, is
+// the epilogue of K1a's last launch: csrc/lloyd.cu ::
+// lloyd_assign_reduce_update.)
 //
 // K7b epoch_kernel replaces :124 _mbk_epoch_fn, the lax.scan of
 // _mbk_step_fn over contiguous windows: step i takes the bs rows from
@@ -48,7 +41,7 @@
 //     across threads, warps and ranks in a fixed order at the end.
 //   - For k <= 16 and d <= 255 (a unit's rows shrink until the shared
 //     memory fits), where the card can place a 16-CTA cluster; past that
-//     the wrapper steps the epoch through K1a and K7a.
+//     the wrapper steps the epoch through K1a with K7a as its epilogue.
 // The dot products, |x|^2, the sums and the centre norms are split across
 // threads and merged in a fixed order, so K7b no longer repeats K1a's
 // arithmetic bit for bit (the order of those float32 sums differs); it
@@ -70,9 +63,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int T = 256;           // K7a: threads a block
-constexpr int EPB = 4096;        // K7a: elements of the centres a block
-
 // The Kahan add of the batch mass into (hi, lo); returns 1/max(mass, FLT_MIN),
 // or 0 where the mass is 0.
 __device__ __forceinline__ float kahan_inv(float bmass, float& hi, float& lo) {
@@ -87,37 +77,6 @@ __device__ __forceinline__ float kahan_inv(float bmass, float& hi, float& lo) {
 // c + (bsum - bmass*c)*inv, each operation rounded on its own.
 __device__ __forceinline__ float sculley(float c, float bsum, float bmass, float inv) {
   return __fadd_rn(c, __fmul_rn(__fsub_rn(bsum, __fmul_rn(bmass, c)), inv));
-}
-
-// ------------------------------------------------------------------ K7a
-
-// Block b updates elements [b*EPB, (b+1)*EPB) of the centres; it computes
-// the pair and inv of each centre it touches, and writes a centre's pair
-// where that centre's first element lies.
-__global__ void update_kernel(const float* __restrict__ sums, const float* __restrict__ bmass,
-                              const float* __restrict__ centers,
-                              const float* __restrict__ counts, int k, int d,
-                              float* __restrict__ new_centers, float* __restrict__ new_counts) {
-  __shared__ float inv_s[EPB + 2], bm_s[EPB + 2];
-  const long long e0 = (long long)blockIdx.x * EPB;
-  const long long kd = (long long)k * d;
-  const long long e1 = e0 + EPB < kd ? e0 + EPB : kd;
-  const int c0 = (int)(e0 / d), c1 = (int)((e1 - 1) / d);
-  for (int c = c0 + threadIdx.x; c <= c1; c += blockDim.x) {
-    float hi = counts[c], lo = counts[k + c];
-    const float b = bmass[c];
-    inv_s[c - c0] = kahan_inv(b, hi, lo);
-    bm_s[c - c0] = b;
-    if ((long long)c * d >= e0) {
-      new_counts[c] = hi;
-      new_counts[k + c] = lo;
-    }
-  }
-  __syncthreads();
-  for (long long e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
-    const int c = (int)(e / d);
-    new_centers[e] = sculley(centers[e], sums[e], bm_s[c - c0], inv_s[c - c0]);
-  }
 }
 
 // ------------------------------------------------------------------ K7b
@@ -586,18 +545,6 @@ extern "C" {
 enum { MBK_NOT_TAKEN = -1 };  // mbk_epoch: not a CUDA error code
 
 const char* minibatch_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
-
-// sums (k, d), bmass (k,): K1a's outputs; centers (k, d), counts (2, k):
-// the state.  Writes new_centers (k, d) and new_counts (2, k).
-int mbk_update(const void* sums, const void* bmass, const void* centers, const void* counts,
-               int k, int d, void* new_centers, void* new_counts, void* stream) {
-  const long long kd = (long long)k * d;
-  const long long blocks = (kd + EPB - 1) / EPB;
-  update_kernel<<<(unsigned)blocks, T, 0, (cudaStream_t)stream>>>(
-      (const float*)sums, (const float*)bmass, (const float*)centers, (const float*)counts, k,
-      d, (float*)new_centers, (float*)new_counts);
-  return (int)cudaGetLastError();
-}
 
 // x (n, d) padded rows and mask (n,), 16-byte aligned x; centers (k, d),
 // counts (2, k).  One epoch of n_batches windows of bs rows from start.

@@ -35,13 +35,31 @@
 //     timing.  Minibatch views are strided: minibatch i of sgd_epoch is the
 //     rows i::n_mb of the padded block (the reference's free reshape), read
 //     where it lies (row strides for x, y and the mask), never copied.
-//   - K = 1, d <= 256 (warp_record): a warp takes U rows at a time (U = 8,
-//     or 4 where d > 64), its lanes over the features: lane l reads x_ij for
-//     j = l, l + 32, ... into registers, each load of a row one coalesced
-//     line, the U rows' loads issued before any use.  The dot (an xor tree)
-//     and the gradient's accumulate use those registers; the U rows' loss
-//     terms run side by side, one lane a row, and each mask*dl is broadcast
-//     by one shuffle.
+//   - K = 1, d <= 256: a warp takes U rows at a time (U = 8, or 4 where
+//     d > 64), its lanes over the features: lane l holds x_ij for j = l,
+//     l + 32, ... in registers.  The dot (an xor tree) and the gradient's
+//     accumulate use those registers; the U rows' loss terms run side by
+//     side, one lane a row, and each mask*dl is broadcast by one shuffle.
+//     In an epoch (warp_record) each load of a row is one coalesced line
+//     from global memory, the U rows' loads issued before any use.
+//   - A step at K = 1, d <= 256 (step_kernel) is one launch.  A
+//     persistent grid, one block a SM; block b takes tiles b, b + nb, ...
+//     of R = 128 rows (32 past d = 64) through a ring of four shared-memory
+//     stages, the next three in flight: x by one bulk copy (TMA) a tile
+//     where the tile is one run of bytes, by 16-byte cp.async where a
+//     minibatch view strides its rows (a bulk copy a row took twice as
+//     long), by 4-byte cp.async where rows are off a 16-byte boundary; y
+//     and the mask by cp.async.  The record stays in registers across the
+//     tiles.  Then the finish, in the same launch: each block writes its
+//     record and takes a ticket (a release fence, then atomicInc, which the
+//     last block wraps back to 0); the last block copies the records into
+//     its shared memory and sums them in a fixed order, and applies the
+//     update with the state, eta and coef read at its start.  Measured on
+//     an H100 (sgd_variants.py --k1): the ring alone streams 2^20 x 64 in
+//     ~93 us (~3.0 TB/s); the finish takes ~3.5 us after the last block's
+//     rows (the ticket ~1.3, the records' copy and sums ~2); the blocks end
+//     their rows up to ~6 us apart; and the stages must start on a 128-byte
+//     boundary (16 bytes of static shared memory ahead of them cost ~4%).
 //   - K in 2..16, d <= 256 (tc_record): the two class products on TF32
 //     tensor cores, mma.sync m16n8k8 with a hi/lo 3-pass split (lo*hi +
 //     hi*lo + hi*hi, the split of K2-MN, csrc/multiclass.cu), at float32
@@ -65,13 +83,13 @@
 //     shared memory, a warp per class's dot, a thread per gradient
 //     element), with its accumulators in shared memory where they fit and
 //     in its record in global memory beyond.
-//   - A step (sgd_step): the block kernel, then finalize_kernel, one block,
-//     which sums the records (a warp an element, lanes over the blocks,
-//     where the elements are few) and applies the penalty, the schedule and
-//     the update.  On the tensor-core path a step is an epoch of one
-//     minibatch instead: its K + d*K sums spread over the blocks, where
-//     one block summing hundreds of records of K + d*K floats took longer
-//     than the products.
+//   - A step on the row path (sgd_step): the block kernel, then
+//     finalize_kernel, one block, which sums the records (a warp an
+//     element, lanes over the blocks, where the elements are few) and
+//     applies the penalty, the schedule and the update.  On the tensor-core
+//     path a step is an epoch of one minibatch instead: its K + d*K sums
+//     spread over the blocks, where one block summing hundreds of records
+//     of K + d*K floats took longer than the products.
 //   - An epoch (sgd_epoch_run): all n_mb steps in one cooperative launch of
 //     epoch_kernel, every block resident.  A step: each block writes its
 //     record over its share of minibatch i (the same cores); a grid sync;
@@ -104,11 +122,13 @@ constexpr int TC_MAX_D = 256;                    // tensor-core path: d <= 256, 
 constexpr int RED = 20;                          // floats a warp of tc_record's block sums
 
 enum { ALPHA = 0, ETA0, POWER_T, T0, L1_RATIO, EPSILON, ETA_SCALE };
-enum { WARP_PATH = 0, ROW_PATH = 1, TC_PATH = 2 };
+enum { WARP_PATH = 0, ROW_PATH = 1, TC_PATH = 2, STEP_PATH = 3 };
 
 struct Plan {
-  long long path;         // WARP_PATH, ROW_PATH or TC_PATH
-  long long nj;           // warp path: feature slices a lane; tc path: n-tiles of 8 classes
+  long long path;         // WARP_PATH (an epoch at K = 1), STEP_PATH (a step at K = 1), ROW_PATH
+                          // or TC_PATH
+  long long nj;           // warp and step paths: feature slices a lane; tc path: n-tiles of 8
+                          // classes
   long long wide;         // tc path: d > 64 (a warp owns up to 4 gradient blocks, not 1)
   long long blocks;       // blocks of the step (or epoch) kernel
   long long smem;         // dynamic shared memory, bytes
@@ -313,18 +333,6 @@ __device__ __forceinline__ void warp_record(
   }
 }
 
-template <typename L, int NJ, bool GRAD>
-__global__ void __launch_bounds__(T) warp_kernel(
-    const float* __restrict__ x, long long xs, const float* __restrict__ y, long long ys,
-    const float* __restrict__ mask, long long ms, const float* __restrict__ coef,
-    const float* __restrict__ intercept, const float* __restrict__ hyper, long long B, int d,
-    int K, float* __restrict__ bpart) {
-  extern __shared__ __align__(16) float sm[];
-  warp_record<L, NJ, GRAD, false>(x, xs, y, ys, mask, ms, coef, intercept, hyper, B, d, K,
-                                  bpart + (long long)blockIdx.x * (2 + K + d * K), blockIdx.x,
-                                  gridDim.x, sm);
-}
-
 // -------------------------------------------------------- wide: row path
 
 // Sum of v over the block, in a fixed order; every thread gets it.  red
@@ -480,6 +488,45 @@ __device__ __forceinline__ void cp_async_wait_prior() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// waits until at most N of this thread's newest groups of copies are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The mbarriers and bulk copies (TMA) of the K = 1 step's ring, as K5's
+// ring path has them (csrc/cohort.cu).
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+// orders this thread's memory operations, and those its block's barrier
+// made visible to it, against its later ones, for the whole card
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+// waits for the phase of the given parity; a copy that never lands traps
+// (the launch fails) after ~2^24 polls instead of hanging
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  for (unsigned spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (spin == (1u << 24)) __trap();
+  }
 }
 
 // tc_record's shared memory, in floats: coef's B fragments (ks k-steps of
@@ -795,6 +842,297 @@ __device__ __forceinline__ float stepped(float c, float g0, int penalty, float a
   return c - eta * g;
 }
 
+// ------------------------------------------- K = 1: the step in one launch
+
+constexpr int SK_STAGES = 4;  // tiles in the ring: one computed, three in flight
+constexpr int SK_PER_SM = 1;  // blocks a SM of the persistent grid
+constexpr int ST = 256;       // threads a block
+constexpr int SWARPS = ST / 32;
+enum { X_TILE = 0, X_ROWS = 1, X_FLOATS = 2 };  // how x's rows are staged
+
+// The ring's shared memory, in floats: SK_STAGES stages of x (R rows at
+// stride ds, the row's d floats padded to 16 bytes; in the last block,
+// then, the blocks' records), of y (R) and of the mask (R); SWARPS records
+// of 3 + d floats (the block's sums; in the last block, then, the totals);
+// the stages' mbarriers; the last block's flag.  R: 128 rows at d <= 64,
+// 32 past (a stage of at most 32 KB).  The step kernel has no static shared
+// memory, so that the stages start on a 128-byte boundary.
+struct StepLayout {
+  int R, ds, x, y, m, red, bar, flag, total;
+};
+__host__ __device__ inline StepLayout step_layout(int d) {
+  StepLayout s;
+  s.R = d <= 64 ? 128 : 32;
+  s.ds = (d + 3) & ~3;
+  int off = 0;
+  s.x = off;
+  off += SK_STAGES * s.R * s.ds;
+  s.y = off;
+  off += SK_STAGES * s.R;
+  s.m = off;
+  off += SK_STAGES * s.R;
+  s.red = off;
+  off += SWARPS * (3 + d);
+  s.bar = (off + 1) & ~1;  // 8-byte mbarriers
+  s.flag = s.bar + 2 * SK_STAGES;
+  s.total = s.flag + 1;
+  return s;
+}
+
+struct StepArgs {
+  const float* x;
+  long long xs;
+  const float* y;
+  long long ys;
+  const float* mask;
+  long long ms;
+  float* coef;
+  float* intercept;
+  float* t;
+  const float* hyper;
+  long long B;
+  int d, penalty, schedule, fit_intercept;
+  int xmode;         // X_TILE: a tile is one run of bytes; X_ROWS: 16-byte rows; X_FLOATS
+  float* part;       // gridDim.x records of 3 + d floats, (3 + d) rounded up to 4 apart
+  unsigned* ticket;  // 0 between launches; counts the blocks whose record is written
+  float* out;        // (mean loss, sum of the mask)
+};
+
+// The copies of tile `tile` (rows tile*R ..) into stage st: x by one bulk
+// copy on the stage's mbarrier where the tile is one run of bytes, by
+// 16-byte cp.async where a strided view's rows are 16-byte aligned, else
+// by 4-byte cp.async; y and the mask by 4-byte cp.async.
+__device__ __forceinline__ void step_issue(const StepArgs& a, const StepLayout& s, float* sm,
+                                           long long tile, int st) {
+  const int d = a.d, R = s.R;
+  const long long r0 = tile * R;
+  const int nrows = (int)min((long long)R, a.B - r0);
+  float* xs = sm + s.x + st * R * s.ds;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + s.bar) + st;
+  if (a.xmode == X_TILE) {
+    if (threadIdx.x == 0) {
+      mbar_expect(bar, (unsigned)(nrows * d * 4));
+      bulk_copy(xs, a.x + r0 * d, (unsigned)(nrows * d * 4), bar);
+    }
+  } else if (a.xmode == X_ROWS) {
+    const int q4 = d / 4;
+    for (int e = threadIdx.x; e < nrows * q4; e += ST) {
+      const int r = e / q4, j = 4 * (e - r * q4);
+      cp_async16(xs + r * s.ds + j, a.x + (r0 + r) * a.xs + j);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nrows * d; e += ST) {
+      const int r = e / d, j = e - r * d;
+      cp_async4(xs + r * s.ds + j, a.x + (r0 + r) * a.xs + j);
+    }
+  }
+  for (int r = threadIdx.x; r < nrows; r += ST) {
+    cp_async4(sm + s.y + st * R + r, a.y + (r0 + r) * a.ys);
+    cp_async4(sm + s.m + st * R + r, a.mask + (r0 + r) * a.ms);
+  }
+}
+
+// One step (GRAD) or the loss alone at K = 1, d <= 256, in one launch.  A
+// persistent grid (SK_PER_SM blocks a SM); block b takes tiles b, b + nb,
+// ... through a ring of SK_STAGES stages, the next ones in flight while one is computed,
+// one barrier a tile.  A warp takes groups of U rows of the staged tile as
+// warp_record does (lane l the features l + 32 i, the dot by an xor tree,
+// lane u < U the loss terms of row u, mask*dl broadcast by a shuffle a
+// row); the record (loss, count, gint, gcoef) stays in registers across
+// the tiles and is summed over the block's warps in warp order.  Then the
+// finish, inside the launch: each block writes its record, and its thread
+// 0, after the block's barrier, fences and takes a ticket (atomicInc wraps
+// it back to 0 at the last block); the last block sums the records in a
+// fixed order and applies the penalty, the schedule and the update as
+// finalize_kernel.  No float atomics: a shape's bits do not depend on
+// timing.
+template <typename L, int NJ, bool GRAD>
+__global__ void __launch_bounds__(ST, SK_PER_SM) step_kernel(StepArgs a) {
+  constexpr int U = rows_a_group(NJ);
+  extern __shared__ __align__(128) float sm[];
+  const int d = a.d, rec = 3 + d, used = GRAD ? rec : 2;
+  const StepLayout s = step_layout(d);
+  const int R = s.R, DS = s.ds;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool active = lane < U;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + s.bar);
+  if (threadIdx.x < SK_STAGES) mbar_init(bars + threadIdx.x);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+
+  float cf[NJ], acc[NJ];
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    const int j = lane + 32 * i;
+    cf[i] = j < d ? a.coef[j] : 0.f;
+    acc[i] = 0.f;
+  }
+  const float b_own = a.intercept[0], eps = a.hyper[EPSILON];
+  float loss_own = 0.f, gint_own = 0.f, cnt_own = 0.f;
+  // what the last block's update reads, read now (every block reads the
+  // state before its ticket; the last block writes it after every ticket)
+  float tv = 0.f, eta = 0.f, alpha = 0.f, l1r = 0.f, c_own = 0.f;
+  if (GRAD) {
+    tv = *a.t;
+    alpha = a.hyper[ALPHA];
+    l1r = a.hyper[L1_RATIO];
+    eta = eta_at(a.schedule, a.hyper, tv);
+    if ((int)threadIdx.x < d) c_own = a.coef[threadIdx.x];
+  }
+  __syncthreads();  // the mbarriers are initialized
+
+  const long long tiles = (a.B + R - 1) / R;
+  // local tile n is tile first + n*step
+  const long long first = blockIdx.x, step = gridDim.x;
+  const long long nloc = (tiles - 1 - blockIdx.x) / gridDim.x + 1;
+#pragma unroll
+  for (int p = 0; p < SK_STAGES - 1; ++p) {
+    if (p < nloc) step_issue(a, s, sm, first + p * step, p);
+    cp_async_commit();
+  }
+  for (long long n = 0; n < nloc; ++n) {
+    cp_async_wait<SK_STAGES - 2>();
+    __syncthreads();  // tile n's cp.async copies, every thread's, have landed; tile n - 1's
+                      // stage is free
+    if (n + SK_STAGES - 1 < nloc)
+      step_issue(a, s, sm, first + (n + SK_STAGES - 1) * step,
+                 (int)((n + SK_STAGES - 1) % SK_STAGES));
+    cp_async_commit();
+    const int st = (int)(n % SK_STAGES);
+    if (a.xmode == X_TILE) mbar_wait(bars + st, (unsigned)((n / SK_STAGES) & 1));
+    const int nrows = (int)min((long long)R, a.B - (first + n * step) * R);
+    const float* xt = sm + s.x + st * R * DS;
+    const float* yt = sm + s.y + st * R;
+    const float* mt = sm + s.m + st * R;
+    for (int g = warp; g * U < nrows; g += SWARPS) {
+      float xv[U][NJ], p[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = g * U + u;
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < NJ; ++i) {
+          const int j = lane + 32 * i;
+          xv[u][i] = r < nrows && j < d ? xt[r * DS + j] : 0.f;
+          sum = fmaf(xv[u][i], cf[i], sum);
+        }
+        p[u] = sum;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) p[u] += __shfl_xor_sync(FULL, p[u], off);
+      }
+      float m = 0.f;  // the margin of row `lane` of the group
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (u == lane) m = p[u];
+      float w = 0.f;
+      if (active) {
+        const int r = g * U + lane;
+        const bool row_ok = r < nrows;
+        const float m_own = row_ok ? mt[r] : 0.f, y_own = row_ok ? yt[r] : 0.f;
+        const Terms tr = L::terms(m + b_own, y_own, eps);
+        loss_own += m_own * tr.l;
+        w = m_own * tr.dl;
+        gint_own += w;
+        cnt_own += m_own;
+      }
+      if (GRAD) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float wk = __shfl_sync(FULL, w, u);
+#pragma unroll
+          for (int i = 0; i < NJ; ++i) acc[i] = fmaf(wk, xv[u][i], acc[i]);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  // the block's record: its warps' records summed in warp order
+  float* red = sm + s.red;
+  float* mine = red + warp * rec;
+  const float l = warp_sum(loss_own), c = warp_sum(cnt_own);
+  if (lane == 0) {
+    mine[0] = l;
+    mine[1] = c;
+  }
+  if (GRAD) {
+    gint_own = warp_sum(gint_own);
+    if (lane == 0) mine[2] = gint_own;
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+      const int j = lane + 32 * i;
+      if (j < d) mine[3 + j] = acc[i];
+    }
+  }
+  __syncthreads();
+  const int recp = (rec + 3) & ~3;  // records 16 bytes apart
+  float* part = a.part + (long long)blockIdx.x * recp;
+  for (int e = threadIdx.x; e < used; e += ST) {
+    float v = 0.f;
+    for (int w = 0; w < SWARPS; ++w) v += red[w * rec + e];
+    part[e] = v;
+  }
+  __syncthreads();  // the block's record is written; its ticket, with a release fence
+  int* flag = reinterpret_cast<int*>(sm + s.flag);
+  if (threadIdx.x == 0) {
+    fence_acq_rel_gpu();
+    *flag = atomicInc(a.ticket, gridDim.x - 1) == gridDim.x - 1;
+    if (*flag) fence_acq_rel_gpu();
+  }
+  __syncthreads();
+  if (!*flag) return;
+
+  // The last block: the records into the stages' shared memory (16-byte
+  // copies through L2), CB records at a time.  Where a record has at most
+  // ST/2 elements, G = ST/used groups of threads each sum a contiguous range
+  // of a chunk's records, in block order, and the groups' sums are added in
+  // group order; else thread e sums element e (and e + ST) over the blocks.
+  float* buf = sm + s.x;
+  const int CB = SK_STAGES * R * DS / recp, nb = (int)gridDim.x, t = threadIdx.x;
+  const int G = used <= ST / 2 ? ST / used : 1, g = t / used, e = t - g * used;
+  float tot0 = 0.f, tot1 = 0.f;
+  for (int b0 = 0; b0 < nb; b0 += CB) {
+    const int nbc = min(CB, nb - b0);
+    const float* src = a.part + (long long)b0 * recp;
+    for (int q = t; q < nbc * recp / 4; q += ST) cp_async16(buf + 4 * q, src + 4 * q);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    if (g < G) {
+      for (int b = g * nbc / G; b < (g + 1) * nbc / G; ++b) {
+        tot0 += buf[b * recp + e];
+        if (e + ST < used) tot1 += buf[b * recp + e + ST];
+      }
+    }
+    __syncthreads();  // buf is refilled by the next chunk
+  }
+  if (g < G) {
+    buf[g * used + e] = tot0;
+    if (e + ST < used) buf[e + ST] = tot1;
+  }
+  __syncthreads();
+  for (int i = t; i < used; i += ST) {
+    float v = 0.f;
+    for (int h = 0; h < G; ++h) v += buf[h * used + i];
+    red[i] = v;
+  }
+  __syncthreads();
+  const float cnt = red[1];
+  const float count = cnt > 0.f ? cnt : 1.f;
+  if (t == 0) {
+    a.out[0] = red[0] / count;
+    a.out[1] = cnt;
+  }
+  if (!GRAD) return;
+  if (t < d) a.coef[t] = stepped(c_own, red[3 + t] / count, a.penalty, alpha, l1r, eta);
+  if (t == 0) {
+    if (a.fit_intercept) a.intercept[0] = b_own - eta * (red[2] / count);
+    *a.t = tv + 1.f;
+  }
+}
+
 // One block.  Sums the block records: (mean loss, count) into out; with
 // grad, the gradient, its penalty, eta and the update of coef, intercept
 // and t in place (t read by every thread before it is written).  An
@@ -953,8 +1291,8 @@ __global__ void __launch_bounds__(T, PATH == TC_PATH ? 3 : 4) epoch_kernel(Epoch
 
 template <typename L, bool GRAD>
 const void* step_fn(const Plan& p) {
-  if (p.path == WARP_PATH)
-    return p.nj == 2 ? (const void*)warp_kernel<L, 2, GRAD> : (const void*)warp_kernel<L, 8, GRAD>;
+  if (p.path == STEP_PATH)
+    return p.nj == 2 ? (const void*)step_kernel<L, 2, GRAD> : (const void*)step_kernel<L, 8, GRAD>;
   if (p.path == ROW_PATH)
     return p.sacc ? (const void*)row_kernel<L, GRAD, true> : (const void*)row_kernel<L, GRAD, false>;
   if constexpr (L::kClassifier && !GRAD)
@@ -1028,7 +1366,13 @@ int sgd_plan(int loss, long long B, int d, int K, int epoch, void* plan) {
   p->wide = 0;
   p->sacc = 0;
   long long units;
-  if (K == 1 && d <= 256) {
+  if (K == 1 && d <= 256 && !epoch) {
+    p->path = STEP_PATH;
+    p->nj = d <= 64 ? 2 : 8;
+    const StepLayout s = step_layout(d);
+    p->smem = (long long)sizeof(float) * s.total;
+    units = (B + s.R - 1) / s.R;
+  } else if (K == 1 && d <= 256) {
     p->path = WARP_PATH;
     p->nj = d <= 64 ? 2 : 8;
     p->smem = (long long)sizeof(float) * WARPS * rec;
@@ -1058,8 +1402,11 @@ int sgd_plan(int loss, long long B, int d, int K, int epoch, void* plan) {
       err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem);
       if (err != cudaSuccess) return (int)err;
     }
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[kind], fn, T, (size_t)p->smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[kind], fn,
+                                                        p->path == STEP_PATH ? ST : T,
+                                                        (size_t)p->smem);
     if (err != cudaSuccess) return (int)err;
+    if (p->path == STEP_PATH && per_sm[kind] > SK_PER_SM) per_sm[kind] = SK_PER_SM;
   }
   // a cooperative launch (the epoch, and the step on the tensor-core path)
   // needs every block resident; the other launches take at least one a SM
@@ -1075,7 +1422,8 @@ int sgd_plan(int loss, long long B, int d, int K, int epoch, void* plan) {
   const int both = per_sm[0] < per_sm[1] ? per_sm[0] : per_sm[1];
   p->blocks = grid(epoch ? per_sm[2] : (coop ? per_sm[1] : both));
   p->loss_blocks = epoch ? p->blocks : grid(coop ? per_sm[0] : both);
-  p->scratch = (p->blocks > p->loss_blocks ? p->blocks : p->loss_blocks) * rec;
+  const long long stride = p->path == STEP_PATH ? (rec + 3) & ~3ll : rec;  // a record's floats
+  p->scratch = (p->blocks > p->loss_blocks ? p->blocks : p->loss_blocks) * stride;
   return (int)cudaSuccess;
 }
 
@@ -1090,13 +1438,16 @@ int sgd_epoch_run(const void* plan, int loss, int penalty, int schedule, int fit
 // (elements) and contiguous rows; coef (d, K), intercept (K,), t (), hyper
 // (7,) and out (2,) float32, contiguous, on one device.  With grad: coef,
 // intercept (if fit_intercept) and t updated in place.  out = (mean loss,
-// sum of the mask).  scratch: plan[6] floats.  A step on the tensor-core
-// path is an epoch of one minibatch (one cooperative launch).
+// sum of the mask).  scratch: plan[6] floats.  ticket: one unsigned, 0 (the
+// step path leaves it 0).  At K = 1, d <= 256 the step (or the loss) is
+// one launch of step_kernel; on the tensor-core path a step is an epoch of
+// one minibatch (one cooperative launch); elsewhere the block kernel, then
+// finalize_kernel.
 
 int sgd_step(const void* plan, int loss, int grad, int penalty, int schedule, int fit_intercept,
              const void* x, long long xs, const void* y, long long ys, const void* mask,
              long long ms, void* coef, void* intercept, void* t, const void* hyper, long long B,
-             int d, int K, void* scratch, void* out, void* stream) {
+             int d, int K, void* scratch, void* ticket, void* out, void* stream) {
   const Plan p = *(const Plan*)plan;
   if (grad && p.path == TC_PATH)
     return sgd_epoch_run(plan, loss, penalty, schedule, fit_intercept, x, xs, 0, y, ys, 0, mask,
@@ -1105,6 +1456,32 @@ int sgd_step(const void* plan, int loss, int grad, int penalty, int schedule, in
   const void* fn = select_kernel(loss, p, grad != 0);
   if (fn == nullptr || penalty < 0 || penalty > 3 || schedule < 0 || schedule > 3)
     return (int)cudaErrorInvalidValue;
+  if (p.path == STEP_PATH) {
+    const bool rows16 = (d & 3) == 0 && (xs & 3) == 0 && ((uintptr_t)x & 15) == 0;
+    StepArgs a;
+    a.x = (const float*)x;
+    a.xs = xs;
+    a.y = (const float*)y;
+    a.ys = ys;
+    a.mask = (const float*)mask;
+    a.ms = ms;
+    a.coef = (float*)coef;
+    a.intercept = (float*)intercept;
+    a.t = (float*)t;
+    a.hyper = (const float*)hyper;
+    a.B = B;
+    a.d = d;
+    a.penalty = penalty;
+    a.schedule = schedule;
+    a.fit_intercept = fit_intercept;
+    a.xmode = !rows16 ? X_FLOATS : xs == d ? X_TILE : X_ROWS;
+    a.part = (float*)scratch;
+    a.ticket = (unsigned*)ticket;
+    a.out = (float*)out;
+    void* args[] = {(void*)&a};
+    return (int)cudaLaunchKernel(fn, dim3((unsigned)(grad ? p.blocks : p.loss_blocks)), dim3(ST),
+                                 args, (size_t)p.smem, s);
+  }
   const float *xf = (const float*)x, *yf = (const float*)y, *mf = (const float*)mask;
   const float *cf = (const float*)coef, *bf = (const float*)intercept, *hf = (const float*)hyper;
   float* part = (float*)scratch;

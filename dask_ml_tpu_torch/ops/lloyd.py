@@ -37,6 +37,9 @@ def _load():
         lib.lloyd_assign_reduce.argtypes = [_VP, _VP, _VP, _LL, _INT, _INT,
                                             _VP, _VP, _VP, _VP]
         lib.lloyd_assign_reduce.restype = _INT
+        lib.lloyd_assign_reduce_update.argtypes = [_VP, _VP, _VP, _VP, _LL, _INT, _INT, _VP,
+                                                   _VP, _VP, _VP, _VP, _VP]
+        lib.lloyd_assign_reduce_update.restype = _INT
         lib.lloyd_assign.argtypes = [_VP, _VP, _VP, _VP, _LL, _INT, _INT,
                                      _VP, _VP, _VP, _VP, _VP, _VP]
         lib.lloyd_assign.restype = _INT

@@ -1,31 +1,35 @@
-"""K7: MiniBatchKMeans' Sculley update (K7a ``mbk_update``) and a whole
-epoch of minibatch steps (K7b ``mbk_epoch``).
+"""K7: MiniBatchKMeans' step (K1a with K7a, the Sculley update, as the
+epilogue of its last launch: ``mbk_step``) and a whole epoch of minibatch
+steps (K7b ``mbk_epoch``).
 
 K7a replaces the tail of ``dask_ml_tpu/cluster/minibatch_kmeans.py ::
 _mbk_step_fn`` (the Kahan add of the batch mass into the (2, k) (hi, lo)
 pair and Sculley's move ``c += (bsum − bmass·c)·inv``), after K1a
-(``ops/lloyd.py :: lloyd_assign_reduce``) has made the batch's sums.  K7b
-replaces ``_mbk_epoch_fn``, the ``lax.scan`` of steps over contiguous
-windows.  The CUDA source is ``csrc/minibatch.cu``.  K7a moves k·d floats:
-launch-bound.  K7b's steps are a serial chain (each needs the last one's
-centres), so its floor is the latency of a step, not the epoch's 6.09 ms of
-bytes at 100M x 50.  Its design: one 16-CTA thread-block cluster runs
-the epoch, a CTA a sixteenth of each window and the owner of one centre,
-the next windows' rows in flight; the assign takes two rows a
-thread and four threads a pair; the reduce a column a lane; the step's
-exchange pushes each partial into its centre's owner CTA and each moved
-centre into every CTA (``st.async`` into distributed shared memory,
+(``ops/lloyd.py :: lloyd_assign_reduce``) has made the batch's sums.  It
+moves k·d floats, too few for a launch of its own: it runs in K1a's last
+launch (``csrc/lloyd.cu :: lloyd_assign_reduce_update``: the thread that
+sums element (c, j) over K1a's block records moves it), with the bits of
+K1a followed by K7a's update.  K7b replaces
+``_mbk_epoch_fn``, the ``lax.scan`` of steps over contiguous windows; its
+CUDA source is ``csrc/minibatch.cu``.  K7b's steps are a serial chain (each
+needs the last one's centres), so its floor is the latency of a step, not
+the epoch's 6.09 ms of bytes at 100M x 50.  Its design: one 16-CTA
+thread-block cluster runs the epoch, a CTA a sixteenth of each window and
+the owner of one centre, the next windows' rows in flight; the assign takes
+two rows a thread and four threads a pair; the reduce a column a lane; the
+step's exchange pushes each partial into its centre's owner CTA and each
+moved centre into every CTA (``st.async`` into distributed shared memory,
 signalled on mbarriers), with no cluster barrier.  What still holds it
 back: a step is still a chain of four phases of shared-memory traffic,
 shuffles and barriers on 16 SMs.
 
 Each wrapper runs its plain PyTorch version (``*_ref``) on a CPU tensor and
-launches its kernel on a CUDA tensor, or raises; each counts its launches
+launches its kernels on a CUDA tensor, or raises; each counts its launches
 in ``<wrapper>.launches``.  K7b takes k ≤ 16 centres and d ≤ 255 features
 on a card that can place a 16-CTA cluster; past that ``mbk_epoch`` steps
-the epoch through K1a and K7a, a launch of each a window
-(``mbk_epoch.stepped`` counts such epochs).  The state is
-never updated in place: each call returns new centres and a new pair.
+the epoch through ``mbk_step``, a call a window (``mbk_epoch.stepped``
+counts such epochs).  The state is never updated in place: each call
+returns new centres and a new pair.
 """
 
 from __future__ import annotations
@@ -34,8 +38,8 @@ import ctypes
 
 import torch
 
-from . import _build
-from .lloyd import lloyd_assign_reduce, lloyd_assign_reduce_ref
+from . import _build, lloyd
+from .lloyd import lloyd_assign_reduce_ref
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _NOT_TAKEN = -1  # mbk_epoch's code where K7b does not take the shape
@@ -46,8 +50,6 @@ def _load():
     global _lib
     if _lib is None:
         lib = _build.load("minibatch")
-        lib.mbk_update.argtypes = [_VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP]
-        lib.mbk_update.restype = _INT
         lib.mbk_epoch.argtypes = [_VP, _VP, _LL, _INT, _INT, _VP, _VP, _LL, _LL, _LL, _VP,
                                   _VP, _VP, _VP]
         lib.mbk_epoch.restype = _INT
@@ -100,39 +102,42 @@ def mbk_update_ref(sums, bmass, centers, counts):
     return new_centers, torch.stack([hi, lo])
 
 
-def mbk_update(sums, bmass, centers, counts):
-    """The Sculley update of ``centers`` (k, d) and the mass pair ``counts``
-    (2, k) by one batch's weighted sums ``sums`` (k, d) and masses
-    ``bmass`` (k,) (K1a's outputs); returns ``(new_centers, new_counts)``."""
-    _float32(sums=sums, bmass=bmass, centers=centers, counts=counts)
-    _check_state(centers, counts)
-    k, d = centers.shape
-    if tuple(sums.shape) != (k, d) or tuple(bmass.shape) != (k,):
-        raise ValueError(f"sums must be ({k}, {d}) and bmass ({k},)")
-    for t in (sums, bmass, counts):
-        if t.device != centers.device:
-            raise ValueError(f"every operand must be on {centers.device}")
-    if centers.device.type == "cpu":
-        return mbk_update_ref(sums, bmass, centers, counts)
-    if centers.device.type != "cuda":
-        raise ValueError(f"mbk_update runs on cuda or cpu, not {centers.device}")
-    lib = _load()
-    with torch.cuda.device(centers.device):
-        new_centers = torch.empty_like(centers)
-        new_counts = torch.empty_like(counts)
-        err = lib.mbk_update(sums.data_ptr(), bmass.data_ptr(), centers.data_ptr(),
-                             counts.data_ptr(), k, d, new_centers.data_ptr(),
-                             new_counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _check(lib, err, "mbk_update")
-    mbk_update.launches += 1
-    return new_centers, new_counts
-
-
 def mbk_step_ref(centers, counts, xb, mask):
-    """Plain version of one Sculley step: K1a's plain version, then K7a's."""
+    """Plain version of :func:`mbk_step`: K1a's plain version, then K7a's."""
     sums, bmass, inertia = lloyd_assign_reduce_ref(xb, mask, centers)
     new_centers, new_counts = mbk_update_ref(sums, bmass, centers, counts)
     return new_centers, new_counts, inertia
+
+
+def mbk_step(centers, counts, xb, mask):
+    """One Sculley step of the state ``centers`` (k, d) and ``counts`` (2, k)
+    on the batch ``xb`` (n, d) weighted by ``mask`` (n,): K1a's weighted
+    sums, masses and inertia, with K7a's update in K1a's last launch;
+    returns ``(new_centers, new_counts, inertia)``.  On CUDA ``xb`` must
+    start on a 16-byte boundary."""
+    _float32(centers=centers, counts=counts)
+    _check_state(centers, counts)
+    if counts.device != centers.device:
+        raise ValueError(f"counts is on {counts.device}, centers on {centers.device}")
+    if xb.device.type == "cpu":
+        return mbk_step_ref(centers, counts, xb, mask)
+    n, d, k = lloyd._validate(xb, mask, centers)
+    if xb.device.type != "cuda":
+        raise ValueError(f"mbk_step runs on cuda or cpu, not {xb.device}")
+    lloyd._check_aligned(xb)
+    lib = lloyd._load()
+    with torch.cuda.device(xb.device):
+        out = torch.empty(k * d + k + 1, dtype=torch.float32, device=xb.device)
+        new_centers = torch.empty_like(centers)
+        new_counts = torch.empty_like(counts)
+        plan, scratch = lloyd._plan(lib, "lloyd_plan", 8, n, d, k, xb.device)
+        err = lib.lloyd_assign_reduce_update(
+            xb.data_ptr(), mask.data_ptr(), centers.data_ptr(), counts.data_ptr(), n, d, k,
+            plan, scratch.data_ptr(), out.data_ptr(), new_centers.data_ptr(),
+            new_counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    lloyd._check(lib, err, "lloyd_assign_reduce_update")
+    mbk_step.launches += 1
+    return new_centers, new_counts, out[-1]
 
 
 def window_start(start, i, bs, n):
@@ -156,14 +161,13 @@ def mbk_epoch_ref(centers, counts, x, mask, start, bs, n_batches):
 
 def _stepped_epoch(centers, counts, x, mask, start, bs, n_batches):
     """An epoch on the card past K7b's shapes: each window copied to a
-    16-byte boundary, K1a, then K7a."""
+    16-byte boundary, then ``mbk_step``."""
     n = x.shape[0]
     inertias = []
     for i in range(int(n_batches)):
         off = window_start(start, i, bs, n)
-        sums, bmass, inertia = lloyd_assign_reduce(x[off:off + bs].clone(),
-                                                   mask[off:off + bs].contiguous(), centers)
-        centers, counts = mbk_update(sums, bmass, centers, counts)
+        centers, counts, inertia = mbk_step(centers, counts, x[off:off + bs].clone(),
+                                            mask[off:off + bs].contiguous())
         inertias.append(inertia)
     mbk_epoch.stepped += 1
     return centers, counts, torch.mean(torch.stack(inertias))
@@ -213,6 +217,6 @@ def mbk_epoch(centers, counts, x, mask, start, bs, n_batches):
     return new_centers, new_counts, inertia[0]
 
 
-mbk_update.launches = 0
+mbk_step.launches = 0
 mbk_epoch.launches = 0
 mbk_epoch.stepped = 0

@@ -26,7 +26,10 @@ of a padded block is one), as long as each row is contiguous.
 
 Three wrappers: :func:`sgd_update` (the step), :func:`sgd_epoch` (an
 epoch's steps over minibatch stacks ``(B, n_mb, ...)``, in one cooperative
-launch) and :func:`sgd_loss` (the masked mean loss only).  Each writes its
+launch) and :func:`sgd_loss` (the masked mean loss only).  At K = 1 and
+d ≤ 256 a step, or the loss, is one launch: its blocks' records are summed
+by the last block to finish, which a ticket on the device (0 between
+launches) names.  Each writes its
 ``(mean loss, Σ mask)`` pairs on the device and reads nothing back to the
 host.  Each runs its plain PyTorch version (``*_ref``) on a CPU tensor and
 launches the kernel on a CUDA tensor, or raises.  Each counts its launches
@@ -57,6 +60,8 @@ _plans: dict = {}
 #: one scratch buffer a device for the block records, grown to the largest
 #: plan's need (16 MB at most, or one block record where that is more)
 _scratch: dict = {}
+#: one ticket a device: the K = 1 step's count of blocks done, 0 between launches
+_tickets: dict = {}
 
 
 def _load():
@@ -66,7 +71,7 @@ def _load():
         lib.sgd_plan.argtypes = [_INT, _LL, _INT, _INT, _INT, _VP]
         lib.sgd_plan.restype = _INT
         lib.sgd_step.argtypes = [_VP, _INT, _INT, _INT, _INT, _INT, _VP, _LL, _VP, _LL, _VP, _LL,
-                                 _VP, _VP, _VP, _VP, _LL, _INT, _INT, _VP, _VP, _VP]
+                                 _VP, _VP, _VP, _VP, _LL, _INT, _INT, _VP, _VP, _VP, _VP]
         lib.sgd_step.restype = _INT
         lib.sgd_epoch_run.argtypes = [_VP, _INT, _INT, _INT, _INT, _VP, _LL, _LL, _VP, _LL, _LL,
                                       _VP, _LL, _LL, _VP, _VP, _VP, _VP, _LL, _INT, _INT, _INT,
@@ -101,6 +106,15 @@ def _plan(lib, device, loss_id, B, d, K, epoch=False):
         scratch = torch.empty(max(int(plan[6]), 1), dtype=torch.float32, device=device)
         _scratch[device.index] = scratch
     return plan, scratch
+
+
+def _ticket(device):
+    """The device's ticket for the K = 1 step's finish (made zeroed once; each
+    launch leaves it 0)."""
+    ticket = _tickets.get(device.index)
+    if ticket is None:
+        ticket = _tickets[device.index] = torch.zeros(1, dtype=torch.int32, device=device)
+    return ticket
 
 
 # ------------------------------------------------------------ plain versions
@@ -284,7 +298,7 @@ def _launch(x, y, mask, coef, intercept, t, hyper, out, loss, penalty, schedule,
             x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0), mask.data_ptr(),
             mask.stride(0), coef.data_ptr(), intercept.data_ptr(),
             t.data_ptr() if grad else None, hyper.data_ptr(), B, d, K, scratch.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            _ticket(x.device).data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _check(lib, err, "sgd_step")
     return out
 

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Time variants of K7b's and K10's CUDA sources against each other on one card.
+"""Time variants of K7's and K10's CUDA sources against each other on one card.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 k7k10_variants.py [NAME ...]
 
-Builds ``dask_ml_tpu_torch/csrc/minibatch.cu`` and ``pairwise.cu``
-("current") and each named variant (a text edit of one of them, listed in
-``VARIANTS``), all with ``nvcc`` at once into
+Builds ``dask_ml_tpu_torch/csrc/minibatch.cu``, ``pairwise.cu`` and
+``lloyd.cu`` ("current") and each named variant (a text edit of one of
+them, listed in ``VARIANTS``), all with ``nvcc`` at once into
 ``dask_ml_tpu_torch/_build/variants/``, prints each library's registers and
 spills, then times each through its wrapper (``ops/minibatch.py ::
-mbk_epoch``, ``ops/pairwise.py :: sq_euclidean_safe``), in turns (the list
-forward, then backward), at ``chip_smoke.py`` phase 14c's shapes on make_blobs
-rows: K7b over 1024 steps of 1024 rows of 2^20 x 50 at k = 8, K10 ``sq`` at
-2^20 x 1024 and ``rbf`` at 10M x 100 (``time_ms`` over 10 calls).  Each
-variant but a skeleton is held against its plain version first; the
+mbk_epoch`` and ``mbk_step``, ``ops/pairwise.py :: sq_euclidean_safe``), in
+turns (the list forward, then backward), at ``chip_smoke.py`` phase 14c's
+shapes on make_blobs rows: K7b over 1024 steps of 1024 rows of 2^20 x 50 at
+k = 8, K10 ``sq`` at 2^20 x 1024 and ``rbf`` at 10M x 100, K7a (K1a with
+the update as its epilogue, ``lloyd.cu``) on 14b's block of 2^20 x 50 at
+k = 8 and over 1024 steps of the stepped epoch at k = 64 (``time_ms`` over
+10 calls; the step's also ``queued_ms``).  Each variant but a skeleton is
+held against its plain version first (K7a bitwise against K1a then K7a's
+plain version); the
 skeletons (``SKELETONS``) drop a part of the work and are timed unheld.  The
 probes (``PROBES``) add ``clock64`` timers to thread 0 of every CTA and
 print the cycles of each phase a step (K7b) or a tile (K10), summed over
@@ -136,8 +140,29 @@ VARIANTS = {
     "k10fexp": ("pairwise", "skeleton: __expf (ex2.approx) in place of expf",
                 [("return KIND == 0 ? d2 : KIND == 1 ? sqrtf(d2) : expf(neg_gamma * d2);",
                   "return KIND == 0 ? d2 : KIND == 1 ? sqrtf(d2) : __expf(neg_gamma * d2);")]),
+    "k7a_unroll4": ("lloyd", "the fused finish's sums 4 loads deep, not 32",
+                    [("#pragma unroll 32", "#pragma unroll 4")]),
+    "k7a_unroll16": ("lloyd", "the fused finish's sums 16 loads deep, not 32",
+                     [("#pragma unroll 32", "#pragma unroll 16")]),
+    "k7a_nohelp": ("lloyd", "skeleton: no mass sums beside the element sums",
+                   [("      if (mass) {\n#pragma unroll 32", "      if (false) {\n#pragma unroll 32")]),
+    "k7a_noupdate": ("lloyd", "skeleton: the element sums alone, as finalize_kernel",
+                     [("    if (t >= FU || e >= rec) continue;\n    out[e] = sum;",
+                       "    if (t >= FU || e >= rec) continue;\n    out[e] = sum;\n    continue;")]),
+    "k7a_late": ("lloyd", "the fused finish reads the old state after its sums",
+                 [("    float hi = mass ? counts[c] : 0.f, lo = mass ? counts[k + c] : 0.f;\n"
+                   "    const float old = t < FU && e < kd ? centers[e] : 0.f;\n",
+                   "    float hi = 0.f, lo = 0.f;\n"),
+                  ("        inv_s[t - FU] = kahan_inv(sum, hi, lo);",
+                   "        hi = counts[c];\n        lo = counts[k + c];\n"
+                   "        inv_s[t - FU] = kahan_inv(sum, hi, lo);"),
+                  ("      new_centers[e] = sculley(old, sum, bm_s[i], inv_s[i]);",
+                   "      new_centers[e] = sculley(centers[e], sum, bm_s[i], inv_s[i]);"),
+                  ("    } else if (mass) {\n      kahan_inv(sum, hi, lo);",
+                   "    } else if (mass) {\n      hi = counts[c];\n      lo = counts[k + c];\n"
+                   "      kahan_inv(sum, hi, lo);")]),
 }
-SKELETONS = ("k10fexp", "k10nost")
+SKELETONS = ("k10fexp", "k10nost", "k7a_nohelp", "k7a_noupdate")
 PROBES = {"k7probe": K7B_PHASES, "k10probe": K10_PHASES}
 
 
@@ -160,9 +185,10 @@ def build(names):
 
 def use(src, lib_path):
     """Point the wrapper of ``src`` at the library at ``lib_path``."""
-    from dask_ml_tpu_torch.ops import minibatch, pairwise
+    from dask_ml_tpu_torch.ops import lloyd, minibatch, pairwise
 
-    return variants.swap(minibatch if src == "minibatch" else pairwise, src, lib_path)
+    module = {"minibatch": minibatch, "pairwise": pairwise, "lloyd": lloyd}[src]
+    return variants.swap(module, src, lib_path)
 
 
 def main():
@@ -173,16 +199,17 @@ def main():
         return 1
     import chip_smoke as cs
     from dask_ml_tpu_torch.core import set_device
-    from dask_ml_tpu_torch.ops import _build, minibatch, pairwise
+    from dask_ml_tpu_torch.ops import _build, lloyd, minibatch, pairwise
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     set_device(device)
     card = cs.card_line()
     names = sys.argv[1:] or list(VARIANTS)
-    _build.build(["minibatch", "pairwise"])
+    _build.build(["minibatch", "pairwise", "lloyd"])
     libs = {"current minibatch": ("minibatch", _build._library("minibatch")),
-            "current pairwise": ("pairwise", _build._library("pairwise"))}
+            "current pairwise": ("pairwise", _build._library("pairwise")),
+            "current lloyd": ("lloyd", _build._library("lloyd"))}
     libs.update(build(names))
 
     X, truth = cs.make_blobs(torch, cs.SPECTRAL_ROWS, cs.MAIN_D, cs.MBK_K, 0, device)
@@ -191,6 +218,12 @@ def main():
           cs.MBK_BATCH, cs.EPOCH_CHECK_STEPS)
     px, py = X[:cs.PAIR_ROWS], X[-cs.PAIR_M:]
     sample = cs.spectral_sample(torch, X)
+    pair = torch.stack([torch.full((cs.MBK_K,), 2.0 ** 25, device=device),
+                        torch.full((cs.MBK_K,), 0.25, device=device)])
+    k7a = (truth + 0.5, pair, x1, m1)
+    c64 = X[cs.STREAM_ROWS:cs.STREAM_ROWS + 64].clone()
+    k7a64 = (c64, torch.zeros(2, 64, device=device), x1, m1, cs.EPOCH_CHECK_START, cs.MBK_BATCH,
+             cs.EPOCH_CHECK_STEPS)
     k10 = {"sq": (px, py, 0, 0, False, "sq", None),
            "rbf": (X, sample, 0, 0, False, "rbf", 1.0 / cs.MAIN_D)}
 
@@ -198,6 +231,9 @@ def main():
         src = libs[label][0]
         if src == "minibatch":
             return {"K7b 1024 steps": lambda: minibatch.mbk_epoch(*k7)}
+        if src == "lloyd":
+            return {"K7a step": lambda: minibatch.mbk_step(*k7a),
+                    "K7a k=64 1024": lambda: minibatch.mbk_epoch(*k7a64)}
         return {f"K10 {k}": (lambda a=a: pairwise.sq_euclidean_safe(*a)) for k, a in k10.items()}
 
     def hold(label):
@@ -206,6 +242,12 @@ def main():
             got, want = minibatch.mbk_epoch(*k7), minibatch.mbk_epoch_ref(*k7)
             err = float((got[0] - want[0]).abs().max()) / float(want[0].abs().max())
             return err <= 1e-5, f"centres within {err:.3g} of max|c|"
+        if src == "lloyd":
+            got = minibatch.mbk_step(*k7a)
+            sums, bmass, inertia = lloyd.lloyd_assign_reduce(x1, m1, k7a[0])
+            want = (*minibatch.mbk_update_ref(sums, bmass, *k7a[:2]), inertia)
+            ok = all(torch.equal(a, b) for a, b in zip(got, want))
+            return ok, f"{'bit-equal' if ok else 'not bit-equal'} to K1a then K7a's plain version"
         worst = 0.0
         for a in k10.values():
             got = pairwise.sq_euclidean_safe(*a)
@@ -236,6 +278,12 @@ def main():
                 lib.prof_zero()
             ms = cs.time_ms(torch, fn, REPS)
             times[label].setdefault(what, []).append(ms)
+            if what == "K7a step":
+                times[label].setdefault("K7a step queued", []).append(
+                    cs.queued_ms(torch, fn, REPS))
+                per = cs.by_kernel(cs.device_events(torch, fn, REPS), REPS)
+                times[label].setdefault("K7a finish", []).append(
+                    per.get("finalize_update_kernel", (float("nan"), 0))[0])
             if probe:
                 buf = (ctypes.c_ulonglong * 16)()
                 lib.prof_read(ctypes.addressof(buf))

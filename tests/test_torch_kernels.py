@@ -673,22 +673,37 @@ from dask_ml_tpu_torch.ops import minibatch, pairwise  # noqa: E402
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,d", [(8, 50), (3, 7), (100, 130), (5000, 3)])
-def test_mbk_update_matches_plain_version_bitwise(cuda, k, d):
+@pytest.mark.parametrize("k,d", [(8, 50), (3, 7), (100, 130), (5000, 3)]
+                         + [(k, d) for k in (1, 8, 16, 64) for d in (3, 50, 64, 130)])
+def test_mbk_step_matches_k1a_then_k7a_bitwise(cuda, k, d):
+    # the fused step (K7a in K1a's last launch) against K1a followed by
+    # K7a's plain version (bit-equal to the separate K7a kernel it replaces),
+    # at a ragged row count, with a centre no row reaches (batch mass 0) and
+    # masses past 2^24
+    n = 4099
     gen = torch.Generator(device=cuda).manual_seed(k + d)
+    x = torch.randn(n, d, generator=gen, device=cuda)
+    mask = 2.0 * torch.rand(n, generator=gen, device=cuda)
+    mask[::7] = 0.0
     centers = torch.randn(k, d, generator=gen, device=cuda)
+    if k > 1:
+        centers[0] += 1e3
     counts = torch.stack([torch.rand(k, generator=gen, device=cuda) * 2 ** 25,
                           torch.rand(k, generator=gen, device=cuda)])
-    counts[:, 0] = 0.0
-    sums = torch.randn(k, d, generator=gen, device=cuda)
-    bmass = torch.rand(k, generator=gen, device=cuda) * 3
-    bmass[0] = 0.0  # a centre with no mass keeps its place
-    before = minibatch.mbk_update.launches
-    got = minibatch.mbk_update(sums, bmass, centers, counts)
+    counts[:, -1] = 0.0  # a centre's first batch
+    before = (minibatch.mbk_step.launches, lloyd.lloyd_assign_reduce.launches)
+    got = minibatch.mbk_step(centers, counts, x, mask)
+    again = minibatch.mbk_step(centers, counts, x, mask)
+    sums, bmass, inertia = lloyd.lloyd_assign_reduce(x, mask, centers)
     want = minibatch.mbk_update_ref(sums, bmass, centers, counts)
     torch.cuda.synchronize()
-    assert minibatch.mbk_update.launches == before + 1
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (minibatch.mbk_step.launches, lloyd.lloyd_assign_reduce.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], inertia)
+    if k > 1:
+        assert float(bmass[0]) == 0.0 and torch.equal(got[0][0], centers[0])
 
 
 @pytest.mark.cuda

@@ -85,6 +85,32 @@ def test_step_matches_reference(seed, n, k, d):
     np.testing.assert_allclose(float(pi), float(ri), rtol=RTOL)
 
 
+def test_fused_step_cpu_dispatch_matches_reference():
+    """``ops.minibatch.mbk_step`` (K1a with K7a's update in its last launch)
+    on CPU tensors runs the plain versions, and launches nothing: held to
+    the reference's ``_mbk_step_fn`` at a ragged row count, with a centre
+    no row reaches and masses past 2^24."""
+    k, d, n = 7, 9, 1001
+    centers, counts = _state(21, k, d)
+    centers[3] += 1e3  # no row's nearest centre: its batch mass is 0
+    counts[0, 1:] += 2.0 ** 24
+    rng = np.random.RandomState(22)
+    xb = (rng.normal(size=(n, d)) * 3).astype(np.float32)
+    mask = rng.uniform(0, 2, n).astype(np.float32)
+    mask[rng.uniform(size=n) < 0.1] = 0.0
+    rc, rn, ri = ref._mbk_step_fn(jnp.asarray(centers), jnp.asarray(counts), jnp.asarray(xb),
+                                  jnp.asarray(mask))
+    before = (k7.mbk_step.launches, k7.mbk_epoch.launches)
+    pc, pn, pi = k7.mbk_step(torch.from_numpy(centers), torch.from_numpy(counts),
+                             torch.from_numpy(xb), torch.from_numpy(mask))
+    assert (k7.mbk_step.launches, k7.mbk_epoch.launches) == before
+    np.testing.assert_allclose(_np(pc), np.asarray(rc), rtol=RTOL, atol=RTOL * np.abs(rc).max())
+    np.testing.assert_array_equal(_np(pc)[3], centers[3])
+    mass = lambda c: np.asarray(c, np.float64)[0] + np.asarray(c, np.float64)[1]  # noqa: E731
+    np.testing.assert_allclose(mass(_np(pn)), mass(rn), rtol=1e-6)
+    np.testing.assert_allclose(float(pi), float(ri), rtol=RTOL)
+
+
 def test_mass_past_2_24_keeps_growing():
     """A float32 mass stops at 2^24 (2^24 + 1 rounds back); the Kahan pair
     carries the unit steps in its low word in both packages."""
@@ -256,8 +282,8 @@ def test_errors_match_reference():
 
 
 def test_cpu_path_launches_no_kernel():
-    before = (k7.mbk_update.launches, k7.mbk_epoch.launches)
+    before = (k7.mbk_step.launches, k7.mbk_epoch.launches)
     x, truth = _blobs(15, n=600, d=4)
     MiniBatchKMeans(n_clusters=4, init=truth, batch_size=64, max_iter=2).fit(x)
     MiniBatchKMeans(n_clusters=4, init=truth).partial_fit(x)
-    assert (k7.mbk_update.launches, k7.mbk_epoch.launches) == before
+    assert (k7.mbk_step.launches, k7.mbk_epoch.launches) == before

@@ -13,6 +13,14 @@ stored c − eta·g), t exactly; hinge's rows within 1e-5 of its kink may
 take the other side, each moving the gradient by at most mask·|x|/count.
 The kernel is deterministic: a repeat gives the same bits.
 
+At K = 1 and d <= 256 a step, and the loss alone, is one launch
+(``step_kernel``: the rows streamed through a ring of tiles, the records
+summed and the update applied by the last block to finish); its plan names
+that path (plan word 0 is 3) and each launch leaves the device's ticket at
+0.  It is held as above at row counts past and short of a tile, every width
+of its two layouts, each loss, penalty and schedule, row-strided views
+(16-byte copies) and rows off a 16-byte boundary (4-byte copies).
+
 The epoch (``sgd_epoch``, n_mb steps in one launch) is held against the
 plain version's steps in float64 from the same state: each step's loss and
 Σ mask to rtol 1e-5, and the final coef and intercept to 1e-5 times the
@@ -147,6 +155,53 @@ def test_all_zero_mask_gives_count_one_and_no_nan(cuda):
     out = sgd.sgd_update(x, y, torch.zeros(1000, device=cuda), c, intercept.clone(), t,
                          _hyper(cuda), loss="log_loss", penalty=None, schedule="constant")
     assert out.tolist() == [0.0, 0.0] and torch.equal(c, coef) and float(t) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 31, 257, 4097, 2 ** 18 + 13])
+@pytest.mark.parametrize("d", [1, 3, 64, 65, 256])
+def test_one_launch_step_rows_and_widths_against_plain(cuda, B, d):
+    _hold(*_inputs(B, d, 1, "log_loss", B + d, cuda), _hyper(cuda), "log_loss")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    plan, _ = sgd._plan(sgd._load(), dev, sgd.LOSSES["log_loss"], B, d, 1)
+    assert plan[0] == 3
+    assert int(sgd._ticket(dev)[0]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", CLS + ("squared_error", "huber"))
+@pytest.mark.parametrize("penalty, schedule", [
+    (None, "constant"), ("l2", "optimal"), ("l1", "invscaling"), ("elasticnet", "adaptive")])
+def test_one_launch_step_losses_penalties_schedules_against_plain(cuda, loss, penalty,
+                                                                   schedule):
+    hyper = _hyper(cuda, 0.2 if schedule == "adaptive" else 1.0)
+    _hold(*_inputs(20_011, 64, 1, loss, 9, cuda), hyper, loss, penalty=penalty,
+          schedule=schedule)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 64, 65, 256])
+def test_one_launch_step_strided_and_unaligned_rows_against_plain(cuda, d):
+    x, y, mask, coef, intercept = _inputs(16 * 1031, d, 1, "hinge", d, cuda)
+    views = (x.view(-1, 16, d)[:, 5], y.view(-1, 16, 1)[:, 5], mask.view(-1, 16)[:, 5])
+    _hold(*views, coef, intercept, _hyper(cuda), "hinge", penalty="elasticnet")
+    wide = torch.zeros(9001, d + 4, device=cuda)  # rows start 4 bytes past a 16-byte boundary
+    wide[:, 1:d + 1] = x[:9001]
+    _hold(wide[:, 1:d + 1], y[:9001], mask[:9001], coef, intercept, _hyper(cuda), "hinge")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1000, 2 ** 18 + 13])
+def test_one_launch_step_all_zero_mask(cuda, B):
+    x, y, _, coef, intercept = _inputs(B, 64, 1, "log_loss", 2, cuda)
+    zero = torch.zeros(B, device=cuda)
+    t = torch.tensor(0.0, device=cuda)
+    c, b = coef.clone(), intercept.clone()
+    out = sgd.sgd_update(x, y, zero, c, b, t, _hyper(cuda), loss="log_loss", penalty=None,
+                         schedule="constant")
+    lo = sgd.sgd_loss(x, y, zero, coef, intercept, _hyper(cuda), loss="log_loss")
+    assert out.tolist() == [0.0, 0.0] and lo.tolist() == [0.0, 0.0]
+    assert torch.equal(c, coef) and torch.equal(b, intercept) and float(t) == 1.0
 
 
 def _hold_epoch(xs, ys, ms, coef, intercept, hyper, loss, penalty="l2", schedule="optimal",
