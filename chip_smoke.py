@@ -296,8 +296,40 @@ Phases, in order; any failure exits non-zero:
    ``SpectralClustering(n_clusters=8, random_state=0)`` (rbf, γ = 1/d,
    ``n_components=100``) on the first 10M rows: its phases' times, K10, K1a
    and K1b launches, ``eigenvalues_``; gate: each true blob in one found
-   cluster, a different one each, for at least 99% of its rows.  Then the
-   ``kernels`` line, the card line and the result.
+   cluster, a different one each, for at least 99% of its rows.
+15. Preprocessing, SimpleImputer and GaussianNB: the quantile sketch through
+   K12 (``csrc/histogram.cu``), the class moments through K9 and the joint
+   log-likelihood through K9b (``csrc/naive_bayes.cu``).  15a: phase 6's
+   HIGGS stand-in (11M x 28 on the card) with 1% of its entries set to NaN
+   from a seeded generator; ``make_pipeline(SimpleImputer(),
+   QuantileTransformer(output_distribution="normal"), GaussianNB())``
+   fitted and scored, the counts set to 0 just before and read just after:
+   the wall time, the launches (K12 four: the sketch's passes, 11M rows
+   being past the 4M-row threshold; K9 both passes; K9b), peak memory; one
+   more fit profiled (idle share, device time by kernel).  Gates:
+   ``quantiles_`` within the last pass's bin width plus the spread of the
+   ranks next to the exact position of ``torch.nanquantile`` on the imputed
+   rows (the sketch's value lies in the bin of its target order statistic,
+   which is within one rank of that position), and bit-equal on a second
+   sketch; ``theta_`` and ``var_`` within rtol 1e-5 of K9's plain
+   version on the transformed rows (of the larger of |plain| and the
+   class's mean |x|, or its largest variance); predictions equal to the
+   plain jll's argmax; ``score`` within 1e-6 of the plain jll's and of the
+   whole pipeline run through the plain versions, whose ``quantiles_`` must
+   be bit-equal (K12's counts are exact).  15b: ``GaussianNB`` at k = 10 on
+   11M x 28 standard normal rows, labels the argmax of X·W plus noise: the
+   same gates, and ``predict_proba`` within 1e-6 of the plain jll's
+   softmax.  15c: each kernel at its path shape held against its plain
+   version (K12's counts equal, K9 as above, K9b bit-equal, each twice with
+   the same bits), then timed (CUDA events) beside its plain version, its
+   bound and the library call where one exists (K9: the one-hot
+   ``torch.mm``; 28 ``torch.histc`` calls printed beside K12, not the same
+   function); the same holds at ragged n, d = 130 and d = 1, with an
+   outlier (1e9) and a constant column, a narrow window, and fractional
+   weights; ``RobustScaler().fit`` (K12 at 3 probs), ``OneHotEncoder`` of 4
+   integer columns of 8 categories at 11M rows, and ``StandardScaler.fit``
+   against a ``partial_fit`` over 11 blocks of 1M rows (rtol 1e-5).  Then
+   the ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -444,6 +476,17 @@ IPCA_HOST_ROWS = 1 << 22
 
 # phase 13: the grid searches (13e's pipeline grid runs on the first 2^22 rows)
 PREFIX_ROWS = 1 << 22
+
+# phase 15: preprocessing, SimpleImputer and GaussianNB on the HIGGS stand-in
+PREP_SEED = 15
+PREP_NAN = 0.01  # the share of 15a's entries set to NaN
+PREP_K = 10  # 15b's classes
+PREP_RTOL = 1e-5
+# 15c's edge shapes (n, d): ragged n (not a multiple of a tile or of a block's
+# rows), d = 130 (K12's feature chunks, K9's feature tiles) and d = 1
+PREP_EDGE_SHAPES = ((1_000_003, 28), (100_003, 130), (77_777, 1))
+OHE_COLS, OHE_CATS = 4, 8
+SCALER_BLOCK = 1_000_000  # StandardScaler.partial_fit's blocks (11 at the HIGGS rows)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -5614,6 +5657,485 @@ def sweep_tree_yardstick(torch, device, card):
                            {name: 0 for name in OVR_SWEEP_WRAPPERS}, card)
 
 
+
+# ----------------------------------------------------------------- phase 15
+
+def reset_prep_counts():
+    """Every launch count of phase 15's kernels to 0."""
+    from dask_ml_tpu_torch.ops import histogram, naive_bayes
+
+    for fn in (histogram.hist_pass_counts, naive_bayes.class_sums,
+               naive_bayes.class_deviations, naive_bayes.gaussian_jll):
+        fn.launches = 0
+
+
+def prep_counts():
+    from dask_ml_tpu_torch.ops import histogram, naive_bayes
+
+    return {"hist_pass_counts": histogram.hist_pass_counts.launches,
+            "class_sums": naive_bayes.class_sums.launches,
+            "class_deviations": naive_bayes.class_deviations.launches,
+            "gaussian_jll": naive_bayes.gaussian_jll.launches}
+
+
+@contextlib.contextmanager
+def prep_plain_versions():
+    """Phase 15's kernels replaced by their plain versions where the
+    estimators call them (on the card, as a check only)."""
+    from dask_ml_tpu_torch import naive_bayes as nb_mod
+    from dask_ml_tpu_torch.ops import histogram, naive_bayes
+    from dask_ml_tpu_torch.preprocessing import data
+
+    saved = (data.hist_pass_counts, nb_mod.class_moments, nb_mod.gaussian_jll)
+    data.hist_pass_counts = histogram.hist_pass_counts_ref
+    nb_mod.class_moments = naive_bayes.class_moments_ref
+    nb_mod.gaussian_jll = naive_bayes.gaussian_jll_ref
+    try:
+        yield
+    finally:
+        data.hist_pass_counts, nb_mod.class_moments, nb_mod.gaussian_jll = saved
+
+
+def prep_pipeline():
+    from dask_ml_tpu_torch import GaussianNB, QuantileTransformer, SimpleImputer, make_pipeline
+
+    return make_pipeline(SimpleImputer(), QuantileTransformer(output_distribution="normal"),
+                         GaussianNB())
+
+
+def nan_standin(torch, device):
+    """Phase 6's HIGGS stand-in with PREP_NAN of its entries set to NaN, the
+    entries drawn from a seeded generator on the card."""
+    X, y, _ = higgs_standin(torch, HIGGS_ROWS, HIGGS_D, 0, device)
+    gen = torch.Generator(device=device).manual_seed(PREP_SEED)
+    X[torch.rand(X.shape, generator=gen, device=device) < PREP_NAN] = float("nan")
+    return X, y
+
+
+def close_to(torch, label, got, want, scale, rtol):
+    """|got − want| <= rtol·max(|want|, scale), elementwise; returns the
+    largest |got − want| / max(|want|, scale)."""
+    ref = torch.maximum(want.abs(), scale)
+    worst = float(((got - want).abs() / ref).max())
+    log(f"  {label}: largest |Δ| / max(|plain|, scale) {worst:.3g} (<= {rtol})")
+    if not worst <= rtol:
+        raise AssertionError(f"{label}: {worst:.3g} > {rtol}")
+    return worst
+
+
+def class_scale(torch, x, labels, weights, k):
+    """Each class's mean |x| (k, d): the scale of a float32 sum's rounding
+    in its moments, which a mean near 0 does not have."""
+    from dask_ml_tpu_torch.ops import naive_bayes
+
+    return naive_bayes.class_sums_ref(x.abs(), labels, weights, k)[1]
+
+
+def hold_nb(torch, est, Xt, labels, weights, label):
+    """A fitted GaussianNB's theta_ and var_ against K9's plain version on
+    the same rows (rtol PREP_RTOL of the larger of |plain| and the class's
+    mean |x| or its variance), its predictions against the plain jll's
+    argmax (equal: K9b gives the plain version's bits); returns the plain
+    jll's argmax."""
+    from dask_ml_tpu_torch.ops import naive_bayes
+
+    k = len(est.classes_)
+    counts, means, var = naive_bayes.class_moments_ref(Xt, labels, weights, k)
+    close_to(torch, f"{label} theta_ vs K9's plain version", est.theta_, means,
+             class_scale(torch, Xt, labels, weights, k), PREP_RTOL)
+    eps = est.var_smoothing * est._max_var
+    close_to(torch, f"{label} var_ vs K9's plain version", est.var_ - eps, var,
+             var.abs().amax(dim=1, keepdim=True), PREP_RTOL)
+    if not torch.equal(est.class_count_, counts):
+        worst = float(((est.class_count_ - counts).abs() / counts).max())
+        log(f"  {label} class_count_ vs plain: rtol {worst:.3g}")
+        if not worst <= PREP_RTOL:
+            raise AssertionError(f"{label}: class_count_ differs by {worst:.3g}")
+    pred = naive_bayes.gaussian_jll(Xt, est.theta_, est.var_, est.class_prior_, predict=True)
+    plain = naive_bayes.gaussian_jll_ref(Xt, est.theta_, est.var_, est.class_prior_,
+                                         predict=True)
+    differ = int((pred != plain).sum())
+    log(f"  {label} predictions: {differ} of {pred.shape[0]} differ from the plain jll's argmax")
+    if differ:
+        raise AssertionError(f"{label}: {differ} predictions differ from the plain version's")
+    return plain
+
+
+def prep_main_path(torch, X, y, card):
+    """15a: the pipeline fitted and scored on the stand-in with NaNs, every
+    count set to 0 just before and read just after; then the same pipeline
+    through the plain versions, and the gates."""
+    from dask_ml_tpu_torch.preprocessing.data import _hist_quantiles
+
+    reset_prep_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = prep_pipeline().fit(X, y)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    score = pipe.score(X, y)
+    t_score = time.perf_counter() - t0
+    launches = prep_counts()
+    log(f"phase 15a: make_pipeline(SimpleImputer(), QuantileTransformer(normal), GaussianNB()) "
+        f"on {HIGGS_ROWS}x{HIGGS_D} with {PREP_NAN:.0%} NaN: fit {t_fit:.3f} s, score "
+        f"{t_score:.3f} s on the host clock after a sync, score {score:.6f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    log(f"phase 15a: launches on the main path: {launches}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched on the main path")
+    if launches["hist_pass_counts"] != 4:
+        raise AssertionError(f"the quantile sketch made {launches['hist_pass_counts']} passes, "
+                             "not 4")
+    imp, qt, nb = (pipe.steps[i][1] for i in range(3))
+    Xi = imp.transform(X)
+    mask = torch.ones(Xi.shape[0], device=Xi.device)
+    sketch, binw = _hist_quantiles(Xi, mask, qt.references_, with_width=True)
+    if not torch.equal(sketch, qt.quantiles_):
+        raise AssertionError("the sketch gave other bits on a second run")
+    exact = torch.nanquantile(Xi, qt.references_, dim=0)
+    # the sketch's value lies within a bin width of its target order
+    # statistic, which is within one rank of the exact quantile's position
+    srt = torch.sort(Xi, dim=0).values
+    pos = qt.references_.double() * (srt.shape[0] - 1)
+    below = torch.clamp(torch.floor(pos) - 1, 0, srt.shape[0] - 1).long()
+    above = torch.clamp(torch.ceil(pos) + 1, 0, srt.shape[0] - 1).long()
+    tol = binw[None, :] + (srt[above] - srt[below]) + 1e-6 * exact.abs()
+    del srt
+    gap = (qt.quantiles_ - exact).abs()
+    worst = float((gap / tol).max())
+    log(f"  quantiles_ vs torch.nanquantile on the card: largest |Δ| {float(gap.max()):.3g}, "
+        f"{float((gap / binw[None, :]).max()):.3f} of the last pass's bin width (bin widths "
+        f"{float(binw.min()):.3g} to {float(binw.max()):.3g}); largest |Δ| / (bin width + "
+        f"the spread of the ranks next to the exact position) {worst:.3f} (<= 1)")
+    if not worst <= 1.0:
+        raise AssertionError(f"quantiles_ part from the exact ones by {worst:.3f} of the bound")
+    Xt = qt.transform(Xi)
+    del Xi
+    labels = nb._class_index(y, Xt.shape[0], Xt.device)
+    plain_pred = hold_nb(torch, nb, Xt, labels, mask, "15a")
+    yd = y.to(plain_pred.device)
+    plain_score = float((torch.as_tensor(nb.classes_).to(yd)[plain_pred] == yd).double().mean())
+    log(f"  score {score:.8f}, the plain jll's {plain_score:.8f} (|Δ| <= 1e-6)")
+    if not abs(score - plain_score) <= 1e-6:
+        raise AssertionError(f"score {score} against the plain path's {plain_score}")
+    with prep_plain_versions():
+        t0 = time.perf_counter()
+        plain = prep_pipeline().fit(X, y)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        plain_whole = plain.score(X, y)
+    same_q = torch.equal(plain.steps[1][1].quantiles_, qt.quantiles_)
+    log(f"  the pipeline through the plain versions: fit {t_plain:.3f} s, score "
+        f"{plain_whole:.8f}; quantiles_ bit-equal {same_q}")
+    if not same_q:
+        raise AssertionError("quantiles_ differ from the plain path's: K12's counts are exact")
+    if not abs(score - plain_whole) <= 1e-6:
+        raise AssertionError(f"score {score} against the plain pipeline's {plain_whole}")
+    wall_ms, per_name = device_profile(torch, lambda: prep_pipeline().fit(X, y))
+    log_profile("phase 15a: profiled pipeline fit", wall_ms, per_name, card, top=12)
+    return launches, Xt, labels, nb
+
+
+def nb_k10(torch, device, card):
+    """15b: GaussianNB at k = PREP_K on 11M x 28 standard normal rows,
+    labels the argmax of X·W plus noise (W from the seed); the gates of
+    15a and ``predict_proba`` against the plain jll's softmax (atol 1e-6)."""
+    from dask_ml_tpu_torch import GaussianNB
+    from dask_ml_tpu_torch.ops import naive_bayes
+
+    gen = torch.Generator(device=device).manual_seed(PREP_SEED + 1)
+    X = torch.randn(HIGGS_ROWS, HIGGS_D, generator=gen, device=device)
+    W = torch.randn(HIGGS_D, PREP_K, generator=gen, device=device)
+    noise = torch.randn(HIGGS_ROWS, PREP_K, generator=gen, device=device)
+    y = torch.argmax(X @ W + noise, dim=1)
+    del noise
+    reset_prep_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = GaussianNB().fit(X, y)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proba = est.predict_proba(X)
+    torch.cuda.synchronize()
+    t_proba = time.perf_counter() - t0
+    acc = est.score(X, y)
+    launches = prep_counts()
+    log(f"phase 15b: GaussianNB k={PREP_K} on {HIGGS_ROWS}x{HIGGS_D}: fit {t_fit:.3f} s, "
+        f"predict_proba {t_proba:.3f} s, accuracy {acc:.6f}; launches {launches} [{card}]")
+    for name in ("class_sums", "class_deviations", "gaussian_jll"):
+        if launches[name] < 1:
+            raise AssertionError(f"15b: {name} was not launched")
+    labels = est._class_index(y, HIGGS_ROWS, device)
+    ones = torch.ones(HIGGS_ROWS, device=device)
+    hold_nb(torch, est, X, labels, ones, "15b")
+    jll = naive_bayes.gaussian_jll_ref(X, est.theta_, est.var_, est.class_prior_)
+    err = float((proba - torch.softmax(jll, dim=1)).abs().max())
+    log(f"  predict_proba vs the plain jll's softmax: max |Δ| {err:.3g} (<= 1e-6)")
+    if not err <= 1e-6:
+        raise AssertionError(f"15b: predict_proba differs by {err}")
+    return X, labels, est, launches["gaussian_jll"]
+
+
+def k12_inputs(torch, n, d, seed, device, edges=True):
+    """Rows for K12's checks: standard normal, with an outlier (1e9) and a
+    constant column where d >= 3, a mask with a twentieth 0, and the
+    full window of the masked min and max."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, d, generator=gen, device=device)
+    if edges and d >= 3:
+        x[:, 1] = 3.0
+        x[n // 2, 2] = 1e9
+    mask = (torch.rand(n, generator=gen, device=device) > 0.05).float()
+    inf = float("inf")
+    lo = torch.where(mask[:, None] > 0, x, inf).amin(dim=0)
+    hi = torch.where(mask[:, None] > 0, x, -inf).amax(dim=0)
+    return x, mask, lo, hi
+
+
+def hold_k12(torch, histogram, x, mask, lo, hi, what):
+    """K12's counts and below equal to its plain version's, and the same
+    bits twice."""
+    width = torch.clamp_min(hi - lo, 1e-30)
+    c, b = histogram.hist_pass_counts(x, mask, lo, hi, width)
+    c2, b2 = histogram.hist_pass_counts(x, mask, lo, hi, width)
+    cr, br = histogram.hist_pass_counts_ref(x, mask, lo, hi, width)
+    torch.cuda.synchronize()
+    if not (torch.equal(c, cr) and torch.equal(b, br)):
+        raise AssertionError(f"K12 at {what}: counts differ from the plain version's by "
+                             f"{float((c - cr).abs().max())}")
+    if not (torch.equal(c, c2) and torch.equal(b, b2)):
+        raise AssertionError(f"K12 at {what}: two launches gave other bits")
+    return 0.0
+
+
+def k9_inputs(torch, n, d, k, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, d, generator=gen, device=device) * 2 + 1
+    labels = torch.randint(0, k, (n,), generator=gen, device=device, dtype=torch.int32)
+    w = torch.rand(n, generator=gen, device=device) * 2
+    w[torch.rand(n, generator=gen, device=device) < 0.1] = 0.0
+    return x, labels, w
+
+
+def hold_k9(torch, naive_bayes, x, labels, w, k, what):
+    """K9's two passes against their plain version (rtol PREP_RTOL of the
+    larger of |plain| and the class's mean |x|, or of its largest
+    variance), the same bits twice; returns the largest |Δ|."""
+    counts, means, var = naive_bayes.class_moments(x, labels, w, k)
+    again = naive_bayes.class_moments(x, labels, w, k)
+    rc, rm, rv = naive_bayes.class_moments_ref(x, labels, w, k)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((counts, means, var), again)):
+        raise AssertionError(f"K9 at {what}: two launches gave other bits")
+    close_to(torch, f"K9 counts at {what}", counts, rc, rc.abs().amax(), PREP_RTOL)
+    close_to(torch, f"K9 means at {what}", means, rm, class_scale(torch, x, labels, w, k),
+             PREP_RTOL)
+    close_to(torch, f"K9 var at {what}", var, rv, rv.abs().amax(dim=1, keepdim=True), PREP_RTOL)
+    return max(float((means - rm).abs().max()), float((var - rv).abs().max()))
+
+
+def hold_k9b(torch, naive_bayes, x, theta, var, prior, what):
+    """K9b's jll and predictions bit-equal to its plain version's, twice."""
+    for predict in (False, True):
+        got = naive_bayes.gaussian_jll(x, theta, var, prior, predict)
+        again = naive_bayes.gaussian_jll(x, theta, var, prior, predict)
+        want = naive_bayes.gaussian_jll_ref(x, theta, var, prior, predict)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(f"K9b at {what} (predict={predict}): not the plain version's "
+                                 f"bits")
+    return 0.0
+
+
+def nb_params(torch, k, d, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    theta = torch.randn(k, d, generator=gen, device=device)
+    var = torch.rand(k, d, generator=gen, device=device) + 0.5
+    prior = torch.softmax(torch.randn(k, generator=gen, device=device), dim=0)
+    return theta, var, prior
+
+
+def prep_edges(torch, device, card):
+    """15c: each kernel at ragged n, d = 130 and d = 1; K12 with an outlier
+    and a constant column, K9 with fractional weights."""
+    from dask_ml_tpu_torch.ops import histogram, naive_bayes
+
+    for n, d in PREP_EDGE_SHAPES:
+        x, mask, lo, hi = k12_inputs(torch, n, d, n + d, device)
+        hold_k12(torch, histogram, x, mask, lo, hi, f"{n}x{d}")
+        mid, half = 0.5 * (lo + hi), 0.05 * (hi - lo)
+        hold_k12(torch, histogram, x, mask, mid - half, mid + half, f"{n}x{d}, a narrow window")
+        for k in (2, PREP_K):
+            xk, labels, w = k9_inputs(torch, n, d, k, n + k, device)
+            hold_k9(torch, naive_bayes, xk, labels, w, k, f"{n}x{d} k={k}")
+            hold_k9b(torch, naive_bayes, xk, *nb_params(torch, k, d, k, device),
+                     f"{n}x{d} k={k}")
+        log(f"phase 15c: K12, K9 and K9b hold at {n}x{d} (k = 2 and {PREP_K}) [{card}]")
+
+
+def prep_bound(kind, n, d, k):
+    """(bytes, flops) of one call at its path shape: each input read once,
+    each output written once."""
+    if kind == "k12":
+        return n * d * 4 + n * 4 + 3 * d * 4 + d * 4097 * 4, 4 * n * d
+    if kind == "k9_sums":
+        return n * d * 4 + 8 * n + k * d * 4 + k * 4, 2 * n * d + n
+    if kind == "k9_dev":
+        return n * d * 4 + 8 * n + 2 * k * d * 4 + k * 4, 4 * n * d
+    out = n * 8 if kind == "k9b_predict" else n * k * 4
+    return n * d * 4 + 3 * k * d * 4 + k * 4 + out, 5 * n * k * d
+
+
+def prep_entry(torch, name, kernel, plain, library, kind, shape, launches, err, replaces, card):
+    n, d, k = shape
+    ms = time_ms(torch, kernel, 10)
+    plain_ms = time_ms(torch, plain, 3)
+    lib_ms = time_ms(torch, library, 10) if library is not None else None
+    nbytes, flops = prep_bound(kind, n, d, k)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    shape = f"{n}x{d} k={k}" if k else f"{n}x{d}"
+    log(f"{name} at {shape}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+        f"{fmt_ms(lib_ms)}, bound {b_ms:.4f} ms by {b_by}: {nbytes / 1e9:.3f} GB, "
+        f"{flops / 1e9:.2f} GFLOP; {b_ms / ms:.2%} of it); launches on the path {launches}, "
+        f"max abs err {err:.3g} [{card}]")
+    source = "histogram.cu" if kind == "k12" else "naive_bayes.cu"
+    return {"name": name, "route": "cuda", "source": f"dask_ml_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def prep_table(torch, Xt, labels, nb, launches, Xb, labels_b, est_b, jll_b_launches, card):
+    """15c: each kernel at its path shape held against its plain version,
+    then timed beside it, its bound and, where one exists, the library
+    call: K12 at the first pass's window of 15a's imputed rows (28
+    ``torch.histc`` calls timed beside it, not the same function: no mask,
+    no below, float bins), K9 on 15a's transformed rows (the one-hot
+    ``torch.mm`` of each pass), K9b at k = 2 (predict) and k = PREP_K (jll)."""
+    from dask_ml_tpu_torch.ops import histogram, naive_bayes
+
+    n, d = Xt.shape
+    mask = torch.ones(n, device=Xt.device)
+    lo, hi = Xt.amin(dim=0), Xt.amax(dim=0)
+    width = torch.clamp_min(hi - lo, 1e-30)
+    err = hold_k12(torch, histogram, Xt, mask, lo, hi, f"{n}x{d} (15a's path)")
+    los, his = lo.tolist(), hi.tolist()
+    histc_ms = time_ms(torch, lambda: [torch.histc(Xt[:, j], bins=4096, min=los[j], max=his[j])
+                                       for j in range(d)], 3)
+    log(f"  informational: {d} torch.histc calls (no mask, no below) {histc_ms:.4f} ms [{card}]")
+    out = [prep_entry(torch, "hist_pass_counts",
+                      lambda: histogram.hist_pass_counts(Xt, mask, lo, hi, width),
+                      lambda: histogram.hist_pass_counts_ref(Xt, mask, lo, hi, width), None,
+                      "k12", (n, d, 0), launches["hist_pass_counts"], err,
+                      "dask_ml_tpu/preprocessing/data.py:94", card)]
+    k = len(nb.classes_)
+    err = hold_k9(torch, naive_bayes, Xt, labels, mask, k, f"{n}x{d} k={k} (15a's path)")
+    counts, means = naive_bayes.class_sums(Xt, labels, mask, k)
+    onehot = naive_bayes._onehot(labels, k, Xt.dtype)
+    dev2 = (Xt - onehot @ means) ** 2
+    out.append(prep_entry(
+        torch, "class_sums", lambda: naive_bayes.class_sums(Xt, labels, mask, k),
+        lambda: naive_bayes.class_sums_ref(Xt, labels, mask, k),
+        lambda: torch.mm(onehot.T, Xt), "k9_sums", (n, d, k), launches["class_sums"], err,
+        "dask_ml_tpu/naive_bayes.py:18", card))
+    out.append(prep_entry(
+        torch, "class_deviations",
+        lambda: naive_bayes.class_deviations(Xt, labels, mask, counts, means),
+        lambda: naive_bayes.class_deviations_ref(Xt, labels, mask, counts, means),
+        lambda: torch.mm(onehot.T, dev2), "k9_dev", (n, d, k), launches["class_deviations"],
+        err, "dask_ml_tpu/naive_bayes.py:18", card))
+    del onehot, dev2
+    args = (Xt, nb.theta_, nb.var_, nb.class_prior_)
+    err = hold_k9b(torch, naive_bayes, *args, f"{n}x{d} k={k} (15a's path)")
+    out.append(prep_entry(
+        torch, "gaussian_jll", lambda: naive_bayes.gaussian_jll(*args, predict=True),
+        lambda: naive_bayes.gaussian_jll_ref(*args, predict=True), None, "k9b_predict",
+        (n, d, k), launches["gaussian_jll"], err, "dask_ml_tpu/naive_bayes.py:138", card))
+    args = (Xb, est_b.theta_, est_b.var_, est_b.class_prior_)
+    kb = len(est_b.classes_)
+    err = hold_k9b(torch, naive_bayes, *args, f"{n}x{d} k={kb} (15b's path)")
+    out.append(prep_entry(
+        torch, f"gaussian_jll_k{kb}", lambda: naive_bayes.gaussian_jll(*args),
+        lambda: naive_bayes.gaussian_jll_ref(*args), None, "k9b_jll", (n, d, kb),
+        jll_b_launches, err, "dask_ml_tpu/naive_bayes.py:138", card))
+    return out
+
+
+def prep_other_work(torch, X, card):
+    """15c: RobustScaler().fit (the sketch at 3 probs), OneHotEncoder of 4
+    integer columns of 8 categories at 11M rows, and StandardScaler.fit
+    against a partial_fit over 11 blocks of 1M rows (var_ and scale_ rtol
+    PREP_RTOL, mean_ within PREP_RTOL of scale_: a mean near 0 has no
+    relative digits)."""
+    import numpy as np
+
+    from dask_ml_tpu_torch import OneHotEncoder, RobustScaler, StandardScaler
+
+    reset_prep_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = RobustScaler().fit(X)
+    torch.cuda.synchronize()
+    log(f"phase 15c: RobustScaler().fit at {tuple(X.shape)}: {time.perf_counter() - t0:.3f} s, "
+        f"K12 launches {prep_counts()['hist_pass_counts']}, scale_ in "
+        f"[{float(rs.scale_.min()):.4f}, {float(rs.scale_.max()):.4f}] [{card}]")
+    codes = np.random.RandomState(PREP_SEED).randint(0, OHE_CATS, (HIGGS_ROWS, OHE_COLS))
+    t0 = time.perf_counter()
+    enc = OneHotEncoder().fit(codes)
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oh = enc.transform(codes)
+    torch.cuda.synchronize()
+    t_tr = time.perf_counter() - t0
+    if tuple(oh.shape) != (HIGGS_ROWS, OHE_COLS * OHE_CATS) or float(oh.sum()) != HIGGS_ROWS * OHE_COLS:
+        raise AssertionError(f"OneHotEncoder gave {tuple(oh.shape)}")
+    log(f"phase 15c: OneHotEncoder of {OHE_COLS} integer columns of {OHE_CATS} categories at "
+        f"{HIGGS_ROWS} rows (host numpy in): fit {t_fit:.3f} s, transform {t_tr:.3f} s [{card}]")
+    del oh
+    t0 = time.perf_counter()
+    whole = StandardScaler().fit(X)
+    torch.cuda.synchronize()
+    t_whole = time.perf_counter() - t0
+    stream = StandardScaler()
+    t0 = time.perf_counter()
+    for s in range(0, X.shape[0], SCALER_BLOCK):
+        stream.partial_fit(X[s:s + SCALER_BLOCK])
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    log(f"phase 15c: StandardScaler.fit {t_whole:.3f} s, partial_fit over "
+        f"{-(-X.shape[0] // SCALER_BLOCK)} blocks {t_stream:.3f} s [{card}]")
+    close_to(torch, "StandardScaler var_ stream vs fit", stream.var_, whole.var_,
+             torch.zeros_like(whole.var_), PREP_RTOL)
+    close_to(torch, "StandardScaler scale_ stream vs fit", stream.scale_, whole.scale_,
+             torch.zeros_like(whole.scale_), PREP_RTOL)
+    close_to(torch, "StandardScaler mean_ stream vs fit", stream.mean_, whole.mean_,
+             whole.scale_, PREP_RTOL)
+    if stream.n_samples_seen_ != whole.n_samples_seen_:
+        raise AssertionError("StandardScaler: n_samples_seen_ differs")
+
+
+def prep_phase(torch, device, card):
+    """Phase 15 end to end; returns its lines of the kernels table."""
+    t0 = time.perf_counter()
+    X, y = nan_standin(torch, device)
+    torch.cuda.synchronize()
+    log(f"phase 15: HIGGS stand-in {HIGGS_ROWS}x{HIGGS_D} with {PREP_NAN:.0%} NaN on the card "
+        f"in {time.perf_counter() - t0:.2f} s [{card}]")
+    launches, Xt, labels, nb = prep_main_path(torch, X, y, card)
+    del X
+    Xb, labels_b, est_b, jll_b = nb_k10(torch, device, card)
+    out = prep_table(torch, Xt, labels, nb, launches, Xb, labels_b, est_b, jll_b, card)
+    del Xb, labels_b
+    prep_edges(torch, device, card)
+    prep_other_work(torch, Xt, card)
+    del Xt
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     yardstick = None
     for flag in ("--k4-yardstick", "--k5-yardstick", "--k7k10-yardstick", "--sweep-yardstick"):
@@ -5648,6 +6170,10 @@ def main() -> int:
         return 0
     if yardstick == "--sweep-yardstick":
         sweep_tree_yardstick(torch, device, card)
+        return 0
+    if "--prep-phase" in sys.argv:
+        _build.build(["histogram", "naive_bayes"])
+        print(json.dumps({"kernels": prep_phase(torch, device, card)}), flush=True)
         return 0
 
     # 2. build every kernel source, in parallel
@@ -5724,6 +6250,10 @@ def main() -> int:
     # 14. MiniBatchKMeans through K7, the pairwise distances through K10,
     # SpectralClustering's Nystrom path
     out += minibatch_phase(torch, device, card)
+
+    # 15. preprocessing, SimpleImputer and GaussianNB: the quantile sketch
+    # through K12, the class moments through K9, the likelihood through K9b
+    out += prep_phase(torch, device, card)
 
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

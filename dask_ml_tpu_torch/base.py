@@ -117,6 +117,30 @@ class TransformerMixin:
         return self.fit(X, y, **fit_params).transform(X)
 
 
+class OneToOneFeatureMixin:
+    """Output feature names equal to the input names, for transformers that
+    map each input feature to one output feature (scikit-learn's mixin of
+    that name, whose ``get_feature_names_out`` this repeats)."""
+
+    def get_feature_names_out(self, input_features=None):
+        if not hasattr(self, "n_features_in_"):
+            raise AttributeError(
+                f"This {type(self).__name__} instance is not fitted yet; call 'fit' first.")
+        names_in = getattr(self, "feature_names_in_", None)
+        if input_features is not None:
+            input_features = np.asarray(input_features, dtype=object)
+            if names_in is not None and not np.array_equal(names_in, input_features):
+                raise ValueError("input_features is not equal to feature_names_in_")
+            if len(input_features) != self.n_features_in_:
+                raise ValueError(
+                    f"input_features should have length equal to number of features "
+                    f"({self.n_features_in_}), got {len(input_features)}")
+            return input_features
+        if names_in is not None:
+            return np.asarray(names_in, dtype=object)
+        return np.asarray([f"x{i}" for i in range(self.n_features_in_)], dtype=object)
+
+
 class ComponentsOutMixin:
     """Output feature names ``<classname><i>`` for each fitted component
     (scikit-learn's ``ClassNamePrefixFeaturesOutMixin``, bound to

@@ -2,7 +2,8 @@
 numpy arrays, into a fitted port estimator (``KMeans``,
 ``LogisticRegression``: binary, one-vs-rest and multinomial,
 ``LinearRegression``, ``PoissonRegression``, ``PCA``, ``TruncatedSVD``,
-``IncrementalPCA``, ``SGDClassifier`` and ``SGDRegressor``)."""
+``IncrementalPCA``, ``SGDClassifier``, ``SGDRegressor``, the scalers,
+``QuantileTransformer``, ``SimpleImputer`` and ``GaussianNB``)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,11 @@ from .cluster.k_means import KMeans
 from .core.mesh import get_device
 from .decomposition import PCA, IncrementalPCA, TruncatedSVD
 from .linear_model._sgd import SGDClassifier, SGDRegressor
+from .impute import SimpleImputer
 from .linear_model.glm import LinearRegression, LogisticRegression, PoissonRegression
+from .naive_bayes import GaussianNB
+from .preprocessing.data import (
+    MaxAbsScaler, MinMaxScaler, QuantileTransformer, RobustScaler, StandardScaler)
 
 
 def kmeans_from_reference(arrays, *, device=None, **params) -> KMeans:
@@ -253,4 +258,97 @@ def sgd_regressor_from_reference(arrays, *, device=None, **params) -> SGDRegress
     est = SGDRegressor(**params)
     est._state = _sgd_state(arrays, 1, device)
     est.n_features_in_ = int(arrays["n_features_in_"])
+    return est
+
+
+def _fitted(cls, arrays, device, params, tensors, ints=(), optional=()):
+    """A ``cls(**params)`` with the ``tensors`` of ``arrays`` on ``device``
+    as float32 (a None entry stays None), its ``ints`` as ints, and those
+    ``optional`` tensors that ``arrays`` holds."""
+    missing = (set(tensors) | set(ints)) - set(arrays)
+    if missing:
+        raise ValueError(f"missing fitted attributes: {sorted(missing)}")
+    device = torch.device(device) if device is not None else get_device()
+    est = cls(**params)
+    for name in tuple(tensors) + tuple(o for o in optional if o in arrays):
+        value = arrays[name]
+        setattr(est, name, None if value is None else torch.tensor(
+            np.asarray(value, dtype=np.float32), device=device))
+    for name in ints:
+        setattr(est, name, int(arrays[name]))
+    return est
+
+
+def standard_scaler_from_reference(arrays, *, device=None, **params) -> StandardScaler:
+    """A fitted port ``StandardScaler`` from the reference's: ``arrays`` maps
+    ``mean_``, ``var_``, ``scale_`` (None where ``with_mean`` or
+    ``with_std`` is off), ``n_samples_seen_`` and ``n_features_in_``, and,
+    to go on with ``partial_fit``, the running ``_pf_mean`` and ``_pf_m2``."""
+    return _fitted(StandardScaler, arrays, device, params, ("mean_", "var_", "scale_"),
+                   ("n_samples_seen_", "n_features_in_"), ("_pf_mean", "_pf_m2"))
+
+
+def min_max_scaler_from_reference(arrays, *, device=None, **params) -> MinMaxScaler:
+    """A fitted port ``MinMaxScaler``: ``arrays`` maps ``data_min_``,
+    ``data_max_``, ``data_range_``, ``scale_``, ``min_``,
+    ``n_samples_seen_`` and ``n_features_in_``."""
+    return _fitted(MinMaxScaler, arrays, device, params,
+                   ("data_min_", "data_max_", "data_range_", "scale_", "min_"),
+                   ("n_samples_seen_", "n_features_in_"))
+
+
+def max_abs_scaler_from_reference(arrays, *, device=None, **params) -> MaxAbsScaler:
+    """A fitted port ``MaxAbsScaler``: ``arrays`` maps ``max_abs_``,
+    ``scale_``, ``n_samples_seen_`` and ``n_features_in_``."""
+    return _fitted(MaxAbsScaler, arrays, device, params, ("max_abs_", "scale_"),
+                   ("n_samples_seen_", "n_features_in_"))
+
+
+def robust_scaler_from_reference(arrays, *, device=None, **params) -> RobustScaler:
+    """A fitted port ``RobustScaler``: ``arrays`` maps ``center_`` and
+    ``scale_`` (None where centering or scaling is off) and
+    ``n_features_in_``."""
+    return _fitted(RobustScaler, arrays, device, params, ("center_", "scale_"),
+                   ("n_features_in_",))
+
+
+def quantile_transformer_from_reference(arrays, *, device=None,
+                                        **params) -> QuantileTransformer:
+    """A fitted port ``QuantileTransformer``: ``arrays`` maps ``quantiles_``
+    (n_quantiles_, d), ``references_``, ``n_quantiles_`` and
+    ``n_features_in_``; ``params`` (``output_distribution`` among them) go
+    to the constructor."""
+    return _fitted(QuantileTransformer, arrays, device, params, ("quantiles_", "references_"),
+                   ("n_quantiles_", "n_features_in_"))
+
+
+def simple_imputer_from_reference(arrays, *, device=None, **params) -> SimpleImputer:
+    """A fitted port ``SimpleImputer``: ``arrays`` maps ``statistics_`` and
+    ``n_features_in_``, and ``indicator_features_`` where ``add_indicator``
+    is on; ``params`` (``missing_values``, ``add_indicator``) go to the
+    constructor."""
+    est = _fitted(SimpleImputer, arrays, device, params, ("statistics_",),
+                  ("n_features_in_",))
+    if "indicator_features_" in arrays:
+        est.indicator_features_ = np.asarray(arrays["indicator_features_"], dtype=np.int64)
+    return est
+
+
+def gaussian_nb_from_reference(arrays, *, device=None, **params) -> GaussianNB:
+    """A fitted port ``GaussianNB`` from the reference's, able to go on with
+    ``partial_fit``: ``arrays`` maps ``theta_``, ``var_``,
+    ``class_count_``, ``class_prior_``, ``classes_``, the running ``_m2``
+    and ``_max_var``, and ``n_features_in_``."""
+    for name in ("classes_", "_max_var"):
+        if name not in arrays:
+            raise ValueError(f"missing fitted attributes: [{name!r}]")
+    est = _fitted(GaussianNB, arrays, device, params,
+                  ("theta_", "var_", "class_count_", "class_prior_", "_m2"),
+                  ("n_features_in_",))
+    est.classes_ = np.asarray(arrays["classes_"])
+    est._max_var = float(arrays["_max_var"])
+    k, d = len(est.classes_), est.n_features_in_
+    if tuple(est.theta_.shape) != (k, d) or tuple(est.var_.shape) != (k, d):
+        raise ValueError(f"theta_ {tuple(est.theta_.shape)} and var_ {tuple(est.var_.shape)} "
+                         f"do not make {k} classes of {d} features")
     return est

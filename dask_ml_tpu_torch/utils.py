@@ -72,6 +72,31 @@ def safe_denominator(x):
     return torch.where(x > 0, x, torch.ones_like(x))
 
 
+def chan_merge(na, ma, m2a, nb, mb, vb):
+    """Merge two (count, mean, M2) moment summaries (Chan et al. 1979), as
+    the reference's ``chan_merge``: the parallel-variance update of
+    ``StandardScaler.partial_fit`` (scalar count, (d,) moments) and
+    ``GaussianNB.partial_fit`` ((k, 1) counts, (k, d) moments).  ``vb`` is
+    the second summary's variance; returns ``(n, mean, m2)``."""
+    n = na + nb
+    nsafe = safe_denominator(n) if isinstance(n, torch.Tensor) else (n if n > 0 else 1.0)
+    delta = mb - ma
+    mean = ma + delta * (nb / nsafe)
+    m2 = m2a + vb * nb + delta * delta * (na * nb / nsafe)
+    return n, mean, m2
+
+
+def handle_zeros_in_scale(scale):
+    """Scales of (nearly) 0 become 1, so a constant feature is left as it
+    is (reference: ``utils.py :: handle_zeros_in_scale``): below
+    10·float eps for a vector, exactly 0 for a 0-d scale."""
+    scale = torch.as_tensor(scale)
+    if scale.ndim == 0:
+        return torch.where(scale == 0.0, torch.ones_like(scale), scale)
+    eps = 10 * torch.finfo(scale.dtype).eps
+    return torch.where(torch.abs(scale) < eps, torch.ones_like(scale), scale)
+
+
 def _check_class_weight_keys(class_weight, classes):
     """A dict key naming no fitted class is a typo, not a preference: raise
     as sklearn's ``compute_class_weight`` does."""

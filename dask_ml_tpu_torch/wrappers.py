@@ -7,7 +7,8 @@ data in row chunks; with one of the port's estimators and a
 ``Incremental`` streams row blocks through ``partial_fit``
 (``_partial.fit``, through the input pipeline at ``prefetch_depth``) from
 an array, an iterator of blocks or a sharded dataset.  A string
-``scoring`` is not ported yet and raises ``NotImplementedError``.
+``scoring`` goes through ``metrics.scorer.check_scoring``: ``accuracy``
+and ``r2`` are ported, and the other names raise there.
 """
 
 from __future__ import annotations

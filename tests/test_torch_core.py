@@ -135,7 +135,11 @@ def test_port_and_chip_smoke_import_none_of_jax_reference_or_sklearn_ast():
                    "data/shuffle.py", "data/readers.py", "pipeline/__init__.py",
                    "pipeline/core.py", "pipeline/staging.py", "pipeline/stats.py",
                    "model_selection/_search.py", "model_selection/_split.py",
-                   "compose/__init__.py", "compose/_pipeline.py"):
+                   "compose/__init__.py", "compose/_pipeline.py", "impute.py",
+                   "naive_bayes.py", "ops/histogram.py", "ops/naive_bayes.py",
+                   "preprocessing/__init__.py", "preprocessing/data.py",
+                   "preprocessing/label.py", "preprocessing/_encoders.py",
+                   "preprocessing/categorical.py", "preprocessing/_block_transformer.py"):
         assert f"dask_ml_tpu_torch/{module}" in scanned, module
     found = []
     for path in files:
@@ -150,6 +154,70 @@ def test_port_and_chip_smoke_import_none_of_jax_reference_or_sklearn_ast():
             found += [(path.name, n) for n in names if _forbidden(n)]
     assert not found, found
     assert not _forbidden("dask_ml_tpu_torch")
+
+
+def _module_level_imports(tree):
+    """The modules a file imports outside any function or class body."""
+    names = []
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                for child in getattr(node, field, []):
+                    stack += child.body if isinstance(child, ast.ExceptHandler) else [child]
+    return names
+
+
+def test_port_imports_pandas_only_inside_functions():
+    found = []
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        found += [(str(path.relative_to(REPO)), n) for n in _module_level_imports(tree)
+                  if n == "pandas" or n.startswith("pandas.")]
+    assert not found, found
+
+
+def test_port_runs_the_preprocessing_pipeline_without_pandas():
+    # a meta-path finder refuses pandas, as on a machine without it
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name == 'pandas' or name.startswith('pandas.'):\n"
+        "            raise ImportError('pandas is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "for m in [m for m in sys.modules if m == 'pandas' or m.startswith('pandas.')]:\n"
+        "    del sys.modules[m]\n"
+        "import numpy as np\n"
+        "import dask_ml_tpu_torch as p\n"
+        "p.set_device('cpu')\n"
+        "rng = np.random.RandomState(0)\n"
+        "x = rng.randn(400, 5).astype(np.float32)\n"
+        "y = (x[:, 0] + x[:, 1] > 0).astype(np.int64)\n"
+        "x[rng.rand(400, 5) < 0.05] = np.nan\n"
+        "pipe = p.make_pipeline(p.SimpleImputer(),\n"
+        "                       p.QuantileTransformer(output_distribution='normal'),\n"
+        "                       p.GaussianNB()).fit(x, y)\n"
+        "assert pipe.score(x, y) > 0.7\n"
+        "codes = rng.randint(0, 4, (50, 2))\n"
+        "assert p.OneHotEncoder().fit(codes).transform(codes).shape == (50, 8)\n"
+        "assert p.PolynomialFeatures().fit(x[:, :2]).transform(x[:, :2]).shape == (400, 6)\n"
+        "try:\n"
+        "    p.Categorizer().fit(x)\n"
+        "except ImportError as e:\n"
+        "    assert 'pandas' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('Categorizer ran without pandas')\n"
+        "assert not [m for m in sys.modules if m == 'pandas' or m.startswith('pandas.')]\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_port_imports_none_of_jax_reference_or_sklearn_at_run_time():

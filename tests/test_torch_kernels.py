@@ -2,7 +2,9 @@
 gradients, on float32 or bfloat16 x) and K2-OvR (its logistic and Normal
 families, on K targets of their own or one shared target) and K2-MN (the
 multi-class losses), K7 (MiniBatchKMeans' update and epoch) and K10 (the
-guarded pairwise distances) against their plain versions, on a card.
+guarded pairwise distances), K12 (the quantile sketch's histogram pass), K9
+(GaussianNB's class moments) and K9b (its joint log-likelihood) against
+their plain versions, on a card.
 
 The kernels are CUDA C++ with no CPU mode, so these tests skip without a
 card and ``nvcc``.  They import neither JAX nor the reference, so on a
@@ -30,7 +32,13 @@ anchor), √d² through its square and exp(−γd²) to 1e-5·γ·(‖x−a‖²
 its flagged count equals the plain version's, and a self call's diagonal is
 exactly 0.  The edge cases of K10's tiles add to the exp(−γd²) bound two
 float32 ulps of the value, the rounding of exp itself (at d = 1 and a scale
-near 1e-3 the d² term alone is below one ulp of a value near 1).
+near 1e-3 the d² term alone is below one ulp of a value near 1).  K12's
+counts are uint32 and exact: they equal the plain version's, and two
+launches give the same bits.  K9's sums run in another order than its
+plain version's gemms: counts, means and variances agree to 1e-5 of the
+larger of |plain| and the class's mean |x| (means) or its largest variance
+(variances), and two launches give the same bits.  K9b rounds every
+operation as its plain version and gives its bits.
 """
 
 import shutil
@@ -1000,3 +1008,88 @@ def test_sq_euclidean_safe_repeats_in_the_last_band(cuda, d):
     got, flagged = _hold_k10(x, y, "sq")
     assert flagged >= 7
     assert bool((got[-7:].gather(1, torch.arange(7, device=cuda)[:, None]) == 0).all())
+
+
+# K12, K9 and K9b
+from dask_ml_tpu_torch.ops import histogram, naive_bayes  # noqa: E402
+
+
+def _window_inputs(n, d, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, d, generator=gen, device=device)
+    if d >= 3:
+        x[:, 1] = 3.0  # a constant column
+        x[n // 2, 2] = 1e9  # an outlier
+    mask = (torch.rand(n, generator=gen, device=device) > 0.05).float()
+    lo = torch.where(mask[:, None] > 0, x, float("inf")).amin(0)
+    hi = torch.where(mask[:, None] > 0, x, -float("inf")).amax(0)
+    return x, mask, lo, hi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(10_007, 28), (4_099, 130), (777, 1), (5, 3), (2_000_003, 7)])
+@pytest.mark.parametrize("narrow", [False, True])
+def test_hist_pass_counts_equal_the_plain_version(cuda, n, d, narrow):
+    x, mask, lo, hi = _window_inputs(n, d, n + d, cuda)
+    if narrow:
+        mid, half = 0.5 * (lo + hi), 0.05 * (hi - lo)
+        lo, hi = mid - half, mid + half
+    width = torch.clamp_min(hi - lo, 1e-30)
+    got = histogram.hist_pass_counts(x, mask, lo, hi, width)
+    again = histogram.hist_pass_counts(x, mask, lo, hi, width)
+    want = histogram.hist_pass_counts_ref(x, mask, lo, hi, width)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, c) and torch.equal(a, b)
+
+
+def _nb_inputs(n, d, k, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, d, generator=gen, device=device) * 2 + 1
+    labels = torch.randint(0, k, (n,), generator=gen, device=device, dtype=torch.int32)
+    w = torch.rand(n, generator=gen, device=device) * 2
+    w[torch.rand(n, generator=gen, device=device) < 0.1] = 0.0
+    return x, labels, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(10_007, 28, 2), (10_007, 28, 10), (4_099, 130, 3),
+                                   (777, 1, 2), (5, 3, 4), (3_001, 29, 100)])
+def test_class_moments_match_the_plain_version(cuda, n, d, k):
+    x, labels, w = _nb_inputs(n, d, k, n + k, cuda)
+    got = naive_bayes.class_moments(x, labels, w, k)
+    again = naive_bayes.class_moments(x, labels, w, k)
+    counts, means, var = naive_bayes.class_moments_ref(x, labels, w, k)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    scale = naive_bayes.class_sums_ref(x.abs(), labels, w, k)[1]
+    assert bool(((got[0] - counts).abs() <= TOL * counts.abs().max()).all())
+    assert bool(((got[1] - means).abs() <= TOL * torch.maximum(means.abs(), scale)).all())
+    assert bool(((got[2] - var).abs() <= TOL * var.abs().amax(1, keepdim=True)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(10_007, 28, 2), (10_007, 28, 10), (4_099, 130, 3),
+                                   (777, 1, 2), (5, 3, 4), (1_001, 600, 7)])
+def test_gaussian_jll_gives_the_plain_version_s_bits(cuda, n, d, k):
+    x, _, _ = _nb_inputs(n, d, k, n + d, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    theta = torch.randn(k, d, generator=gen, device=cuda)
+    var = torch.rand(k, d, generator=gen, device=cuda) + 0.5
+    prior = torch.softmax(torch.randn(k, generator=gen, device=cuda), 0)
+    for predict in (False, True):
+        got = naive_bayes.gaussian_jll(x, theta, var, prior, predict)
+        assert torch.equal(got, naive_bayes.gaussian_jll_ref(x, theta, var, prior, predict))
+
+
+@pytest.mark.cuda
+def test_preprocessing_and_nb_wrappers_count_their_launches(cuda):
+    x, labels, w = _nb_inputs(1000, 5, 3, 0, cuda)
+    lo, hi = x.amin(0), x.amax(0)
+    counters = (histogram.hist_pass_counts, naive_bayes.class_sums,
+                naive_bayes.class_deviations, naive_bayes.gaussian_jll)
+    before = [f.launches for f in counters]
+    histogram.hist_pass_counts(x, w, lo, hi, hi - lo)
+    counts, means, var = naive_bayes.class_moments(x, labels, w, 3)
+    naive_bayes.gaussian_jll(x, means, var + 1, counts / counts.sum())
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
+    naive_bayes.class_moments_ref(x, labels, w, 3)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
