@@ -20,7 +20,8 @@ pass apart) on the package under ROOT.  ``python3 chip_smoke.py --sweep-yardstic
 13a's packed ``GridSearchCV`` (one warm search, two timed on the host
 clock, one under ``torch.profiler``: K2-OvR's device time and the idle
 share) and holds and times 13d's shared-target K2-OvR entries, on the
-package under ROOT.
+package under ROOT.  ``python3 chip_smoke.py --prep-phase`` and
+``--ensemble-phase`` build their sources and run phase 15 or 16 alone.
 
 Phases, in order; any failure exits non-zero:
 
@@ -328,8 +329,36 @@ Phases, in order; any failure exits non-zero:
    outlier (1e9) and a constant column, a narrow window, and fractional
    weights; ``RobustScaler().fit`` (K12 at 3 probs), ``OneHotEncoder`` of 4
    integer columns of 8 categories at 11M rows, and ``StandardScaler.fit``
-   against a ``partial_fit`` over 11 blocks of 1M rows (rtol 1e-5).  Then
-   the ``kernels`` line, the card line and the result.
+   against a ``partial_fit`` over 11 blocks of 1M rows (rtol 1e-5).
+16. The blockwise voting ensembles through K5′ (``csrc/sgd.cu ::
+   sgd_group_step``: an ensemble epoch in one launch, each member on its
+   own window of X read in place) and the rest of ``metrics/``.  16a: K5′
+   against its plain version taken in float64 (``hold_group``: each
+   member's loss and count rtol 1e-5, its coef and intercept to 1e-5 of its
+   largest step plus their float32 rounding, hinge's kink rows allowed
+   their jump, t equal, the same bits twice) at (M, window, d, K) in
+   ``K5P_SHAPES`` with ragged spans, the last window overlapping its
+   neighbour, an all-padding member, fractional masks, each loss family,
+   penalty and schedule.  16b: X 8·2^20 x 64 float32 on the card with y =
+   [sigmoid(X·w) > U] (``datasets.stream_classification_blocks``), a
+   10-class target argmax(X·W + N(0, 1)) and a regression target X·w +
+   N(0, 1); ``BlockwiseVotingClassifier(SGDClassifier(log_loss, l2,
+   tol=None, max_iter=5), n_blocks=8)``, the 10-class soft-voting ensemble
+   (K = 10, K5′'s tensor-core path; constant eta0 = 20) and
+   ``BlockwiseVotingRegressor(SGDRegressor)`` (constant eta0 = 0.5), the
+   counts set to 0 just before each fit and read just after; gates: K5′
+   launched once an epoch and its plain version never, no synchronizing
+   operation between the first K5′ launch and the end of the last
+   (``torch.cuda.set_sync_debug_mode``), each member within 1e-4·‖coef‖∞ of
+   the same fit through the plain version on the card, ``score`` at least
+   0.98 of the true model's; each fit's wall time and, profiled once more,
+   its idle share.  16c: K5′ at (8, 2^20, 64, 1) and (8, 2^20, 64, 10) on
+   16b's data, held as in 16a, then timed (CUDA events, queued) in turns
+   with 8 launches of K4's ``sgd_update`` on the same windows, beside its
+   plain version and its bound by bytes.  16d: the metrics on 16b's
+   predictions against numpy float64 versions of their formulas
+   (``roc_auc_score`` with ties and weights within 1e-9).  Then the
+   ``kernels`` line, the card line and the result.
 
 The script imports nothing of JAX or of the JAX package.  Without CUDA it
 prints no result and exits 1.
@@ -6136,6 +6165,449 @@ def prep_phase(torch, device, card):
     return out
 
 
+# ----------------------------------------------------------------- phase 16
+ENS_ROWS = 8 * (1 << 20)  # 16b: 8 blocks of streamed_sgd_70x1048576x64's 2^20 x 64
+ENS_D = 64
+ENS_BLOCKS = 8
+ENS_ITER = 5
+ENS_K = 10
+ENS_SEED = 16
+ENS_RTOL = 1e-4  # each member's coef against the same fit through the plain version
+K5P_TOL = 1e-5
+K5P_SHAPES = ((2, 1000, 3, 1), (5, 4097, 64, 1), (8, (1 << 20) + 3, 64, 1), (3, 12345, 64, 10),
+              (4, 999, 130, 1))
+K5P_REPS = 20
+METRIC_ROWS = 1 << 20  # 16d's log_loss on the 10-class probabilities of the first rows
+SGD_LOSSES = ("log_loss", "hinge", "squared_hinge", "modified_huber", "squared_error", "huber")
+SGD_PENALTIES = ("l2", "l1", "elasticnet", None)
+SGD_SCHEDULES = ("optimal", "constant", "invscaling", "adaptive")
+
+
+def group_inputs(torch, M, size_hint, d, K, loss, seed, device):
+    """16a's inputs: x (n, d) cut into M ragged spans as the ensemble cuts
+    it (windows as long as the longest span, the last pulled left over its
+    neighbour), targets, masks in [0, 2) with a tenth 0 and the last
+    member's own rows all padding, a state and per-member hyperparameters."""
+    import numpy as np
+
+    from dask_ml_tpu_torch.ops.sgd import CLASSIFIER_LOSSES
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = M * size_hint - (M - 1)
+    bounds = np.linspace(0, n, M + 1, dtype=int)
+    spans = [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+    size = max(b - a for a, b in spans)
+    starts = tuple(min(a, n - size) for a, _ in spans)
+    x = torch.randn(n, d, generator=gen, device=device)
+    if loss in CLASSIFIER_LOSSES:
+        idx = torch.randint(0, max(K, 2), (n,), generator=gen, device=device)
+        y = (2.0 * torch.nn.functional.one_hot(idx, max(K, 2)).float() - 1.0)[:, -K:].contiguous()
+    else:
+        y = 2.0 * torch.randn(n, 1, generator=gen, device=device)
+    mask = 2.0 * torch.rand(n, generator=gen, device=device)
+    mask[torch.rand(n, generator=gen, device=device) < 0.1] = 0.0
+    mask[spans[-1][0]:] = 0.0
+    valid = torch.zeros(M, size, device=device)
+    for b, ((lo, hi), st) in enumerate(zip(spans, starts)):
+        valid[b, lo - st:hi - st] = 1.0
+    masks = torch.stack([mask[s:s + size] for s in starts]) * valid
+    coef = torch.randn(M, d, K, generator=gen, device=device) / d ** 0.5
+    intercept = 0.1 * torch.randn(M, K, generator=gen, device=device)
+    t = 3.0 * torch.arange(M, dtype=torch.float32, device=device)
+    hypers = torch.stack([sgd_hyper(torch, device, eta_scale=0.5)] * M)
+    hypers[:, 0] *= torch.linspace(0.5, 2.0, M, device=device)
+    return x, y, starts, masks, coef, intercept, t, hypers
+
+
+def hinge_allowance(torch, x, y, starts, masks, coef, intercept, eta):
+    """Per member, what its rows within 1e-5 of hinge's kink may move the
+    update by (each such row's dℓ may jump by mask·|x| over the count)."""
+    f64 = torch.float64
+    B = masks.shape[1]
+    out = []
+    for m, s in enumerate(starts):
+        xm, ym = x[s:s + B].to(f64), y[s:s + B].to(f64)
+        z = ym * (xm @ coef[m].to(f64) + intercept[m].to(f64))
+        near = ((z - 1.0).abs() <= 1e-5 * (1.0 + z.abs())) & (masks[m][:, None] > 0)
+        count = max(float(masks[m].sum()), 1.0)
+        out.append(float(eta[m]) * int(near.sum()) * float(masks[m].max())
+                   * float(xm.abs().max()) / count)
+    return out
+
+
+def hold_group(torch, k5p, case, what, loss, penalty="l2", schedule="optimal",
+               fit_intercept=True):
+    """16a: K5′ against its plain version taken in float64 on the same
+    inputs: each member's mean loss and Σ mask to rtol K5P_TOL, its coef and
+    intercept to K5P_TOL of its largest step plus 2^-22 of each element (the
+    float32 rounding of the stored c − eta·g), with hinge's rows within
+    1e-5 of its kink allowed their jump, t equal; twice, with the same bits.
+    Returns the largest absolute difference of coef, intercept and loss."""
+    from dask_ml_tpu_torch.ops.sgd import learning_rate
+
+    x, y, starts, masks, coef, intercept, t, hypers = case
+    kw = dict(loss=loss, penalty=penalty, schedule=schedule, fit_intercept=fit_intercept)
+    runs = []
+    for _ in range(2):
+        state = [v.clone() for v in (coef, intercept, t)]
+        out = k5p.group_step(x, y, starts, masks, *state, hypers, **kw)
+        runs.append(state + [out])
+    torch.cuda.synchronize()
+    gate(all(torch.equal(a, b) for a, b in zip(*runs)), f"16a: {what}: a repeat gave other bits",
+         phase=16)
+    f64 = torch.float64
+    ref = [v.to(f64) for v in (coef, intercept, t)]
+    ref_out = k5p.group_step_ref(x.to(f64), y.to(f64), starts, masks.to(f64), *ref,
+                                 hypers.to(f64), **kw)
+    got_c, got_b, got_t, got_out = (v.to(f64) for v in runs[0])
+    M = masks.shape[0]
+    step_c = (coef.to(f64) - ref[0]).abs().reshape(M, -1).amax(dim=1)
+    step_b = (intercept.to(f64) - ref[1]).abs().amax(dim=1)
+    slack = torch.zeros(M, dtype=f64, device=x.device)
+    if loss == "hinge":
+        eta = [learning_rate(schedule, t[m].to(f64), hypers[m].to(f64)) for m in range(M)]
+        slack += torch.tensor(hinge_allowance(torch, x, y, starts, masks, coef, intercept, eta),
+                              dtype=f64, device=x.device)
+    tol_c = (K5P_TOL * step_c + slack)[:, None, None] + 2.0 ** -22 * ref[0].abs()
+    tol_b = (K5P_TOL * step_b + slack)[:, None] + 2.0 ** -22 * ref[1].abs()
+    err_c, err_b = (got_c - ref[0]).abs(), (got_b - ref[1]).abs()
+    err_out = (got_out - ref_out).abs()
+    gate(bool((err_c <= tol_c).all()) and bool((err_b <= tol_b).all()),
+         f"16a: {what}: coef off by {float(err_c.max()):.3g} (tolerance {float(tol_c.min()):.3g}"
+         f"..), intercept by {float(err_b.max()):.3g}", phase=16)
+    gate(bool((err_out <= K5P_TOL * ref_out.abs()).all()),
+         f"16a: {what}: (loss, count) off by {float(err_out.max()):.3g}", phase=16)
+    gate(torch.equal(got_t, ref[2]), f"16a: {what}: t differs", phase=16)
+    return max(float(err_c.max()), float(err_b.max()), float(err_out[:, 0].max()))
+
+
+def compare_group(torch, k5p, device):
+    """16a: K5′ at every shape of K5P_SHAPES, each loss family (three at the
+    full-size shape), penalty and schedule in turn, fit_intercept off in a
+    fifth of the cases."""
+    worst, n_cases = 0.0, 0
+    for (M, s, d, K) in K5P_SHAPES:
+        losses = SGD_LOSSES if K == 1 else SGD_LOSSES[:4]
+        if s > 1 << 19:
+            losses = ("log_loss", "hinge", "squared_error")
+        for loss in losses:
+            i = n_cases
+            penalty, schedule = SGD_PENALTIES[i % 4], SGD_SCHEDULES[i % 4]
+            case = group_inputs(torch, M, s, d, K, loss, i, device)
+            what = (f"M={M} window {case[3].shape[1]} of {case[0].shape[0]} rows, d={d} K={K} "
+                    f"{loss} {penalty} {schedule}")
+            worst = max(worst, hold_group(torch, k5p, case, what, loss, penalty, schedule,
+                                          fit_intercept=i % 5 != 3))
+            n_cases += 1
+            del case
+    log(f"phase 16a: K5′ held against its plain version (float64) at {n_cases} cases of "
+        f"{len(K5P_SHAPES)} shapes (ragged windows, the last overlapping, an all-padding "
+        f"member, fractional masks), each twice with the same bits: largest |Δ| {worst:.3g}")
+    return worst
+
+
+def ens_standin(torch, device):
+    """16b's data, made on the card from ENS_SEED: X 8·2^20 x 64 standard
+    normal and y = [sigmoid(X·w) > U] (``datasets.stream_classification_blocks``,
+    one block, w standard normal); the 10-class labels argmax(X·W + N(0, 1));
+    the regression target X·w + N(0, 1)."""
+    from dask_ml_tpu_torch.core import ShardedRows
+    from dask_ml_tpu_torch.datasets import stream_classification_blocks
+
+    gen = torch.Generator(device=device).manual_seed(ENS_SEED)
+    w = torch.randn(ENS_D, generator=gen, device=device)
+    W = torch.randn(ENS_D, ENS_K, generator=gen, device=device)
+    X, y = next(stream_classification_blocks(1, ENS_ROWS, ENS_D, seed=ENS_SEED + 1, coef=w,
+                                             device=device))
+    noise = torch.randn(ENS_ROWS, ENS_K, generator=gen, device=device)
+    y10 = torch.argmax(X.data @ W + noise, dim=1).to(torch.float32)
+    yr = X.data @ w + torch.randn(ENS_ROWS, generator=gen, device=device)
+    as_rows = lambda v: ShardedRows(data=v, mask=X.mask, n_samples=ENS_ROWS)  # noqa: E731
+    return X, y, as_rows(y10), as_rows(yr), w, W
+
+
+def ens_makers():
+    """16b's three ensembles: (label, maker taking max_iter, truth kind)."""
+    from dask_ml_tpu_torch import (
+        BlockwiseVotingClassifier, BlockwiseVotingRegressor, SGDClassifier, SGDRegressor)
+
+    return (
+        ("BlockwiseVotingClassifier(SGDClassifier(log_loss, l2), n_blocks=8)",
+         lambda it: BlockwiseVotingClassifier(
+             SGDClassifier(loss="log_loss", penalty="l2", tol=None, max_iter=it),
+             n_blocks=ENS_BLOCKS)),
+        (f"BlockwiseVotingClassifier(SGDClassifier(log_loss, constant eta0=20), soft), "
+         f"{ENS_K} classes",
+         lambda it: BlockwiseVotingClassifier(
+             SGDClassifier(loss="log_loss", tol=None, max_iter=it, learning_rate="constant",
+                           eta0=20.0), voting="soft", n_blocks=ENS_BLOCKS)),
+        ("BlockwiseVotingRegressor(SGDRegressor(constant eta0=0.5))",
+         lambda it: BlockwiseVotingRegressor(
+             SGDRegressor(tol=None, max_iter=it, learning_rate="constant", eta0=0.5),
+             n_blocks=ENS_BLOCKS)),
+    )
+
+
+def loop_syncs(torch, k5p, fn):
+    """The synchronizing CUDA operations ``fn`` makes (host reads among
+    them), counted by ``torch.cuda.set_sync_debug_mode("warn")``: (those
+    from the start of its first K5′ call to the end of its last, the epoch
+    loop; all of them)."""
+    import warnings
+
+    real = k5p.group_step
+    marks = []
+
+    def marked(*args, **kwargs):
+        marks.append(len(caught))
+        out = real(*args, **kwargs)
+        marks.append(len(caught))
+        return out
+
+    marked.launches = real.launches  # the wrapper counts its launches here while it stands in
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        k5p.group_step = marked
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            k5p.group_step = real
+            real.launches = marked.launches
+    syncs = ["synchroniz" in str(c.message) for c in caught]
+    return sum(syncs[marks[0]:marks[-1]]), sum(syncs)
+
+
+def ensemble_fit(torch, k5p, label, make, X, y, truth, card):
+    """16b: one ensemble fit at full width, the counts set to 0 just before
+    it and read just after; gates: K5′ once an epoch and its plain version
+    never, no synchronizing operation from the first K5′ launch to the end
+    of the last (no host read in the epoch loop),
+    each member's coef within ENS_RTOL·‖coef‖∞ of the same fit through the
+    plain version on the card, and ``score`` at least 0.98 of ``truth``.
+    Prints the fit's wall time (host clock after a sync) and, from one more
+    fit under ``torch.profiler``, its idle share.  Returns (the fitted
+    ensemble, K5′'s launches)."""
+    k5p.group_step.launches = 0
+    k5p.group_step_ref.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = make(ENS_ITER).fit(X, y)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches, plain = k5p.group_step.launches, k5p.group_step_ref.calls
+    gate(launches == ENS_ITER and plain == 0,
+         f"16b: {label}: {launches} K5′ launches and {plain} plain calls for {ENS_ITER} epochs",
+         phase=16)
+    in_loop, syncs = loop_syncs(torch, k5p, lambda: make(ENS_ITER).fit(X, y))
+    gate(in_loop == 0, f"16b: {label}: {in_loop} synchronizing operations in the epoch loop",
+         phase=16)
+    real = k5p.group_step
+    k5p.group_step = k5p.group_step_ref
+    try:
+        plain_est = make(ENS_ITER).fit(X, y)
+    finally:
+        k5p.group_step = real
+    gap = 0.0
+    for a, b in zip(est.estimators_, plain_est.estimators_):
+        ca, cb = a._state["coef"], b._state["coef"]
+        scale = float(cb.abs().max())
+        gap = max(gap, float((ca - cb).abs().max()) / scale,
+                  float((a._state["intercept"] - b._state["intercept"]).abs().max()) / scale)
+    gate(gap <= ENS_RTOL, f"16b: {label}: a member is {gap:.3g}·‖coef‖∞ from the plain "
+         "version's fit", phase=16)
+    score = est.score(X, y)
+    gate(score >= 0.98 * truth, f"16b: {label}: score {score:.5f} below 0.98 of the true "
+         f"model's {truth:.5f}", phase=16)
+    log(f"phase 16b: {label} on {ENS_ROWS}x{ENS_D}: fit {fit_s:.3f} s on the host clock, "
+        f"{launches} K5′ launches (one an epoch), synchronizing operations {syncs} in a fit, "
+        f"{in_loop} of them in the epoch loop, score {score:.5f} (the true model "
+        f"{truth:.5f}, {score / truth:.4f} of it), members within {gap:.3g}·‖coef‖∞ of the "
+        f"plain version's fit [{card}]")
+    wall_ms, per_name = device_profile(torch, lambda: make(ENS_ITER).fit(X, y))
+    log_profile(f"phase 16b: {label}, profiled fit", wall_ms, per_name, card)
+    return est, launches
+
+
+def ensemble_main_path(torch, k5p, device, card):
+    """16b: the three ensembles on one dataset; returns the data, the fitted
+    ensembles and K5′'s launches by target width."""
+    t0 = time.perf_counter()
+    X, y, y10, yr, w, W = ens_standin(torch, device)
+    torch.cuda.synchronize()
+    log(f"phase 16: {ENS_ROWS}x{ENS_D} float32 on the card in {time.perf_counter() - t0:.2f} s "
+        f"[{card}]")
+    xw = X.data @ w
+    truths = (float(((xw > 0).to(torch.float32) == y.data).to(torch.float32).mean()),
+              float((torch.argmax(X.data @ W, dim=1).to(torch.float32) == y10.data)
+                    .to(torch.float32).mean()),
+              float(1.0 - torch.sum((yr.data - xw) ** 2)
+                    / torch.sum((yr.data - yr.data.mean()) ** 2)))
+    del xw
+    fits, launches = [], {1: 0, ENS_K: 0}
+    for (label, make), target, truth in zip(ens_makers(), (y, y10, yr), truths):
+        est, n = ensemble_fit(torch, k5p, label, make, X, target, truth, card)
+        fits.append(est)
+        launches[ENS_K if target is y10 else 1] += n
+    return X, (y, y10, yr), fits, launches
+
+
+def encoded(torch, y, K):
+    """±1 one-vs-all targets (n, K) of labels 0..K-1 (K = 1: the binary
+    column)."""
+    if K == 1:
+        return torch.where(y > 0, 1.0, -1.0)[:, None].contiguous()
+    return 2.0 * torch.nn.functional.one_hot(y.to(torch.int64), K).to(torch.float32) - 1.0
+
+
+def group_table(torch, k5p, X, targets, launches, card):
+    """16c: K5′ at the main path's shapes, (8, 2^20, 64, 1) and (8, 2^20, 64,
+    10) on 16b's X and labels (windows of 2^20 rows, log_loss, l2,
+    optimal), held as in 16a, then timed (CUDA events over K5P_REPS
+    launches queued behind a device sleep) in turns with 8 launches of K4's
+    ``sgd_update`` on the same windows (K5′, K4 x 8, K5′, K4 x 8), beside the
+    plain version's time and the bound by bytes (the windows' x, targets
+    and masks read once)."""
+    from dask_ml_tpu_torch.ops import sgd
+
+    M, B, d = ENS_BLOCKS, ENS_ROWS // ENS_BLOCKS, ENS_D
+    starts = tuple(range(0, ENS_ROWS, B))
+    masks = X.mask.reshape(M, B)
+    gen = torch.Generator(device=X.data.device).manual_seed(ENS_SEED + 2)
+    out = []
+    for K, y in ((1, targets[0]), (ENS_K, targets[1])):
+        Y = encoded(torch, y.data, K)
+        coef = torch.randn(M, d, K, generator=gen, device=X.data.device) / d ** 0.5
+        intercept = 0.1 * torch.randn(M, K, generator=gen, device=X.data.device)
+        t = torch.full((M,), 5.0, device=X.data.device)
+        hypers = torch.stack([sgd_hyper(torch, X.data.device)] * M)
+        name = "group_step" if K == 1 else f"group_step_K{K}"
+        err = hold_group(torch, k5p, (X.data, Y, starts, masks, coef, intercept, t, hypers),
+                         f"16c's {name}", "log_loss")
+        kw = dict(loss="log_loss", penalty="l2", schedule="optimal")
+        c, b, tt = coef.clone(), intercept.clone(), t.clone()
+        group = lambda: k5p.group_step(X.data, Y, starts, masks, c, b, tt, hypers, **kw)  # noqa
+        k4 = lambda: [sgd.sgd_update(X.data[s:s + B], Y[s:s + B], masks[m], c[m], b[m], tt[m],  # noqa
+                                     hypers[m], **kw) for m, s in enumerate(starts)]
+        ms, k4_ms = [], []
+        for _ in range(2):
+            ms.append(queued_ms(torch, group, K5P_REPS))
+            k4_ms.append(queued_ms(torch, k4, K5P_REPS))
+        plain_ms = time_ms(torch, lambda: k5p.group_step_ref(X.data, Y, starts, masks, c, b, tt,
+                                                             hypers, **kw), 3)
+        nbytes = M * B * (d + K + 1) * 4 + 2 * M * (d + 1) * K * 4
+        b_ms, b_by = bound_ms(nbytes, 4 * M * B * d * K)
+        log(f"phase 16c: {name} at ({M}, {B}, {d}, {K}): {ms[0]:.4f}, {ms[1]:.4f} ms "
+            f"({b_ms / ms[0]:.1%}, {b_ms / ms[1]:.1%} of the bound); {M} launches of K4's "
+            f"sgd_update on the same windows {k4_ms[0]:.4f}, {k4_ms[1]:.4f} ms; plain "
+            f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.4f} GB); "
+            f"launches on the path {launches[K]}, max abs err {err:.3g} [{card}]")
+        out.append({"name": name, "route": "cuda", "source": "dask_ml_tpu_torch/csrc/sgd.cu",
+                    "replaces": "dask_ml_tpu/ensemble/_blockwise.py:64", "launches": launches[K],
+                    "max_abs_err": err, "ms": ms[0], "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None})
+        del Y
+    return out
+
+
+def auc64(np, t, s, w):
+    """ROC AUC in float64 by distinct scores: each positive's weight times
+    the negatives' weight below its score plus half of that at it."""
+    vals, inv = np.unique(s, return_inverse=True)
+    pos = np.bincount(inv, weights=w * t, minlength=len(vals))
+    neg = np.bincount(inv, weights=w * (1 - t), minlength=len(vals))
+    below = np.cumsum(neg) - neg
+    return float(np.sum(pos * (below + 0.5 * neg)) / (pos.sum() * neg.sum()))
+
+
+def close(label, got, want, rtol, atol=0.0):
+    gate(abs(got - want) <= rtol * abs(want) + atol,
+         f"16d: {label} {got!r} against the float64 formula's {want!r}", phase=16)
+    return abs(got - want)
+
+
+def ens_metrics(torch, X, targets, fits, card):
+    """16d: the new metrics on 16b's predictions against numpy float64
+    versions of their formulas: the binary ensemble's labels (precision,
+    recall, F1, the confusion matrix, balanced accuracy, weighted by
+    w = k/4, k in 1..4, rtol 1e-12: the counts are exact), ROC AUC of the
+    first member's margins rounded to 0.01 (ties) with those weights (AUC
+    within 1e-9), log_loss of the 10-class ensemble's probabilities on the
+    first METRIC_ROWS rows (rtol 1e-9, float64 in both) and the regression
+    metrics of the regressor's predictions (float32 sums on the card: rtol
+    1e-5; the median exact)."""
+    import numpy as np
+
+    from dask_ml_tpu_torch import metrics
+
+    y, y10, yr = targets
+    est, est10, est_r = fits
+    n = ENS_ROWS
+    t = y.data.cpu().numpy().astype(np.int64)
+    pred = est.predict(X)
+    p = pred.astype(np.int64)
+    w = np.random.RandomState(ENS_SEED).randint(1, 5, n) / 4.0
+    t0 = time.perf_counter()
+    got = {k: getattr(metrics, f"{k}_score")(y, pred, sample_weight=w)
+           for k in ("precision", "recall", "f1")}
+    cm = metrics.confusion_matrix(y, pred, sample_weight=w)
+    bal = metrics.balanced_accuracy_score(y, pred, sample_weight=w)
+    tp, pp, tpos = (w * (t == 1) * (p == 1)).sum(), (w * (p == 1)).sum(), (w * (t == 1)).sum()
+    want = {"precision": tp / pp, "recall": tp / tpos}
+    want["f1"] = 2 * want["precision"] * want["recall"] / (want["precision"] + want["recall"])
+    for k in want:
+        close(k, got[k], want[k], 1e-12)
+    cm64 = np.array([[(w * (t == i) * (p == j)).sum() for j in (0, 1)] for i in (0, 1)])
+    gate(np.allclose(cm, cm64, rtol=1e-12, atol=0), f"16d: confusion_matrix {cm} against "
+         f"{cm64}", phase=16)
+    close("balanced_accuracy", bal, float(np.mean(np.diag(cm64) / cm64.sum(axis=1))), 1e-12)
+    s = torch.round(est.estimators_[0].decision_function(X) * 100.0) / 100.0
+    auc = metrics.roc_auc_score(y, s, sample_weight=w)
+    gap_auc = close("roc_auc_score", auc, auc64(np, t, s.cpu().numpy().astype(np.float64), w),
+                    0.0, 1e-9)
+    proba = est10.predict_proba(X.data[:METRIC_ROWS])
+    t10 = y10.data[:METRIC_ROWS].cpu().numpy().astype(np.int64)
+    ll = metrics.log_loss(t10, proba)
+    pc = np.clip(proba, np.finfo(np.float64).eps, 1 - np.finfo(np.float64).eps)
+    pc = pc / pc.sum(axis=1, keepdims=True)
+    close("log_loss", ll, float(-np.mean(np.log(pc[np.arange(METRIC_ROWS), t10]))), 1e-9)
+    pr = est_r.predict(X)
+    yt64, pr64 = yr.data.cpu().numpy().astype(np.float64), pr.cpu().numpy().astype(np.float64)
+    e = yt64 - pr64
+    regs = {"mean_squared_error": np.mean(e ** 2), "mean_absolute_error": np.mean(np.abs(e)),
+            "r2_score": 1 - np.sum(e ** 2) / np.sum((yt64 - yt64.mean()) ** 2),
+            "explained_variance_score": 1 - np.var(e) / np.var(yt64),
+            "mean_absolute_percentage_error": np.mean(np.abs(e) / np.maximum(
+                np.abs(yt64), np.finfo(np.float64).eps))}
+    for k, v in regs.items():
+        close(k, getattr(metrics, k)(yr, pr), float(v), 1e-5)
+    close("median_absolute_error", metrics.median_absolute_error(yr, pr),
+          float(np.median(np.abs(yr.data.cpu().numpy() - pr.cpu().numpy()))), 1e-7)
+    msle = np.mean((np.log1p(np.abs(yt64)) - np.log1p(np.abs(pr64))) ** 2)
+    close("mean_squared_log_error", metrics.mean_squared_log_error(yr.data.abs(), pr.abs()),
+          float(msle), 1e-5)
+    log(f"phase 16d: metrics on {n} predictions against float64 formulas in "
+        f"{time.perf_counter() - t0:.2f} s: precision {got['precision']:.6f}, recall "
+        f"{got['recall']:.6f}, f1 {got['f1']:.6f}, balanced accuracy {bal:.6f}, roc_auc "
+        f"{auc:.9f} (|Δ| {gap_auc:.3g}, {len(np.unique(s.cpu().numpy()))} distinct scores), "
+        f"log_loss {ll:.6f} ({METRIC_ROWS} rows, 10 classes), r2 "
+        f"{metrics.r2_score(yr, pr):.6f} [{card}]")
+
+
+def ensemble_phase(torch, device, card):
+    """Phase 16 end to end; returns its lines of the kernels table."""
+    from dask_ml_tpu_torch.ops import ensemble as k5p
+
+    compare_group(torch, k5p, device)
+    X, targets, fits, launches = ensemble_main_path(torch, k5p, device, card)
+    out = group_table(torch, k5p, X, targets, launches, card)
+    ens_metrics(torch, X, targets, fits, card)
+    del X, targets, fits
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     yardstick = None
     for flag in ("--k4-yardstick", "--k5-yardstick", "--k7k10-yardstick", "--sweep-yardstick"):
@@ -6174,6 +6646,10 @@ def main() -> int:
     if "--prep-phase" in sys.argv:
         _build.build(["histogram", "naive_bayes"])
         print(json.dumps({"kernels": prep_phase(torch, device, card)}), flush=True)
+        return 0
+    if "--ensemble-phase" in sys.argv:
+        _build.build(["sgd"])
+        print(json.dumps({"kernels": ensemble_phase(torch, device, card)}), flush=True)
         return 0
 
     # 2. build every kernel source, in parallel
@@ -6254,6 +6730,9 @@ def main() -> int:
     # 15. preprocessing, SimpleImputer and GaussianNB: the quantile sketch
     # through K12, the class moments through K9, the likelihood through K9b
     out += prep_phase(torch, device, card)
+
+    # 16. the blockwise voting ensembles through K5', and the rest of metrics/
+    out += ensemble_phase(torch, device, card)
 
     print(json.dumps({"kernels": out}), flush=True)
     print(card, flush=True)

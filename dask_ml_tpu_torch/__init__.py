@@ -10,13 +10,15 @@ Ported: KMeans, MiniBatchKMeans and SpectralClustering; LogisticRegression,
 LinearRegression, PoissonRegression, SGDClassifier and SGDRegressor; PCA,
 TruncatedSVD and IncrementalPCA; the preprocessing estimators (the scalers,
 QuantileTransformer, Normalizer, PolynomialFeatures, the encoders and
-BlockTransformer); SimpleImputer and GaussianNB; Pipeline, the searches,
-Incremental and ParallelPostFit; and the ``*_from_reference`` converters.
+BlockTransformer); SimpleImputer and GaussianNB; BlockwiseVotingClassifier
+and BlockwiseVotingRegressor; the metrics and scorers; Pipeline, the
+searches, Incremental and ParallelPostFit; and the ``*_from_reference``
+converters.
 """
 
 from .cluster import KMeans, MiniBatchKMeans, SpectralClustering
 from .convert import (
-    gaussian_nb_from_reference, incremental_pca_from_reference, kmeans_from_reference,
+    blockwise_from_reference, gaussian_nb_from_reference, incremental_pca_from_reference, kmeans_from_reference,
     linear_regression_from_reference, logistic_regression_from_reference,
     max_abs_scaler_from_reference, min_max_scaler_from_reference, pca_from_reference,
     poisson_regression_from_reference, quantile_transformer_from_reference,
@@ -24,6 +26,7 @@ from .convert import (
     simple_imputer_from_reference, standard_scaler_from_reference, truncated_svd_from_reference)
 from .core import get_device, set_device, shard_rows
 from .decomposition import PCA, IncrementalPCA, TruncatedSVD
+from .ensemble import BlockwiseVotingClassifier, BlockwiseVotingRegressor
 from .impute import SimpleImputer
 from .linalg import randomized_svd, tsqr, tsqr_svd
 from .linear_model import (
@@ -39,7 +42,8 @@ from .model_selection import (
     RandomizedSearchCV, SuccessiveHalvingSearchCV, train_test_split)
 from .wrappers import Incremental, ParallelPostFit
 
-__all__ = ["BlockTransformer", "Categorizer", "DummyEncoder", "GaussianNB", "GridSearchCV", "HyperbandSearchCV", "Incremental", "IncrementalPCA",
+__all__ = ["BlockTransformer", "BlockwiseVotingClassifier", "BlockwiseVotingRegressor",
+           "Categorizer", "DummyEncoder", "GaussianNB", "GridSearchCV", "HyperbandSearchCV", "Incremental", "IncrementalPCA",
            "IncrementalSearchCV", "InverseDecaySearchCV", "KMeans", "LabelEncoder",
            "LinearRegression", "LogisticRegression", "MaxAbsScaler", "MinMaxScaler",
            "MiniBatchKMeans", "Normalizer", "OneHotEncoder", "OrdinalEncoder", "PCA",
@@ -47,7 +51,7 @@ __all__ = ["BlockTransformer", "Categorizer", "DummyEncoder", "GaussianNB", "Gri
            "QuantileTransformer", "RandomizedSearchCV", "RobustScaler", "SGDClassifier",
            "SGDRegressor", "SimpleImputer", "SpectralClustering", "StandardScaler",
            "SuccessiveHalvingSearchCV",
-           "TruncatedSVD", "get_device", "make_pipeline",
+           "TruncatedSVD", "blockwise_from_reference", "get_device", "make_pipeline",
            "gaussian_nb_from_reference", "incremental_pca_from_reference",
            "kmeans_from_reference", "linear_regression_from_reference",
            "logistic_regression_from_reference", "max_abs_scaler_from_reference",

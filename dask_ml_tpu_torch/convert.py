@@ -13,6 +13,7 @@ import torch
 from .cluster.k_means import KMeans
 from .core.mesh import get_device
 from .decomposition import PCA, IncrementalPCA, TruncatedSVD
+from .ensemble import BlockwiseVotingClassifier, BlockwiseVotingRegressor
 from .linear_model._sgd import SGDClassifier, SGDRegressor
 from .impute import SimpleImputer
 from .linear_model.glm import LinearRegression, LogisticRegression, PoissonRegression
@@ -259,6 +260,40 @@ def sgd_regressor_from_reference(arrays, *, device=None, **params) -> SGDRegress
     est._state = _sgd_state(arrays, 1, device)
     est.n_features_in_ = int(arrays["n_features_in_"])
     return est
+
+
+def blockwise_from_reference(arrays, *, device=None, **params):
+    """A fitted port ``BlockwiseVotingClassifier`` (an ``SGDClassifier``
+    ``estimator``) or ``BlockwiseVotingRegressor`` (an ``SGDRegressor``)
+    from the reference's, predicting what it predicts.
+
+    ``arrays`` maps ``estimators_`` to a list of each member's fitted
+    arrays (``coef_``, ``intercept_``, ``t_``, ``n_features_in_``,
+    ``n_iter_`` and, for a classifier, ``classes_``, as
+    :func:`sgd_classifier_from_reference` takes them), ``n_features_in_``,
+    and for a classifier the ensemble's ``classes_``; ``params`` go to the
+    constructor, the port's ``estimator`` among them.
+    """
+    est = params.get("estimator")
+    if not isinstance(est, (SGDClassifier, SGDRegressor)):
+        raise ValueError("estimator must be the port's SGDClassifier or SGDRegressor")
+    classifier = isinstance(est, SGDClassifier)
+    member = sgd_classifier_from_reference if classifier else sgd_regressor_from_reference
+    needed = {"estimators_", "n_features_in_"} | ({"classes_"} if classifier else set())
+    missing = needed - set(arrays)
+    if missing:
+        raise ValueError(f"missing fitted attributes: {sorted(missing)}")
+    ens = (BlockwiseVotingClassifier if classifier else BlockwiseVotingRegressor)(**params)
+    ens.estimators_ = []
+    for a in arrays["estimators_"]:
+        m = member(a, device=device, **est.get_params(deep=False))
+        if "n_iter_" in a:
+            m.n_iter_ = int(a["n_iter_"])
+        ens.estimators_.append(m)
+    ens.n_features_in_ = int(arrays["n_features_in_"])
+    if classifier:
+        ens.classes_ = np.asarray(arrays["classes_"])
+    return ens
 
 
 def _fitted(cls, arrays, device, params, tensors, ints=(), optional=()):

@@ -102,6 +102,25 @@
 //     order as sgd_step's.  Records and the state written inside the
 //     launch are read through L2 (__ldcg), never from a block's L1.
 // Row indices are 64-bit.
+//
+// K5' (sgd_group_step): an ensemble's epoch, M members each taking one step
+// on its own window of x.  Replaces dask_ml_tpu/ensemble/_blockwise.py ::
+// _ensemble_epoch (:64, jax.vmap of sgd_step over (state, own block, own
+// mask, hyperparameters)).  Member m reads rows st[m] .. st[m] + B of x and
+// y in place (the reference stacks copies of the windows: at 8 x 2^20 x 64
+// a second X, twice the step's own traffic); windows may overlap, so an
+// offset a member, not a uniform stride.  Bound on an H100: the windows'
+// rows once, M*B*(d + K + 1)*4 bytes (8 x 2^20 x 64, K = 1: 2.215 GB,
+// 0.661 ms at 3.35 TB/s; K = 10: 2.517 GB, 0.751 ms), against 4*M*B*d*K
+// flops: memory-bound.  One launch an epoch: grid row blockIdx.y is a
+// member, its gridDim.x blocks (the card's resident blocks shared out
+// over the members) take its tiles with K4's pieces: at K = 1, d <= 256
+// step_kernel itself (its TMA ring and its ticketed finish, GROUP: the
+// member's window, state, records and ticket); at K in 2..16, d <= 256
+// tc_record, else row_record, then group_kernel's finish: a ticket a
+// member, its last block summing the member's records in block order and
+// updating its state.  No float atomics, so a shape's bits do not depend on
+// timing.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -896,7 +915,31 @@ struct StepArgs {
   float* part;       // gridDim.x records of 3 + d floats, (3 + d) rounded up to 4 apart
   unsigned* ticket;  // 0 between launches; counts the blocks whose record is written
   float* out;        // (mean loss, sum of the mask)
+  // K5' (a member a grid row, blockIdx.y): member m's window starts at row
+  // st[m] of x and y, its mask is row m of a (M, B) array mrow floats
+  // apart; its state, hyperparameters, records, ticket and pair follow
+  // member 0's (to_member)
+  const long long* st;
+  long long mrow;
 };
+
+// K5': the arguments of member blockIdx.y, from those of the whole group
+// (K = 1: coef (M, d), intercept and t (M,), hyper (M, 7), out (M, 2); the
+// records of a member gridDim.x apart, rec floats each)
+__device__ __forceinline__ void to_member(StepArgs& a, int rec) {
+  const int m = blockIdx.y;
+  const long long s0 = a.st[m];
+  a.x += s0 * a.xs;
+  a.y += s0 * a.ys;
+  a.mask += m * a.mrow;
+  a.coef += (long long)m * a.d;
+  a.intercept += m;
+  a.t += m;
+  a.hyper += 7 * m;
+  a.part += (long long)m * gridDim.x * rec;
+  a.ticket += m;
+  a.out += 2 * m;
+}
 
 // The copies of tile `tile` (rows tile*R ..) into stage st: x by one bulk
 // copy on the stage's mbarrier where the tile is one run of bytes, by
@@ -945,11 +988,14 @@ __device__ __forceinline__ void step_issue(const StepArgs& a, const StepLayout& 
 // it back to 0 at the last block); the last block sums the records in a
 // fixed order and applies the penalty, the schedule and the update as
 // finalize_kernel.  No float atomics: a shape's bits do not depend on
-// timing.
-template <typename L, int NJ, bool GRAD>
+// timing.  GROUP (K5'): grid row blockIdx.y is member m of an ensemble,
+// stepping on its own window of x with its own state, records and ticket
+// (to_member); gridDim.x blocks a member.
+template <typename L, int NJ, bool GRAD, bool GROUP = false>
 __global__ void __launch_bounds__(ST, SK_PER_SM) step_kernel(StepArgs a) {
   constexpr int U = rows_a_group(NJ);
   extern __shared__ __align__(128) float sm[];
+  if constexpr (GROUP) to_member(a, (3 + a.d + 3) & ~3);
   const int d = a.d, rec = 3 + d, used = GRAD ? rec : 2;
   const StepLayout s = step_layout(d);
   const int R = s.R, DS = s.ds;
@@ -1287,6 +1333,96 @@ __global__ void __launch_bounds__(T, PATH == TC_PATH ? 3 : 4) epoch_kernel(Epoch
   if (blockIdx.x == 0 && threadIdx.x == 0) *a.t = tv;
 }
 
+// ---------------------------------------- K5': an ensemble epoch, one launch
+
+struct GroupArgs {
+  const float* x;      // (n, d), rows xs apart
+  long long xs;
+  const float* y;      // (n, K), rows ys apart
+  long long ys;
+  const float* mask;   // (M, B): member m's row mrow apart, elements ms apart
+  long long mrow, ms;
+  const long long* st; // (M,): member m's window is rows st[m] .. st[m] + B of x and y
+  float* coef;         // (M, d, K)
+  float* intercept;    // (M, K)
+  float* t;            // (M,)
+  const float* hyper;  // (M, 7)
+  long long B;         // rows a window
+  int d, K, penalty, schedule, fit_intercept;
+  float* part;         // M * gridDim.x records of 2 + K + d*K floats, member-major
+  unsigned* ticket;    // (M,), 0 between launches
+  float* out;          // (M, 2): each member's (mean loss, sum of its mask)
+};
+
+// One ensemble epoch off the K = 1 register path: grid row blockIdx.y is
+// member m, its gridDim.x blocks take the tiles of its window as the
+// tensor-core path (PATH = TC_PATH, P1 = NN, P2 = UPW) or the row path
+// (ROW_PATH, P1 = SACC) takes a block's, and write their records.  Then the
+// member's finish, in the same launch: each block takes a ticket of its
+// member's (a release fence, then atomicInc, which the last block wraps
+// back to 0), and the member's last block sums its records in block order
+// (thread e the element e, e + T, ...) and applies the penalty, the schedule
+// and the update as finalize_kernel.  No float atomics.
+template <typename L, int PATH, int P1, int P2>
+__global__ void __launch_bounds__(T) group_kernel(GroupArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int last;
+  const int m = blockIdx.y, bid = blockIdx.x, nb = gridDim.x, d = a.d, K = a.K;
+  const long long rec = 2 + K + (long long)d * K, s0 = a.st[m];
+  const float* x = a.x + s0 * a.xs;
+  const float* y = a.y + s0 * a.ys;
+  const float* mask = a.mask + m * a.mrow;
+  float* coef = a.coef + (long long)m * d * K;
+  float* intercept = a.intercept + (long long)m * K;
+  const float* hyper = a.hyper + 7 * m;
+  float* recs = a.part + (long long)m * nb * rec;
+  if constexpr (PATH == TC_PATH) {
+    const TcLayout s = tc_layout(d, K, P1);
+    for (int e = threadIdx.x; e < s.total; e += T) sm[e] = 0.f;
+    __syncthreads();
+    tc_load_state<P1>(sm, s, coef, intercept, d, K);
+    __syncthreads();
+    tc_record<L, P1, P2, true>(x, a.xs, y, a.ys, mask, a.ms, hyper, a.B, d, K, recs + bid * rec,
+                               bid, nb, sm);
+  } else {
+    row_record<L, true, P1 != 0, true>(x, a.xs, y, a.ys, mask, a.ms, coef, intercept, hyper,
+                                       a.B, d, K, recs + bid * rec, bid, nb, sm);
+  }
+  __syncthreads();  // the block's record is written; its ticket, with a release fence
+  if (threadIdx.x == 0) {
+    fence_acq_rel_gpu();
+    last = atomicInc(a.ticket + m, nb - 1) == (unsigned)(nb - 1);
+    if (last) fence_acq_rel_gpu();
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // the member's last block: every thread sums the count itself, in block order
+  float cnt = 0.f;
+  for (int b = 0; b < nb; ++b) cnt += __ldcg(recs + b * rec + 1);
+  const float count = cnt > 0.f ? cnt : 1.f;
+  const float tv = __ldcg(a.t + m);
+  const float alpha = hyper[ALPHA], l1r = hyper[L1_RATIO], eta = eta_at(a.schedule, hyper, tv);
+  __syncthreads();  // every thread has read t
+  if (threadIdx.x == 0) {
+    float l = 0.f;
+    for (int b = 0; b < nb; ++b) l += __ldcg(recs + b * rec);
+    a.out[2 * m] = l / count;
+    a.out[2 * m + 1] = cnt;
+    a.t[m] = tv + 1.f;
+  }
+  for (long long e = threadIdx.x; e < rec - 2; e += T) {
+    float s = 0.f;
+    for (int b = 0; b < nb; ++b) s += __ldcg(recs + b * rec + 2 + e);
+    const float g0 = s / count;
+    if (e < K) {
+      if (a.fit_intercept) intercept[e] = __ldcg(intercept + e) - eta * g0;
+    } else {
+      coef[e - K] = stepped(__ldcg(coef + e - K), g0, a.penalty, alpha, l1r, eta);
+    }
+  }
+}
+
 // --------------------------------------------------------------- choice
 
 template <typename L, bool GRAD>
@@ -1334,6 +1470,37 @@ const void* select_kernel(int loss, const Plan& p, int kind) {
     case 3: return kernel_for<ModifiedHuber>(p, kind);
     case 4: return kernel_for<SquaredError>(p, kind);
     case 5: return kernel_for<Huber>(p, kind);
+  }
+  return nullptr;
+}
+
+// K5': the kernel of a group plan (STEP_PATH, TC_PATH or ROW_PATH)
+template <typename L>
+const void* group_fn(const Plan& p) {
+  if (p.path == STEP_PATH)
+    return p.nj == 2 ? (const void*)step_kernel<L, 2, true, true>
+                     : (const void*)step_kernel<L, 8, true, true>;
+  if (p.path == ROW_PATH)
+    return p.sacc ? (const void*)group_kernel<L, ROW_PATH, 1, 0>
+                  : (const void*)group_kernel<L, ROW_PATH, 0, 0>;
+  if constexpr (L::kClassifier) {
+    if (p.nj == 1)
+      return p.wide ? (const void*)group_kernel<L, TC_PATH, 1, 2>
+                    : (const void*)group_kernel<L, TC_PATH, 1, 1>;
+    return p.wide ? (const void*)group_kernel<L, TC_PATH, 2, 4>
+                  : (const void*)group_kernel<L, TC_PATH, 2, 1>;
+  }
+  return nullptr;
+}
+
+const void* select_group(int loss, const Plan& p) {
+  switch (loss) {
+    case 0: return group_fn<LogLoss>(p);
+    case 1: return group_fn<Hinge>(p);
+    case 2: return group_fn<SquaredHinge>(p);
+    case 3: return group_fn<ModifiedHuber>(p);
+    case 4: return group_fn<SquaredError>(p);
+    case 5: return group_fn<Huber>(p);
   }
   return nullptr;
 }
@@ -1478,6 +1645,8 @@ int sgd_step(const void* plan, int loss, int grad, int penalty, int schedule, in
     a.part = (float*)scratch;
     a.ticket = (unsigned*)ticket;
     a.out = (float*)out;
+    a.st = nullptr;
+    a.mrow = 0;
     void* args[] = {(void*)&a};
     return (int)cudaLaunchKernel(fn, dim3((unsigned)(grad ? p.blocks : p.loss_blocks)), dim3(ST),
                                  args, (size_t)p.smem, s);
@@ -1539,6 +1708,147 @@ int sgd_epoch_run(const void* plan, int loss, int penalty, int schedule, int fit
   void* args[] = {(void*)&a};
   return (int)cudaLaunchCooperativeKernel(fn, dim3((unsigned)p.blocks), dim3(T), args,
                                           (size_t)p.smem, (cudaStream_t)stream);
+}
+
+// K5': plans an ensemble epoch of M members, each a window of B rows, d
+// features and K target columns, into plan (9 int64s: plan[3] is the
+// blocks a member, plan[6] the floats of scratch).  K = 1, d <= 256: the
+// step kernel's layout (STEP_PATH); K in 2..16, d <= 256: the tensor-core
+// record (TC_PATH); else the row record (ROW_PATH).  A member's blocks are
+// the card's resident blocks shared out over the members, at most one a
+// tile (a row on the row path).  The plan depends only on (loss, B, d, K,
+// M) and the card, so a shape's sums are taken in the same order every
+// time.
+int sgd_group_plan(int loss, long long B, int d, int K, int M, void* plan) {
+  Plan* p = (Plan*)plan;
+  if (loss < 0 || loss > 5 || d < 1 || K < 1 || B < 1 || M < 1 || M > 65535 ||
+      (loss >= 4 && K != 1))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long rec = 2 + K + (long long)d * K;
+  p->rec = rec;
+  p->wide = 0;
+  p->sacc = 0;
+  long long units, stride = rec;  // stride: floats between two records
+  int threads = T;
+  if (K == 1 && d <= 256) {
+    p->path = STEP_PATH;
+    p->nj = d <= 64 ? 2 : 8;
+    const StepLayout s = step_layout(d);
+    p->smem = (long long)sizeof(float) * s.total;
+    units = (B + s.R - 1) / s.R;
+    stride = (3 + d + 3) & ~3;
+    threads = ST;
+  } else if (K <= 16 && d <= TC_MAX_D) {
+    p->path = TC_PATH;
+    p->nj = K <= 8 ? 1 : 2;
+    p->wide = d > 64;
+    const TcLayout s = tc_layout(d, K, (int)p->nj);
+    p->smem = (long long)sizeof(float) * s.total;
+    units = (B + s.R - 1) / s.R;
+  } else {
+    p->path = ROW_PATH;
+    p->nj = 0;
+    const long long sacc_bytes = (long long)sizeof(float) * (d + K + rec);
+    p->sacc = sacc_bytes <= SMEM_LIMIT;
+    p->smem = p->sacc ? sacc_bytes : (long long)sizeof(float) * (d + K);
+    units = B;
+  }
+  const void* fn = select_group(loss, *p);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  if (p->smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, (size_t)p->smem);
+  if (err != cudaSuccess) return (int)err;
+  if (p->path == STEP_PATH && per_sm > SK_PER_SM) per_sm = SK_PER_SM;
+  long long nb = (long long)sms * (per_sm < 1 ? 1 : per_sm) / M;
+  if (nb > units) nb = units;
+  if (nb > SCRATCH_FLOATS / (M * stride)) nb = SCRATCH_FLOATS / (M * stride);
+  if (nb < 1) nb = 1;
+  p->blocks = nb;
+  p->loss_blocks = nb;
+  p->scratch = M * nb * stride;
+  return (int)cudaSuccess;
+}
+
+// K5': one SGD step of each of the M members of an ensemble on its own
+// window, in one launch (a group plan of the same shape).  x (n, d) and y
+// (n, K) float32 with row strides xs, ys (elements) and contiguous rows;
+// st (M,) int64: member m's window is rows st[m] .. st[m] + B (read in
+// place, windows may overlap); mask (M, B) float32, member m's row mrow
+// apart, elements ms apart; coef (M, d, K), intercept (M, K), t (M,),
+// hyper (M, 7) and out (M, 2) float32, contiguous, updated in place as
+// sgd_step's, a member each.  scratch: plan[6] floats; tickets: M unsigned,
+// 0 (each launch leaves them 0).
+int sgd_group_step(const void* plan, int loss, int penalty, int schedule, int fit_intercept,
+                   const void* x, long long xs, const void* y, long long ys, const void* mask,
+                   long long mrow, long long ms, const void* st, void* coef, void* intercept,
+                   void* t, const void* hyper, long long B, int d, int K, int M, void* scratch,
+                   void* tickets, void* out, void* stream) {
+  const Plan p = *(const Plan*)plan;
+  const void* fn = select_group(loss, p);
+  if (fn == nullptr || penalty < 0 || penalty > 3 || schedule < 0 || schedule > 3 || M < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)p.blocks, (unsigned)M);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (p.path == STEP_PATH) {
+    const bool rows16 = (d & 3) == 0 && (xs & 3) == 0 && ((uintptr_t)x & 15) == 0;
+    StepArgs a;
+    a.x = (const float*)x;
+    a.xs = xs;
+    a.y = (const float*)y;
+    a.ys = ys;
+    a.mask = (const float*)mask;
+    a.ms = ms;
+    a.coef = (float*)coef;
+    a.intercept = (float*)intercept;
+    a.t = (float*)t;
+    a.hyper = (const float*)hyper;
+    a.B = B;
+    a.d = d;
+    a.penalty = penalty;
+    a.schedule = schedule;
+    a.fit_intercept = fit_intercept;
+    a.xmode = !rows16 ? X_FLOATS : xs == d ? X_TILE : X_ROWS;
+    a.part = (float*)scratch;
+    a.ticket = (unsigned*)tickets;
+    a.out = (float*)out;
+    a.st = (const long long*)st;
+    a.mrow = mrow;
+    void* args[] = {(void*)&a};
+    return (int)cudaLaunchKernel(fn, grid, dim3(ST), args, (size_t)p.smem, s);
+  }
+  GroupArgs g;
+  g.x = (const float*)x;
+  g.xs = xs;
+  g.y = (const float*)y;
+  g.ys = ys;
+  g.mask = (const float*)mask;
+  g.mrow = mrow;
+  g.ms = ms;
+  g.st = (const long long*)st;
+  g.coef = (float*)coef;
+  g.intercept = (float*)intercept;
+  g.t = (float*)t;
+  g.hyper = (const float*)hyper;
+  g.B = B;
+  g.d = d;
+  g.K = K;
+  g.penalty = penalty;
+  g.schedule = schedule;
+  g.fit_intercept = fit_intercept;
+  g.part = (float*)scratch;
+  g.ticket = (unsigned*)tickets;
+  g.out = (float*)out;
+  void* args[] = {(void*)&g};
+  return (int)cudaLaunchKernel(fn, grid, dim3(T), args, (size_t)p.smem, s);
 }
 
 }  // extern "C"

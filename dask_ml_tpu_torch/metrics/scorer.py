@@ -1,12 +1,15 @@
 """Scorers: the port of ``dask_ml_tpu/metrics/scorer.py`` (``make_scorer``,
-``get_scorer``, ``check_scoring``, the passthrough scorer), for the names
-whose metrics the port has: ``accuracy`` and ``r2``.  The reference's other
-names raise ``NotImplementedError`` until their metrics are ported."""
+``get_scorer``, ``check_scoring``, the passthrough scorer and the
+reference's ``SCORERS``)."""
 
 from __future__ import annotations
 
-from .classification import accuracy_score
-from .regression import r2_score
+from functools import partial
+
+from .classification import (
+    accuracy_score, balanced_accuracy_score, f1_score, log_loss, precision_score, recall_score,
+    roc_auc_score)
+from .regression import mean_absolute_error, mean_squared_error, r2_score
 
 __all__ = ["SCORERS", "check_scoring", "get_scorer", "make_scorer"]
 
@@ -27,16 +30,39 @@ def make_scorer(score_func, greater_is_better: bool = True, **kwargs):
     return scorer
 
 
+def _neg_log_loss_scorer(estimator, X, y):
+    return -log_loss(y, estimator.predict_proba(X))
+
+
+def _roc_auc_scorer(estimator, X, y):
+    """The AUC of ``decision_function`` where the estimator has one, else of
+    the positive class's probability."""
+    if hasattr(estimator, "decision_function"):
+        s = estimator.decision_function(X)
+    else:
+        s = estimator.predict_proba(X)[:, 1]
+    return roc_auc_score(y, s)
+
+
 SCORERS = {
     "accuracy": make_scorer(accuracy_score),
+    "f1": make_scorer(f1_score),
+    "f1_macro": make_scorer(partial(f1_score, average="macro")),
+    "f1_micro": make_scorer(partial(f1_score, average="micro")),
+    "f1_weighted": make_scorer(partial(f1_score, average="weighted")),
+    "precision": make_scorer(precision_score),
+    "precision_macro": make_scorer(partial(precision_score, average="macro")),
+    "recall": make_scorer(recall_score),
+    "recall_macro": make_scorer(partial(recall_score, average="macro")),
+    "roc_auc": _roc_auc_scorer,
+    "balanced_accuracy": make_scorer(balanced_accuracy_score),
+    "neg_mean_squared_error": make_scorer(mean_squared_error, greater_is_better=False),
+    "neg_root_mean_squared_error": make_scorer(partial(mean_squared_error, squared=False),
+                                               greater_is_better=False),
+    "neg_mean_absolute_error": make_scorer(mean_absolute_error, greater_is_better=False),
     "r2": make_scorer(r2_score),
+    "neg_log_loss": _neg_log_loss_scorer,
 }
-
-#: the reference's other scorer names, whose metrics are not ported yet
-_NOT_PORTED = ("f1", "f1_macro", "f1_micro", "f1_weighted", "precision", "precision_macro",
-               "recall", "recall_macro", "roc_auc", "balanced_accuracy",
-               "neg_mean_squared_error", "neg_root_mean_squared_error",
-               "neg_mean_absolute_error", "neg_log_loss")
 
 
 def get_scorer(scoring):
@@ -45,9 +71,6 @@ def get_scorer(scoring):
         return scoring
     if scoring in SCORERS:
         return SCORERS[scoring]
-    if scoring in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {scoring!r} scorer is not ported yet (ROADMAP: [port-rest] metrics)")
     raise ValueError(f"{scoring!r} is not a valid scoring value. Valid options: "
                      f"{sorted(SCORERS)}")
 

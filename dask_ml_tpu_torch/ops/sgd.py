@@ -179,6 +179,14 @@ def sgd_update_ref(x, y, mask, coef, intercept, t, hyper, *, loss, penalty, sche
     """Plain version of :func:`sgd_update`, in the reference's arithmetic
     (each row's dℓ divided by the count before the product)."""
     sgd_update_ref.calls += 1
+    return update_ref(x, y, mask, coef, intercept, t, hyper, loss=loss, penalty=penalty,
+                      schedule=schedule, fit_intercept=fit_intercept, out=out)
+
+
+def update_ref(x, y, mask, coef, intercept, t, hyper, *, loss, penalty, schedule,
+               fit_intercept=True, out=None):
+    """The arithmetic of :func:`sgd_update_ref`, uncounted: the step of each
+    member of K5′'s plain version (``ops/ensemble.py``) too."""
     ell, dmarg, m, total, count = _masked_terms(x, y, mask, coef, intercept, hyper, loss)
     mean_loss = torch.sum(ell * m) / count
     dmarg = dmarg * m / count

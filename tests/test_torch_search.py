@@ -274,8 +274,7 @@ def test_what_is_not_ported_raises():
     hb = ms.HyperbandSearchCV(SGDClassifier(), ALPHAS, max_iter=3, checkpoint="ck")
     with pytest.raises(NotImplementedError, match="checkpoint"):
         hb.fit(X, y, classes=[0, 1])
-    with pytest.raises(NotImplementedError, match=r"\[port-rest\]"):
-        scorer.get_scorer("f1")
+    assert scorer.get_scorer("f1") is scorer.SCORERS["f1"]  # ported with the metrics
     with pytest.raises(ValueError, match="not a valid scoring"):
         scorer.get_scorer("nope")
     with pytest.raises(TypeError, match="no score method"):

@@ -28,6 +28,11 @@ sum over the steps of eta·max|g| (each step's own tolerance, summed), plus
 2^-22 of each element a step, with the hinge allowance of each step;
 t exactly.  The tensor-core path (K in 2..16, d <= 256) is held by the
 step's tolerance at every K and d of its layout's edges.
+
+K5′ (``ops/ensemble.py :: group_step``: ``sgd_group_step`` in the same
+source, an ensemble's M steps in one launch, each member on its own window
+of x) is held the same way a member at a time, on ragged windows with an
+all-padding member, at widths of all three of its paths.
 """
 
 import shutil
@@ -286,3 +291,75 @@ def test_epoch_of_one_minibatch_raises(cuda):
     with pytest.raises(ValueError, match="sgd_update"):
         sgd.sgd_epoch(xs, ys, ms, coef, intercept, torch.tensor(0.0, device=cuda),
                       _hyper(cuda), loss="log_loss", penalty="l2", schedule="optimal")
+
+
+# ------------------------------------------------------------------- K5′
+
+def _group_case(M, n, d, K, loss, seed, device):
+    """x (n, d) cut into M ragged spans as the ensemble cuts it (windows as
+    long as the longest span, the last pulled left over its neighbour),
+    masks in [0, 2) with a tenth 0 and the last member's own rows all
+    padding, a state and per-member hyperparameters."""
+    x, y, mask, _, _ = _inputs(n, d, K, loss, seed, device)
+    bounds = [n * i // M for i in range(M + 1)]
+    spans = [(a, b) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+    size = max(b - a for a, b in spans)
+    starts = tuple(min(a, n - size) for a, _ in spans)
+    mask[spans[-1][0]:] = 0.0
+    valid = torch.zeros(M, size, device=device)
+    for i, ((lo, hi), st) in enumerate(zip(spans, starts)):
+        valid[i, lo - st:hi - st] = 1.0
+    masks = torch.stack([mask[s:s + size] for s in starts]) * valid
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    coef = torch.randn(M, d, K, generator=gen, device=device) / d ** 0.5
+    intercept = 0.1 * torch.randn(M, K, generator=gen, device=device)
+    hypers = torch.stack([_hyper(device)] * M)
+    hypers[:, 0] *= torch.linspace(0.5, 2.0, M, device=device)
+    return x, y, starts, masks, coef, intercept, hypers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M, n, d, K, loss, penalty, schedule", [
+    (2, 1999, 3, 1, "log_loss", "l2", "optimal"),
+    (5, 20481, 64, 1, "hinge", "l1", "constant"),
+    (3, 37033, 64, 10, "modified_huber", "elasticnet", "invscaling"),
+    (4, 3993, 130, 1, "huber", None, "adaptive"),
+    (3, 2331, 300, 1, "squared_error", "l2", "optimal"),
+    (2, 1109, 20, 17, "squared_hinge", "l2", "constant"),
+])
+def test_group_step_against_plain(cuda, M, n, d, K, loss, penalty, schedule):
+    """K5′ (one launch for the M members) against its plain version taken in
+    float64: each member's loss and count rtol TOL, coef and intercept to
+    TOL of the member's largest step plus their float32 rounding (hinge's
+    kink rows allowed their jump), t exactly; a repeat gives the same bits."""
+    from dask_ml_tpu_torch.ops import ensemble
+
+    x, y, starts, masks, coef, intercept, hypers = _group_case(M, n, d, K, loss, M + d, cuda)
+    t0 = torch.full((M,), 7.0, device=cuda)
+    kw = dict(loss=loss, penalty=penalty, schedule=schedule)
+    f64 = torch.float64
+    ref = [v.to(f64) for v in (coef, intercept, t0)]
+    out64 = ensemble.group_step_ref(x.to(f64), y.to(f64), starts, masks.to(f64), *ref,
+                                    hypers.to(f64), **kw)
+    before = ensemble.group_step.launches
+    runs = []
+    for _ in range(2):
+        state = [v.clone() for v in (coef, intercept, t0)]
+        runs.append(state + [ensemble.group_step(x, y, starts, masks, *state, hypers, **kw)])
+    assert ensemble.group_step.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    c, b, t, out = runs[0]
+    torch.testing.assert_close(out.to(f64), out64, rtol=TOL, atol=0.0)
+    assert torch.equal(t.to(f64), ref[2])
+    for m, s in enumerate(starts):
+        eta = float(sgd.learning_rate(schedule, t0[m].to(f64), hypers[m].to(f64)))
+        allow = 0.0
+        if loss == "hinge":
+            rows = slice(s, s + masks.shape[1])
+            allow = _hinge_allowance(x[rows], y[rows], masks[m], coef[m], intercept[m], eta,
+                                     float(out64[m, 1]))
+        step = max(float((coef[m].to(f64) - ref[0][m]).abs().max()),
+                   float((intercept[m].to(f64) - ref[1][m]).abs().max()))
+        for got, want in ((c[m], ref[0][m]), (b[m], ref[1][m])):
+            tol = TOL * step + 2.0 ** -22 * want.abs() + allow
+            assert bool(((got.to(f64) - want).abs() <= tol).all())

@@ -31,6 +31,7 @@ from dask_ml_tpu_torch import (
 from dask_ml_tpu_torch import programs
 from dask_ml_tpu_torch.core import mesh, shard_rows
 from dask_ml_tpu_torch.datasets import stream_classification_blocks
+from dask_ml_tpu_torch.metrics import f1_score
 from dask_ml_tpu_torch.wrappers import NotFittedError
 
 TOL = 1e-4
@@ -185,16 +186,16 @@ def test_parallel_post_fit_predicts_like_the_reference():
     assert port.score(X, y) == pytest.approx(ref.score(X, y), abs=1e-6)
     scorer = lambda est, X_, y_: -1.0  # noqa: E731
     assert ParallelPostFit(SGDClassifier(), scoring=scorer).fit(X, y).score(X, y) == -1.0
-    # a string scoring goes through check_scoring; names not ported raise there
+    # a string scoring goes through check_scoring
     acc = ParallelPostFit(SGDClassifier(**kw), scoring="accuracy").fit(X, y).score(X, y)
     assert acc == pytest.approx(port.score(X, y), abs=1e-12)
-    with pytest.raises(NotImplementedError, match="port-rest"):
-        ParallelPostFit(SGDClassifier(), scoring="f1").fit(X, y).score(X, y)
+    f1 = ParallelPostFit(SGDClassifier(**kw), scoring="f1_macro").fit(X, y).score(X, y)
+    assert f1 == pytest.approx(f1_score(y, port.predict(X), average="macro"), abs=1e-12)
     with pytest.raises(ValueError, match="not a valid scoring value"):
         ParallelPostFit(SGDClassifier(), scoring="nonsense").fit(X, y).score(X, y)
 
 
-@pytest.mark.parametrize("scoring", ["accuracy", "r2"])
+@pytest.mark.parametrize("scoring", ["accuracy", "r2", "f1", "roc_auc"])
 def test_parallel_post_fit_scores_a_string_scoring_like_the_reference(scoring):
     X, y = _data(8)
     kw = dict(max_iter=5, tol=None)
